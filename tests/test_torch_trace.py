@@ -1,0 +1,155 @@
+"""The trace kernel module of the PyTorch port.
+
+On a CPU the wrapper runs the kernel's plain PyTorch version, which is held
+here to the JAX package's Pallas kernel run in interpret mode, with the JAX
+suite's own contracts (tests/test_pallas.py): at least 99.9% of colour values
+within 2e-3 and 99% within 1e-5, hit masks agreeing on more than 99.5% of
+pixels, and t within 5e-2 on 99.9% of the pixels both sides hit. The CUDA
+kernel itself is compared with the plain version by tests/test_torch_cuda.py
+(on a GPU) and by chip_smoke.py.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from gpgpuraytrace_tpu.kernels.trace import _render_pallas_raw
+from gpgpuraytrace_tpu.models.scene import RenderConfig as JaxConfig
+from gpgpuraytrace_tpu.models.scene import default_scene as jax_default_scene
+from gpgpuraytrace_tpu_torch import cli
+from gpgpuraytrace_tpu_torch.kernels import build
+from gpgpuraytrace_tpu_torch.kernels import trace as ktrace
+from gpgpuraytrace_tpu_torch.models.scene import RenderConfig
+from gpgpuraytrace_tpu_torch.utils.convert import scene_from_numpy
+from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+
+torch.set_num_threads(2)
+
+CFG = RenderConfig(height=64, width=128, max_steps=64, num_octaves=3)
+JCFG = JaxConfig(height=64, width=128, max_steps=64, num_octaves=3,
+                 use_pallas=True, interpret=True)
+
+
+def jax_scene_dict(scene):
+    flat, _ = jax.tree_util.tree_flatten_with_path(scene)
+    return {".".join(p.name for p in path): np.asarray(leaf) for path, leaf in flat}
+
+
+def assert_mostly_close(a, b, atol, frac, msg):
+    close = np.abs(np.asarray(a) - np.asarray(b)) <= atol
+    got = close.mean()
+    assert got >= frac, f"{msg}: only {100 * got:.3f}% within {atol} (need {100 * frac}%)"
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return scene_from_numpy(jax_scene_dict(jax_default_scene(num_octaves=3)))
+
+
+@pytest.fixture(scope="module")
+def port_full(scene):
+    return ktrace.render_kernel_raw(scene, CFG)
+
+
+@pytest.mark.parametrize(
+    "kw", [{}, {"march_eps_scale": 4.0}], ids=["default", "residual_verdict"]
+)
+def test_render_kernel_raw_matches_pallas_interpret(scene, kw):
+    launches = ktrace.trace_frame.launches
+    color, t, hit = ktrace.render_kernel_raw(scene, dataclasses.replace(CFG, **kw))
+    j_color, j_t, j_hit = _render_pallas_raw(
+        jax_default_scene(num_octaves=3), dataclasses.replace(JCFG, **kw)
+    )
+    # The plain version ran: a CPU tensor never launches the CUDA kernel.
+    assert ktrace.trace_frame.launches == launches == 0
+    assert tuple(color.shape) == (64, 128, 3) and hit.dtype == torch.bool
+    assert_mostly_close(color, j_color, 2e-3, 0.999, "image")
+    assert_mostly_close(color, j_color, 1e-5, 0.99, "image-exact")
+    hit, j_hit = hit.numpy(), np.asarray(j_hit)
+    agree = (hit == j_hit).mean()
+    assert agree > 0.995, f"hit masks differ on {100 * (1 - agree):.2f}% px"
+    both = hit & j_hit
+    assert_mostly_close(t.numpy()[both], np.asarray(j_t)[both], 5e-2, 0.999, "hit t")
+
+
+def test_row_band_equals_frame_slice(scene, port_full):
+    """A row band rendered with row0 != 0 equals that slice of the full frame
+    (its coarse pass renders the band's own halo rows)."""
+    band, t_band, _ = ktrace.render_kernel_raw(scene, CFG, row0=32.0, local_height=32)
+    np.testing.assert_allclose(band.numpy(), port_full[0].numpy()[32:64],
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(t_band.numpy(), port_full[1].numpy()[32:64],
+                               rtol=1e-4, atol=1e-5)
+
+
+def _inputs(scene, cfg=CFG):
+    packed, seed = pack_scene(scene, cfg.height, cfg.width)
+    prime = torch.full((cfg.height, cfg.width), cfg.t_min)
+    return packed.detach(), seed, prime
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["dtype", "shape", "seed_dtype", "noncontig", "prime_shape", "prime_missing",
+     "prime_unexpected"],
+)
+def test_trace_frame_rejects_bad_inputs(scene, case):
+    packed, seed, prime = _inputs(scene)
+    cfg = CFG
+    if case == "dtype":
+        packed = packed.double()
+    elif case == "shape":
+        packed = packed[:, :-1].contiguous()
+    elif case == "seed_dtype":
+        seed = seed.long()
+    elif case == "noncontig":
+        prime = torch.full((CFG.width, CFG.height), CFG.t_min).t()
+    elif case == "prime_shape":
+        prime = prime[:-1]
+    elif case == "prime_missing":
+        prime = None
+    else:
+        cfg = dataclasses.replace(CFG, prime_ds=0)
+    with pytest.raises(ValueError):
+        ktrace.trace_frame(packed, seed, cfg, CFG.height, prime)
+
+
+def test_trace_frame_is_forward_only(scene):
+    packed, seed, prime = _inputs(scene)
+    with pytest.raises(RuntimeError, match="forward only"):
+        ktrace.trace_frame(packed.requires_grad_(), seed, CFG, CFG.height, prime)
+
+
+@pytest.mark.parametrize(
+    "kw", [{"march_mode": "lod"}, {"march_bf16": True}, {"volumetric": True}],
+    ids=["lod", "bf16", "volumetric"],
+)
+def test_unported_variants_raise(scene, kw):
+    cfg = dataclasses.replace(CFG, prime_ds=0, **kw)
+    packed, seed, _ = _inputs(scene)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ktrace.trace_frame(packed, seed, cfg, CFG.height)
+
+
+def test_no_fallback_without_cuda(monkeypatch, tmp_path):
+    # No CUDA here: building the kernel library raises, it never falls back.
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build.build_library()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build.load_library()
+    # With CUDA but no nvcc, the build raises too.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_library()
+
+
+def test_cli_render_on_cuda_raises_without_cuda(tmp_path):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["render", "--device", "cuda", "--size", "64",
+                  "-o", str(tmp_path / "f.png")])
