@@ -7,8 +7,10 @@ numpy only, never jax or the JAX package.
 
 Layout:
   models/    Scene (nn.Modules) and RenderConfig
-  ops/       plain PyTorch path: noise, camera, field, march, shade, render
-  kernels/   the CUDA trace kernel, its build, its wrapper and plain version
+  ops/       plain PyTorch path: noise, camera, field, march, shade, render;
+             the fit loop and the finite-difference gradient check
+  kernels/   the CUDA trace kernels (forward and backward), their build,
+             wrappers and plain versions
   utils/     scalar packing, scene <-> numpy conversion, image writers
 """
 

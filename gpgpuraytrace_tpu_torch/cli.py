@@ -1,6 +1,7 @@
-"""Command line: render one frame.
+"""Command line: render one frame, or fit scene parameters to a target.
 
   python -m gpgpuraytrace_tpu_torch.cli render --size 512 --octaves 6 -o frame.png
+  python -m gpgpuraytrace_tpu_torch.cli fit --size 512 --steps 100
 
 ``--device cuda`` (the default) requires a CUDA GPU and raises without one;
 ``--device cpu`` runs the plain PyTorch versions. ``--kernel`` (the default)
@@ -77,12 +78,13 @@ def cmd_render(args):
     device = _device(args.device)
     cfg = _cfg_from_args(args)
     scene = default_scene(num_octaves=cfg.num_octaves, device=device)
+    serve = torch.no_grad()(render)  # serving builds no autograd graph
     t0 = time.perf_counter()
-    img = render(scene, cfg)
+    img = serve(scene, cfg)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     first_s = time.perf_counter() - t0  # includes the kernel build, if any
-    frame_s = _frame_seconds(lambda: render(scene, cfg), device)
+    frame_s = _frame_seconds(lambda: serve(scene, cfg), device)
     out = tonemap(img).cpu().numpy()
     if args.out.endswith(".npy"):
         write_npy(args.out, out)
@@ -98,10 +100,32 @@ def cmd_render(args):
     )
 
 
-def main(argv=None):
-    p = argparse.ArgumentParser(prog="gpgpuraytrace_tpu_torch")
-    sub = p.add_subparsers(dest="cmd", required=True)
-    sp = sub.add_parser("render", help="render one frame")
+def cmd_fit(args):
+    from gpgpuraytrace_tpu_torch.models.scene import default_scene
+    from gpgpuraytrace_tpu_torch.ops.fit import fit, perturb_scene
+    from gpgpuraytrace_tpu_torch.ops.render import render
+
+    device = _device(args.device)
+    cfg = _cfg_from_args(args)
+    target_scene = default_scene(num_octaves=cfg.num_octaves, device=device)
+    with torch.no_grad():
+        target = render(target_scene, cfg)
+    scene0 = perturb_scene(target_scene, torch.Generator().manual_seed(args.seed), rel=0.15)
+    t0 = time.perf_counter()
+    scene, losses = fit(scene0, cfg, target, steps=args.steps, learning_rate=args.lr)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    fit_s = time.perf_counter() - t0
+    print(
+        f"fit: loss {losses[0]:.4e} -> {losses[-1]:.4e} over {len(losses)} steps "
+        f"({fit_s / len(losses) * 1e3:.2f} ms/step host clock, first step "
+        f"includes the kernel build)"
+    )
+    amp_err = (scene.noise.amplitudes - target_scene.noise.amplitudes).abs().max().item()
+    print(f"max |amplitude error| = {amp_err:.4f}")
+
+
+def _common(sp):
     sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     sp.add_argument("--size", default="512", help="N or WxH")
     sp.add_argument("--octaves", type=int, default=6)
@@ -125,8 +149,21 @@ def main(argv=None):
         "--prime-margin", type=float, default=None,
         help="pull-back on the coarse neighbourhood min (default 0.95)",
     )
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="gpgpuraytrace_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    sp = sub.add_parser("render", help="render one frame")
+    _common(sp)
     sp.add_argument("-o", "--out", default="frame.png")
     sp.set_defaults(fn=cmd_render)
+    sp = sub.add_parser("fit", help="recover params from a target image")
+    _common(sp)
+    sp.add_argument("--steps", type=int, default=300)
+    sp.add_argument("--lr", type=float, default=5e-3)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.set_defaults(fn=cmd_fit)
     args = p.parse_args(argv)
     args.fn(args)
 

@@ -1,11 +1,13 @@
 """Build the CUDA kernels from ``kernels/csrc`` and load them with ctypes.
 
-The sources compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
+Each ``.cu`` source compiles with ``nvcc`` for Hopper (``sm_90a``), all of
+them at once in parallel processes, and the objects link into one shared
 library with a plain C interface, at first use, into
-``<repo>/build/kernels/<hash>/``, where the hash covers the sources and the
-compiler flags. A later call in any process with the same sources loads that
-library instead of compiling again. Nothing here falls back: without CUDA or
-without ``nvcc`` the build raises ``RuntimeError``.
+``<repo>/build/kernels/<hash>/``, where the hash covers every file in
+``csrc/`` (headers too) and the compiler flags. A later call in any process
+with the same sources loads that library instead of compiling again. Nothing
+here falls back: without CUDA or without ``nvcc`` the build raises
+``RuntimeError``.
 """
 
 from __future__ import annotations
@@ -25,12 +27,23 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libgpgpuraytrace_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
 def _sources() -> list[Path]:
+    """The translation units: every ``.cu`` file of ``csrc/``."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def build_dir() -> Path:
+    """``BUILD_ROOT/<hash>``: the hash covers the flags and every file in
+    ``csrc/``, so an edited header builds anew too."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(p for p in CSRC.iterdir() if p.is_file()):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_ROOT / digest.hexdigest()[:16]
 
 
 def find_nvcc() -> str:
@@ -55,29 +68,44 @@ def build_library() -> tuple[Path, str]:
     compiled and holds ptxas's register and spill report otherwise."""
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "CUDA is not available: the trace kernel runs only on an NVIDIA "
-            "GPU (the plain PyTorch version runs on CPU tensors)"
+            "CUDA is not available: the trace kernels run only on an NVIDIA "
+            "GPU (their plain PyTorch versions run on CPU tensors)"
         )
-    sources = _sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+    out_dir = build_dir()
     lib = out_dir / LIB_NAME
     if lib.is_file():
         return lib, ""
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    tag = os.getpid()
+    jobs = []
+    for src in _sources():
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs.append((src, obj, cmd, proc))
+    logs = []
+    failed = []
+    for src, _, cmd, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"--- {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+           *(str(obj) for _, obj, _, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+            f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
         )
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    return lib, proc.stdout + proc.stderr
+    for _, obj, _, _ in jobs:
+        obj.unlink()
+    return lib, "\n".join(logs)
 
 
 @functools.cache

@@ -1,26 +1,31 @@
-"""The forward trace kernel: raygen -> primed sphere-trace march -> Newton
-polish -> shade for a full frame or a row band, in one launch.
+"""The trace kernels: the forward (raygen -> primed sphere-trace march ->
+Newton polish -> shade) and the backward (output cotangent -> packed
+scene-parameter cotangent), each for a full frame or a row band.
 
-Counterpart of ``gpgpuraytrace_tpu/kernels/trace.py:_trace_kernel`` and its
-launcher ``_render_pallas_raw``. Three pieces:
+Counterparts of ``gpgpuraytrace_tpu/kernels/trace.py``: ``_trace_kernel``
+with its launcher ``_render_pallas_raw``, and ``_trace_bwd_kernel`` with
+``_backward_pallas`` and the custom VJP ``render_pallas_cfg``. The pieces:
 
-* ``trace_frame`` is the wrapper. It validates its inputs, launches the
-  hand-written CUDA kernel (``csrc/trace_fwd.cu``) on a CUDA tensor, and runs
-  the plain version on a CPU tensor. ``trace_frame.launches`` counts kernel
-  launches. A CUDA input never falls back to the plain version: a failed
-  build or launch raises.
-* ``trace_frame_reference`` is the plain PyTorch version of exactly what the
-  kernel computes, written against the same packed scalar vector.
-* ``render_kernel_raw`` renders a frame with it: coarse depth-prime pass,
-  prime map, full pass.
-
-Forward only; the backward kernel (``_trace_bwd_kernel``) is still to be
-ported (ROADMAP.md).
+* ``trace_frame`` and ``trace_frame_bwd`` are the wrappers. Each validates
+  its inputs, launches its hand-written CUDA kernel (``csrc/trace_fwd.cu``,
+  ``csrc/trace_bwd.cu``) on CUDA tensors, and runs its plain version on CPU
+  tensors. ``.launches`` counts kernel launches. A CUDA input never falls
+  back to the plain version: a failed build or launch raises.
+* ``trace_frame_reference`` and ``trace_bwd_reference`` are the plain
+  PyTorch versions of exactly what the kernels compute, written against the
+  same packed scalar vector.
+* ``render_kernel_raw`` renders a frame through ``trace_frame`` (coarse
+  depth-prime pass, prime map, full pass) and returns its (t, hit) too; it
+  builds no autograd graph.
+* ``render_kernel`` is the differentiable render of the kernel path: its
+  backward is ``trace_frame_bwd`` (``cfg.kernel_bwd``) or autograd through
+  the plain re-shade at the saved (t, hit).
 """
 
 from __future__ import annotations
 
 import ctypes
+import operator
 
 import torch
 
@@ -35,8 +40,9 @@ from gpgpuraytrace_tpu_torch.ops.march import (
 from gpgpuraytrace_tpu_torch.ops.noise import fbm2, fbm2_value
 from gpgpuraytrace_tpu_torch.ops.shade import _smoothstep
 from gpgpuraytrace_tpu_torch.utils import packing as pk
+from gpgpuraytrace_tpu_torch.utils.convert import LEAF_NAMES
 
-MAX_OCTAVES = 16  # keep in sync with csrc/trace_fwd.cu
+MAX_OCTAVES = 16  # keep in sync with csrc/field.cuh
 
 
 class TraceConfig(ctypes.Structure):
@@ -59,6 +65,17 @@ class TraceConfig(ctypes.Structure):
     ]
 
 
+class TraceBwdConfig(ctypes.Structure):
+    """The backward kernel's config (csrc/trace_bwd.cu:TraceBwdConfig)."""
+
+    _fields_ = [
+        ("height", ctypes.c_int),
+        ("width", ctypes.c_int),
+        ("local_h", ctypes.c_int),
+        ("num_octaves", ctypes.c_int),
+    ]
+
+
 def _check_supported(cfg: RenderConfig) -> None:
     check_heightfield(cfg.volumetric)
     if cfg.march_mode != "chunked":
@@ -77,8 +94,9 @@ def _check_supported(cfg: RenderConfig) -> None:
         )
 
 
-def _check_inputs(packed, seed, cfg, local_height, t0_prime) -> None:
-    """Raise on anything the kernel does not take."""
+def _check_tensors(packed, seed, cfg, local_height, named) -> None:
+    """Raise on anything the kernels do not take. ``named`` maps a name to
+    (tensor, required shape) for the per-pixel inputs."""
     _check_supported(cfg)
     n_params = pk.AMPS + cfg.num_octaves
     if packed.dtype != torch.float32 or packed.shape != (1, n_params):
@@ -92,29 +110,33 @@ def _check_inputs(packed, seed, cfg, local_height, t0_prime) -> None:
         )
     if local_height < 1 or cfg.width < 1:
         raise ValueError(f"empty frame: {local_height} x {cfg.width}")
-    tensors = [packed, seed]
+    for name, (x, shape) in named.items():
+        if x.dtype != torch.float32 or x.shape != shape:
+            raise ValueError(
+                f"{name} must be float32 {shape}, got {x.dtype} {tuple(x.shape)}"
+            )
+    for x in [packed, seed] + [x for x, _ in named.values()]:
+        if x.device != packed.device:
+            raise ValueError(f"inputs on {x.device} and {packed.device}")
+        if not x.is_contiguous():
+            raise ValueError("trace kernel inputs must be contiguous")
+
+
+def _check_inputs(packed, seed, cfg, local_height, t0_prime) -> None:
+    """Raise on anything the forward kernel does not take."""
     if bool(cfg.prime_ds) != (t0_prime is not None):
         raise ValueError(
             f"t0_prime must be given exactly when cfg primes "
             f"(prime_ds={cfg.prime_ds})"
         )
-    if t0_prime is not None:
-        shape = (local_height, cfg.width)
-        if t0_prime.dtype != torch.float32 or t0_prime.shape != shape:
-            raise ValueError(
-                f"t0_prime must be float32 {shape}, got {t0_prime.dtype} "
-                f"{tuple(t0_prime.shape)}"
-            )
-        tensors.append(t0_prime)
-    for x in tensors:
-        if x.device != packed.device:
-            raise ValueError(f"inputs on {x.device} and {packed.device}")
-        if not x.is_contiguous():
-            raise ValueError("trace_frame inputs must be contiguous")
+    shape = (local_height, cfg.width)
+    named = {} if t0_prime is None else {"t0_prime": (t0_prime, shape)}
+    _check_tensors(packed, seed, cfg, local_height, named)
+    for x in [packed] + ([] if t0_prime is None else [t0_prime]):
         if x.requires_grad and torch.is_grad_enabled():
             raise RuntimeError(
-                "trace_frame is forward only: its backward kernel is not "
-                "ported yet (ROADMAP.md); call it under torch.no_grad()"
+                "trace_frame is forward only: for gradients render through "
+                "kernels.trace.render_kernel, whose backward is trace_frame_bwd"
             )
 
 
@@ -148,9 +170,23 @@ def _library() -> ctypes.CDLL:
         TraceConfig, ctypes.c_void_p,
     ]
     lib.trace_fwd_launch.restype = ctypes.c_int
-    lib.trace_fwd_error_string.argtypes = [ctypes.c_int]
-    lib.trace_fwd_error_string.restype = ctypes.c_char_p
+    lib.trace_bwd_scratch_floats.argtypes = [TraceBwdConfig]
+    lib.trace_bwd_scratch_floats.restype = ctypes.c_int
+    lib.trace_bwd_launch.argtypes = [ctypes.c_void_p] * 7 + [
+        TraceBwdConfig, ctypes.c_void_p,
+    ]
+    lib.trace_bwd_launch.restype = ctypes.c_int
+    lib.trace_error_string.argtypes = [ctypes.c_int]
+    lib.trace_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: CUDA error {err} "
+            f"({lib.trace_error_string(err).decode()})"
+        )
 
 
 def _launch(packed, seed, cfg, local_height, t0_prime):
@@ -174,13 +210,57 @@ def _launch(packed, seed, cfg, local_height, t0_prime):
             color.data_ptr(), t.data_ptr(), hit.data_ptr(), kcfg,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"trace_fwd kernel launch failed: CUDA error {err} "
-            f"({lib.trace_fwd_error_string(err).decode()})"
-        )
+    _raise_on(lib, err, "trace_fwd")
     trace_frame.launches += 1
     return color, t, hit
+
+
+def _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g) -> None:
+    hw = (local_height, cfg.width)
+    _check_tensors(packed, seed, cfg, local_height,
+                   {"t": (t, hw), "hit": (hit, hw), "g": (g, (3, *hw))})
+
+
+def trace_frame_bwd(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
+                    local_height: int, t: torch.Tensor, hit: torch.Tensor,
+                    g: torch.Tensor) -> torch.Tensor:
+    """Backward of ``trace_frame``'s colour at its saved (t, hit).
+
+    ``packed``, ``seed``, ``cfg`` and ``local_height`` as for
+    ``trace_frame``; ``t`` and ``hit`` (local_height, width) float32 are its
+    outputs, ``g`` (3, local_height, width) float32 the cotangent of its
+    colour planes. Returns the packed-vector cotangent (1, AMPS + octaves):
+    the shade channel at the saved t plus the implicit-function march
+    channel, summed over the pixels. CUDA inputs launch the CUDA kernel;
+    CPU inputs run ``trace_bwd_reference``."""
+    _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g)
+    if packed.device.type == "cpu":
+        return trace_bwd_reference(packed, seed, cfg, local_height, t, hit, g)
+    if packed.device.type != "cuda":
+        raise RuntimeError(f"trace_frame_bwd: unsupported device {packed.device}")
+    return _launch_bwd(packed.detach(), seed, cfg, local_height, t, hit, g)
+
+
+trace_frame_bwd.launches = 0
+
+
+def _launch_bwd(packed, seed, cfg, local_height, t, hit, g):
+    lib = _library()
+    dev = packed.device
+    kcfg = TraceBwdConfig(height=cfg.height, width=cfg.width, local_h=local_height,
+                          num_octaves=cfg.num_octaves)
+    partial = torch.empty(lib.trace_bwd_scratch_floats(kcfg), dtype=torch.float32,
+                          device=dev)
+    pbar = torch.empty((1, pk.AMPS + cfg.num_octaves), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.trace_bwd_launch(
+            packed.data_ptr(), seed.data_ptr(), t.data_ptr(), hit.data_ptr(),
+            g.data_ptr(), partial.data_ptr(), pbar.data_ptr(), kcfg,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(lib, err, "trace_bwd")
+    trace_frame_bwd.launches += 1
+    return pbar
 
 
 # --- the plain PyTorch version ------------------------------------------------
@@ -288,6 +368,13 @@ def _shade_from_grads(sc, t, hit, d, grads):
     return out
 
 
+def _pixel_grid(h: int, w: int, dev):
+    """Band-local (rows, cols) float32 pixel indices, each (h, w)."""
+    rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    cols = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    return rows, cols
+
+
 @torch.no_grad()
 def trace_frame_reference(packed: torch.Tensor, seed: torch.Tensor,
                           cfg: RenderConfig, local_height: int,
@@ -303,11 +390,7 @@ def trace_frame_reference(packed: torch.Tensor, seed: torch.Tensor,
     def sc(k):
         return packed[0, k]
 
-    dev = packed.device
-    h, w = local_height, cfg.width
-    rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
-    cols = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
-    o, d = _raygen_rc(sc, cfg, rows, cols)
+    o, d = _raygen_rc(sc, cfg, *_pixel_grid(local_height, cfg.width, packed.device))
     dx, dy, dz = d
     oy = sc(pk.POS + 1)
     t, active, env = _envelope_entry(sc, cfg, dy)
@@ -370,25 +453,121 @@ def trace_frame_reference(packed: torch.Tensor, seed: torch.Tensor,
     return torch.stack(colors), t, hit.to(torch.float32)
 
 
+def trace_bwd_reference(packed: torch.Tensor, seed: torch.Tensor,
+                        cfg: RenderConfig, local_height: int, t: torch.Tensor,
+                        hit: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel, on any device; same
+    arguments and result as ``trace_frame_bwd``.
+
+    Two channels, as the TPU kernel's ``_trace_bwd_kernel`` computes them:
+    the VJP of raygen + shade at the saved t with respect to the packed
+    scalars and t (autograd of the forward's own helpers), then the
+    implicit-function march channel: scale = -t̄ / min(∇f·d, -1e-2) at hits,
+    pulled back through one value-only field evaluation at the saved t."""
+    _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g)
+    hitb = hit > 0.5
+    grid = _pixel_grid(local_height, cfg.width, packed.device)
+    with torch.enable_grad():
+        th = packed.detach().clone().requires_grad_()
+        t_ = t.detach().clone().requires_grad_()
+
+        def sc(k):
+            return th[0, k]
+
+        o, d = _raygen_rc(sc, cfg, *grid)
+        field_grad_at, field_at = _field_fns(sc, th, seed[0, 0], cfg, o, d)
+        _, gx, gy, gz, hgt = field_grad_at(t_)
+        colors = _shade_from_grads(sc, t_, hitb, d, (gx, gy, gz, hgt))
+        th_bar, t_bar = torch.autograd.grad(colors, (th, t_), grad_outputs=tuple(g),
+                                            retain_graph=True)
+        # March channel: ∇f·d at the saved hit is a forward value here.
+        denom = torch.clamp((gx * d[0] + gy * d[1] + gz * d[2]).detach(),
+                            max=-_BWD_DENOM_MIN)
+        scale = torch.where(hitb, -t_bar / denom, torch.zeros_like(t_bar))
+        (th_bar2,) = torch.autograd.grad(field_at(t.detach()), th, grad_outputs=scale)
+    return th_bar + th_bar2
+
+
+def _prime_map(scene: Scene, cfg: RenderConfig, row0, local_height: int):
+    """The kernel path's depth-prime map (None when ``cfg`` does not prime):
+    the coarse pass at 1/ds resolution with one halo row above and below the
+    band (row row0/ds - 1, height h/ds + 2), traced by ``trace_frame`` and
+    turned into the prime map."""
+    if not cfg.prime_ds:
+        return None
+    check_prime_band(cfg, row0, local_height)
+    ds = cfg.prime_ds
+    with torch.no_grad():
+        _, t_c, _ = render_kernel_raw(
+            scene, coarse_prime_cfg(cfg), row0 / ds - 1.0, local_height // ds + 2
+        )
+        return prime_from_coarse(t_c, cfg)
+
+
 @torch.no_grad()
 def render_kernel_raw(scene: Scene, cfg: RenderConfig, row0=0.0,
                       local_height: int | None = None):
     """Render a full frame or a row band through ``trace_frame``:
     (color (h, W, 3), t (h, W), hit bool (h, W)).
 
-    With ``cfg.prime_ds`` it first traces the coarse depth-prime pass at
-    1/ds resolution with one halo row above and below the band (row
-    row0/ds - 1, height h/ds + 2), turns it into the prime map, and then
-    traces the band from it: two launches per frame."""
+    With ``cfg.prime_ds`` it first traces the coarse depth-prime pass
+    (``_prime_map``) and then traces the band from it: two launches per
+    frame."""
     h = cfg.height if local_height is None else local_height
-    t0p = None
-    if cfg.prime_ds:
-        check_prime_band(cfg, row0, local_height)
-        ds = cfg.prime_ds
-        _, t_c, _ = render_kernel_raw(
-            scene, coarse_prime_cfg(cfg), row0 / ds - 1.0, h // ds + 2
-        )
-        t0p = prime_from_coarse(t_c, cfg)
+    t0p = _prime_map(scene, cfg, row0, h)
     packed, seed = pk.pack_scene(scene, cfg.height, cfg.width, row0)
     color, t, hit_f = trace_frame(packed, seed, cfg, h, t0p)
     return color.permute(1, 2, 0), t, hit_f > 0.5
+
+
+def _float_leaves(scene: Scene) -> list[torch.Tensor]:
+    """The scene's leaves (by dotted name, ``utils/convert.py:LEAF_NAMES``)
+    that require grad; a leaf replaced by a plain tensor
+    (``ops/fd_check.py:scene_with``) counts too."""
+    leaves = (operator.attrgetter(name)(scene) for name in LEAF_NAMES)
+    return [x for x in leaves if x.requires_grad]
+
+
+class _KernelRender(torch.autograd.Function):
+    """Colour (h, W, 3) from ``trace_frame`` at ``packed``; the backward
+    pulls the cotangent back at the saved (t, hit): onto ``packed`` by
+    ``trace_frame_bwd`` (cfg.kernel_bwd), else onto ``leaves`` by autograd
+    through ``render_from_checkpoint``. Either way autograd carries it on to
+    the scene's parameters (through ``pack_scene``, or directly)."""
+
+    @staticmethod
+    def forward(ctx, scene, cfg, row0, local_height, t0p, seed, packed, *leaves):
+        color, t, hit = trace_frame(packed, seed, cfg, local_height, t0p)
+        ctx.scene, ctx.cfg, ctx.row0, ctx.local_height = scene, cfg, row0, local_height
+        ctx.save_for_backward(packed, seed, t, hit, *leaves)
+        return color.permute(1, 2, 0)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        packed, seed, t, hit, *leaves = ctx.saved_tensors
+        cfg = ctx.cfg
+        none = (None,) * 6
+        if cfg.kernel_bwd:
+            gp = g.permute(2, 0, 1).contiguous()
+            pbar = trace_frame_bwd(packed, seed, cfg, ctx.local_height, t, hit, gp)
+            return none + (pbar,) + (None,) * len(leaves)
+        from gpgpuraytrace_tpu_torch.ops.render import render_from_checkpoint
+
+        with torch.enable_grad():
+            img = render_from_checkpoint(ctx.scene, cfg, t, hit > 0.5, ctx.row0,
+                                         ctx.local_height)
+            bars = torch.autograd.grad(img, leaves, grad_outputs=g, allow_unused=True)
+        return none + (None,) + bars
+
+
+def render_kernel(scene: Scene, cfg: RenderConfig, row0=0.0,
+                  local_height: int | None = None) -> torch.Tensor:
+    """Differentiable render through the trace kernels: (h, W, 3) linear RGB
+    (counterpart of ``render_pallas``). The forward is ``render_kernel_raw``'s
+    two launches; the prime map carries no gradient."""
+    h = cfg.height if local_height is None else local_height
+    t0p = _prime_map(scene, cfg, row0, h)
+    packed, seed = pk.pack_scene(scene, cfg.height, cfg.width, row0)
+    leaves = () if cfg.kernel_bwd else _float_leaves(scene)
+    return _KernelRender.apply(scene, cfg, row0, h, t0p, seed, packed, *leaves)

@@ -106,8 +106,10 @@ class RenderConfig:
     ``__post_init__`` resolution as the JAX package's ``RenderConfig``
     (``gpgpuraytrace_tpu/models/scene.py``, where each field's measured
     rationale is written down), except: ``use_pallas`` is ``use_kernel``
-    (the hand-written CUDA kernel vs the plain PyTorch path), and
-    ``interpret`` and ``pallas_bwd`` do not exist.
+    (the hand-written CUDA kernels vs the plain PyTorch path),
+    ``pallas_bwd`` is ``kernel_bwd`` (the kernel path's backward: True runs
+    the fused backward kernel, False autograd through the plain re-shade at
+    the saved hit distances), and ``interpret`` does not exist.
 
     The kernel path runs ``march_mode="chunked"`` on the heightfield; the
     other modes, ``volumetric`` and ``march_bf16`` are still to be ported
@@ -124,6 +126,7 @@ class RenderConfig:
     step_relax: float | None = None  # None: 1.0 heightfield, 0.9 volumetric
     num_octaves: int = 6
     use_kernel: bool = True
+    kernel_bwd: bool = True
     march_mode: str = "chunked"  # "chunked" | "fixed" | "lod" | "compact"
     volumetric: bool = False
     warp_octaves: int = 2

@@ -1,4 +1,4 @@
-"""Adaptive-step sphere-trace march, forward only (counterpart of
+"""Adaptive-step sphere-trace march, differentiable (counterpart of
 ``gpgpuraytrace_tpu/ops/march.py``).
 
 Per pixel: advance t <- t + max(relax·f, hit_eps, floor·t) until f < eps·t
@@ -6,16 +6,16 @@ Per pixel: advance t <- t + max(relax·f, hit_eps, floor·t) until f < eps·t
 or t reaches t_max, then polish hits with a bracketed Newton iteration on
 the analytic field gradient.
 
-The JAX package differentiates the march through the implicit-function
-theorem at the saved hit distance. That backward is still to be ported
-(ROADMAP.md, TPU kernels still to port, item 1); until then ``march`` and ``march_primed``
-run under ``torch.no_grad()``, so their outputs carry no gradient rather
-than a wrong one.
+The march is not differentiated step by step. ``march``, ``march_primed``
+and ``march_from_saved`` are ``torch.autograd.Function``s whose backward is
+the implicit-function VJP at the hit distance: f(o + t·d; θ) = 0 gives
+∂t = -(∂f/∂θ·∂θ + ∇f·(∂o + t·∂d)) / (∇f·d), see ``_march_bwd_core``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import torch
 import torch.nn.functional as F
@@ -158,16 +158,89 @@ def _march_loop(cfg: RenderConfig, ray_o, ray_d, noise: NoiseParams,
     return t, hit, steps
 
 
-@torch.no_grad()
+def _noise_leaves(noise: NoiseParams) -> tuple[torch.Tensor, ...]:
+    """The float tensors the heightfield reads, in ``_noise_view`` order."""
+    return (noise.amplitudes, noise.lacunarity, noise.height_scale,
+            noise.height_offset, noise.horizontal_scale)
+
+
+def _noise_view(leaves, seed) -> types.SimpleNamespace:
+    """Stand-in for ``NoiseParams`` over the given tensors (the field reads
+    attributes only)."""
+    amplitudes, lacunarity, height_scale, height_offset, horizontal_scale = leaves
+    return types.SimpleNamespace(
+        amplitudes=amplitudes, lacunarity=lacunarity, height_scale=height_scale,
+        height_offset=height_offset, horizontal_scale=horizontal_scale, seed=seed,
+    )
+
+
+def _march_bwd_core(cfg: RenderConfig, ray_o, ray_d, leaves, seed, t, hit, ct_t):
+    """Implicit-function VJP: cotangent on t -> (ō, d̄, noise leaf bars).
+
+    At a hit, f(o + t·d; θ) = 0, so t̄ pulls back as ``scale`` =
+    -t̄ / (∇f·d) through f itself: θ̄ = scale·∂f/∂θ, ō = scale·∇f,
+    d̄ = scale·t·∇f. Only downward crossings are hits, so ∇f·d is clamped
+    to at most -_BWD_DENOM_MIN and carries no gradient. Misses get none."""
+    p = (ray_o + t[..., None] * ray_d).detach()
+    with torch.enable_grad():
+        req = [x.detach().requires_grad_() for x in leaves]
+        f, grad_p = field_and_grad(p, _noise_view(req, seed), cfg.volumetric,
+                                   cfg.warp_octaves)
+        grad_p = grad_p.detach()
+        denom = torch.clamp(torch.sum(grad_p * ray_d, dim=-1), max=-_BWD_DENOM_MIN)
+        scale = torch.where(hit, -ct_t / denom, torch.zeros_like(ct_t))
+        leaf_bars = torch.autograd.grad(f, req, grad_outputs=scale, allow_unused=True)
+    o_bar = scale[..., None] * grad_p
+    d_bar = (scale * t)[..., None] * grad_p
+    return o_bar, d_bar, leaf_bars
+
+
+class _March(torch.autograd.Function):
+    """(t, hit) with the implicit-function backward. ``saved`` is None to
+    march (from ``t0_prime`` when given), or a saved (t, hit) checkpoint to
+    return as it is. The prime map and the checkpoint carry no gradient:
+    they say where the march starts or ended, not where the surface is."""
+
+    @staticmethod
+    def forward(ctx, cfg, seed, t0_prime, saved, ray_o, ray_d, *leaves):
+        if saved is None:
+            t, hit, _ = _march_loop(cfg, ray_o, ray_d, _noise_view(leaves, seed),
+                                    t0_prime)
+        else:
+            t, hit = saved[0].clone(), saved[1].clone()
+        ctx.cfg, ctx.seed = cfg, seed
+        ctx.save_for_backward(ray_o, ray_d, t, hit, *leaves)
+        ctx.mark_non_differentiable(hit)
+        return t, hit
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ct_t, _ct_hit):
+        ray_o, ray_d, t, hit, *leaves = ctx.saved_tensors
+        o_bar, d_bar, leaf_bars = _march_bwd_core(
+            ctx.cfg, ray_o, ray_d, leaves, ctx.seed, t, hit, ct_t
+        )
+        return (None, None, None, None, o_bar, d_bar, *leaf_bars)
+
+
 def march(cfg: RenderConfig, ray_o, ray_d, noise: NoiseParams):
-    """Sphere trace: (t, hit) per pixel. Forward only (see module doc)."""
-    t, hit, _ = _march_loop(cfg, ray_o, ray_d, noise)
-    return t, hit
+    """Differentiable sphere trace: (t, hit) per pixel."""
+    return _March.apply(cfg, noise.seed, None, None, ray_o, ray_d,
+                        *_noise_leaves(noise))
 
 
-@torch.no_grad()
 def march_primed(cfg: RenderConfig, ray_o, ray_d, noise: NoiseParams, t0_prime):
-    """Depth-primed sphere trace from the coarse-pass prime map. Forward
-    only (see module doc)."""
-    t, hit, _ = _march_loop(cfg, ray_o, ray_d, noise, t0_prime)
-    return t, hit
+    """Depth-primed differentiable sphere trace from the coarse-pass prime
+    map ``t0_prime``, which carries no gradient: the Newton polish finds the
+    same root from any start outside the surface."""
+    return _March.apply(cfg, noise.seed, t0_prime, None, ray_o, ray_d,
+                        *_noise_leaves(noise))
+
+
+def march_from_saved(cfg: RenderConfig, ray_o, ray_d, noise: NoiseParams,
+                     t_saved, hit_saved):
+    """Checkpoint-resume march: returns the saved (t, hit) (the per-pixel
+    checkpoint of the trace kernel) without marching; its backward is the
+    same implicit-function VJP as ``march``'s."""
+    return _March.apply(cfg, noise.seed, None, (t_saved, hit_saved), ray_o, ray_d,
+                        *_noise_leaves(noise))

@@ -128,6 +128,36 @@ def noise2(x: torch.Tensor, z: torch.Tensor, seed):
     return value * _INV_SQRT5, d_dx * _INV_SQRT5, d_dz * _INV_SQRT5
 
 
+def noise2_hessian(x: torch.Tensor, z: torch.Tensor, seed):
+    """Second derivatives (d2/dx2, d2/dxdz, d2/dz2) of ``noise2``'s value,
+    by hand: the formula the backward kernel (csrc/field.cuh:noise2_hess)
+    evaluates, kept here so the CPU tests can hold it to autograd.
+
+    With the corner gradients' differences A = g10 - g00, C = g01 - g00,
+    B = g00 - g10 - g01 + g11 (per component) and the fade's derivatives
+    du, ddu (dv, ddv):
+      xx = 2·du·(Ax + Bx·v) + ddu·(k1 + k3·v)
+      xz = du·(Az + Bz·v) + dv·(Cx + Bx·u) + du·dv·k3
+      zz = 2·dv·(Cz + Bz·u) + ddv·(k2 + k3·u)
+    """
+    fx, fz, g, (n00, n10, n01, n11) = _cell(x, z, seed)
+    (g00x, g00z), (g10x, g10z), (g01x, g01z), (g11x, g11z) = g
+    u, du = _fade(fx)
+    v, dv = _fade(fz)
+    ddu = 60.0 * fx * (fx * (2.0 * fx - 3.0) + 1.0)
+    ddv = 60.0 * fz * (fz * (2.0 * fz - 3.0) + 1.0)
+    k1 = n10 - n00
+    k2 = n01 - n00
+    k3 = n00 - n10 - n01 + n11
+    ax, az = g10x - g00x, g10z - g00z
+    cx, cz = g01x - g00x, g01z - g00z
+    bx, bz = g00x - g10x - g01x + g11x, g00z - g10z - g01z + g11z
+    hxx = 2.0 * du * (ax + bx * v) + ddu * (k1 + k3 * v)
+    hxz = du * (az + bz * v) + dv * (cx + bx * u) + du * dv * k3
+    hzz = 2.0 * dv * (cz + bz * u) + ddv * (k2 + k3 * u)
+    return hxx * _INV_SQRT5, hxz * _INV_SQRT5, hzz * _INV_SQRT5
+
+
 def octave_rotation(i: int) -> tuple[float, float]:
     """(cos, sin) of octave ``i``'s static lattice rotation."""
     return float(np.cos(_OCTAVE_ROT * i)), float(np.sin(_OCTAVE_ROT * i))

@@ -23,16 +23,20 @@ def _pair(**kw):
     return RenderConfig(**kw), JaxConfig(**jkw)
 
 
+RENAMED = {"use_pallas": "use_kernel", "pallas_bwd": "kernel_bwd"}
+
+
 def test_fields_mirror_jax():
     port = [f.name for f in dataclasses.fields(RenderConfig)]
     jax_fields = [
-        "use_kernel" if f.name == "use_pallas" else f.name
+        RENAMED.get(f.name, f.name)
         for f in dataclasses.fields(JaxConfig)
-        if f.name not in ("interpret", "pallas_bwd")
+        if f.name != "interpret"
     ]
     assert port == jax_fields
+    back = {v: k for k, v in RENAMED.items()}
     for f in dataclasses.fields(RenderConfig):
-        jname = "use_pallas" if f.name == "use_kernel" else f.name
+        jname = back.get(f.name, f.name)
         assert f.default == JaxConfig.__dataclass_fields__[jname].default, f.name
     with pytest.raises(dataclasses.FrozenInstanceError):
         RenderConfig().height = 3

@@ -1,11 +1,11 @@
-"""The CUDA trace kernel against its plain PyTorch version, on the card.
+"""The CUDA trace kernels against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips without CUDA. Imports nothing of JAX, so
 on a machine without jax run it without the suite's conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-chip_smoke.py makes the same comparison at 512x512.
+chip_smoke.py makes the same comparisons at 512x512.
 """
 
 import dataclasses
@@ -70,3 +70,43 @@ def test_cuda_wrapper_rejects_cpu_mix(cuda):
     cfg = dataclasses.replace(CFG, prime_ds=0)
     with pytest.raises(ValueError, match="inputs on"):
         ktrace.trace_frame(packed.detach(), seed.cpu(), cfg, CFG.height)
+
+
+def within_bwd_tolerance(got, ref):
+    """Every entry within rtol 1e-3 plus 1e-4 of the largest: the sums run
+    over the pixels in another order, and the kernel's rsqrtf, expf and FMA
+    contraction round differently from torch."""
+    return bool(((got - ref).abs() <= 1e-3 * ref.abs() + 1e-4 * ref.abs().max()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"prime_ds": 0}], ids=["primed", "unprimed"])
+def test_cuda_bwd_kernel_matches_plain_version(cuda, kw):
+    cfg = dataclasses.replace(CFG, **kw)
+    scene = default_scene(3, device=cuda)
+    _, t, hit = ktrace.render_kernel_raw(scene, cfg)
+    packed, seed = pack_scene(scene, cfg.height, cfg.width)
+    packed, hit = packed.detach(), hit.float()
+    g = torch.randn(3, cfg.height, cfg.width, generator=torch.Generator().manual_seed(0))
+    g = g.to(cuda)
+    before = ktrace.trace_frame_bwd.launches
+    a = ktrace.trace_frame_bwd(packed, seed, cfg, cfg.height, t, hit, g)
+    b = ktrace.trace_frame_bwd(packed, seed, cfg, cfg.height, t, hit, g)
+    ref = ktrace.trace_bwd_reference(packed, seed, cfg, cfg.height, t, hit, g)
+    torch.cuda.synchronize()
+    assert ktrace.trace_frame_bwd.launches == before + 2
+    assert torch.equal(a, b)  # no atomics: bitwise repeatable
+    assert torch.isfinite(a).all() and within_bwd_tolerance(a, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_bwd_matches_plain_reshade(cuda):
+    grads = []
+    for kernel_bwd in (True, False):
+        scene = default_scene(3, device=cuda)
+        img = ktrace.render_kernel(scene, dataclasses.replace(CFG, kernel_bwd=kernel_bwd))
+        torch.mean(img * torch.cos(img)).backward()
+        grads.append({n: p.grad for n, p in scene.named_parameters() if p.grad is not None})
+    assert grads[0].keys() >= grads[1].keys() >= {"noise.amplitudes", "camera.yaw"}
+    for name, ref in grads[1].items():
+        assert within_bwd_tolerance(grads[0][name], ref), name

@@ -41,7 +41,7 @@ def setup():
 
 
 def check_march(t, hit, t_ref, hit_ref):
-    t, hit = t.numpy(), hit.numpy()
+    t, hit = t.detach().numpy(), hit.numpy()
     t_ref, hit_ref = np.asarray(t_ref), np.asarray(hit_ref)
     agree = (hit == hit_ref).mean()
     assert agree > 0.995, f"hit masks differ on {100 * (1 - agree):.2f}% px"
@@ -62,7 +62,9 @@ def test_march_matches_jax(setup, primed):
         cfg0 = dataclasses.replace(CFG, prime_ds=0)
         t_ref, hit_ref = jmarch.march(dataclasses.replace(JCFG, prime_ds=0), o, d, js.noise)
         t, hit = tmarch.march(cfg0, to, td, ts.noise)
-    assert not t.requires_grad
+    # The march is differentiable: t carries the implicit-function gradient
+    # back to the noise parameters.
+    assert t.requires_grad
     check_march(t, hit, t_ref, hit_ref)
 
 
@@ -97,10 +99,12 @@ def test_coarse_prime_cfg_matches_jax():
     for cfg in (CFG, RenderConfig(), RenderConfig(height=128, width=64, step_floor_t=0.0)):
         jkw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
         jkw["use_pallas"] = jkw.pop("use_kernel")
+        jkw["pallas_bwd"] = jkw.pop("kernel_bwd")
         ref = jmarch.coarse_prime_cfg(JaxConfig(**jkw))
         got = tmarch.coarse_prime_cfg(cfg)
+        renamed = {"use_kernel": "use_pallas", "kernel_bwd": "pallas_bwd"}
         for f in dataclasses.fields(got):
-            jname = "use_pallas" if f.name == "use_kernel" else f.name
+            jname = renamed.get(f.name, f.name)
             assert getattr(got, f.name) == getattr(ref, jname), f.name
 
 

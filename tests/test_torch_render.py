@@ -50,7 +50,9 @@ def jax_image():
 def test_render_matches_render_jax(jax_image, use_kernel):
     scene = scene_from_numpy(jax_scene_dict(jax_default_scene(num_octaves=3)))
     img = render(scene, dataclasses.replace(CFG, use_kernel=use_kernel))
-    assert tuple(img.shape) == (64, 128, 3) and not img.requires_grad
+    # Differentiable: the scene's parameters require grad.
+    assert tuple(img.shape) == (64, 128, 3) and img.requires_grad
+    img = img.detach()
     assert_mostly_close(img, jax_image, 2e-3, 0.999, "image")
     assert_mostly_close(img, jax_image, 1e-5, 0.99, "image-exact")
 
@@ -58,7 +60,8 @@ def test_render_matches_render_jax(jax_image, use_kernel):
 @pytest.mark.parametrize("use_kernel", [True, False], ids=["kernel_path", "plain_path"])
 def test_golden_image(use_kernel):
     """The JAX package's frozen golden, at its tolerance (tests/test_render.py)."""
-    img = render(default_scene(num_octaves=1), dataclasses.replace(CFG1, use_kernel=use_kernel))
+    img = render(default_scene(num_octaves=1),
+                 dataclasses.replace(CFG1, use_kernel=use_kernel)).detach()
     golden = np.load(GOLDEN)
     np.testing.assert_allclose(img.numpy(), golden, rtol=1e-3, atol=2e-3)
     top = img[:8].mean(dim=(0, 1))
@@ -71,7 +74,8 @@ def test_supersample_matches_jax():
                      use_pallas=False, supersample=2)
     ref = np.asarray(jrender.render(jax_default_scene(num_octaves=1), jcfg))
     for use_kernel in (True, False):
-        img = render(default_scene(num_octaves=1), dataclasses.replace(cfg, use_kernel=use_kernel))
+        img = render(default_scene(num_octaves=1),
+                     dataclasses.replace(cfg, use_kernel=use_kernel)).detach()
         assert tuple(img.shape) == (32, 32, 3)
         assert_mostly_close(img, ref, 2e-3, 0.999, f"ssaa use_kernel={use_kernel}")
 

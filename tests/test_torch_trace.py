@@ -119,8 +119,26 @@ def test_trace_frame_rejects_bad_inputs(scene, case):
 
 def test_trace_frame_is_forward_only(scene):
     packed, seed, prime = _inputs(scene)
-    with pytest.raises(RuntimeError, match="forward only"):
+    with pytest.raises(RuntimeError, match="forward only.*render_kernel"):
         ktrace.trace_frame(packed.requires_grad_(), seed, CFG, CFG.height, prime)
+
+
+@pytest.mark.parametrize("case", ["t_shape", "hit_dtype", "g_shape", "g_noncontig"])
+def test_trace_frame_bwd_rejects_bad_inputs(scene, case):
+    packed, seed, _ = _inputs(scene)
+    t = torch.ones(CFG.height, CFG.width)
+    hit = torch.zeros(CFG.height, CFG.width)
+    g = torch.zeros(3, CFG.height, CFG.width)
+    if case == "t_shape":
+        t = t[:-1]
+    elif case == "hit_dtype":
+        hit = hit.bool()
+    elif case == "g_shape":
+        g = g[:2]
+    else:
+        g = torch.zeros(CFG.height, CFG.width, 3).permute(2, 0, 1)
+    with pytest.raises(ValueError):
+        ktrace.trace_frame_bwd(packed, seed, CFG, CFG.height, t, hit, g)
 
 
 @pytest.mark.parametrize(
@@ -147,6 +165,22 @@ def test_no_fallback_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build_library()
+
+
+def test_editing_a_header_changes_the_build_directory(monkeypatch, tmp_path):
+    """The build hash covers every file in csrc/, headers too, but only the
+    .cu files are compiled: an edited header must not load a stale library."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in build.CSRC.iterdir():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert [p.name for p in build._sources()] == ["trace_bwd.cu", "trace_fwd.cu"]
+    before = build.build_dir()
+    assert build.build_dir() == before  # stable for the same sources
+    header = csrc / "field.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert build.build_dir() != before
 
 
 def test_cli_render_on_cuda_raises_without_cuda(tmp_path):
