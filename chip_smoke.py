@@ -5,8 +5,9 @@
 Drives the port's two main paths at 512x512 with 6 octaves under the default
 RenderConfig, through the hand-written CUDA trace kernels: serving
 (``gpgpuraytrace_tpu_torch.render`` of a frame) and training (``ops.fit.fit``,
-forward and backward, Adam steps). In phases; each prints one line and any
-failure exits non-zero:
+forward and backward, Adam steps), on the heightfield (phases 3-10) and on
+the volumetric terrain with its 2-octave 3D warp (phases 11-14). In phases;
+each prints one line and any failure exits non-zero:
 
 1. host: CUDA present; card name and power limit; CUDA and nvcc versions;
 2. build: the kernels from gpgpuraytrace_tpu_torch/kernels/csrc, one nvcc
@@ -15,14 +16,24 @@ failure exits non-zero:
    main path's shapes (coarse prime pass 66x64, then the 512x512 pass);
 4. the serving path: 3 frames at 3 camera yaws, 2 forward launches each;
 5. the frozen golden image (tests/golden/config1_128.npy) through the kernel;
-6. the command line renders a PNG;
+6. the command line renders a PNG, heightfield and volumetric;
 7. serving frame times, kernel path vs plain path, with CUDA events;
 8. the backward kernel against its plain version at 512x512, on the forward
    kernel's own (t, hit), bitwise repeatable, and its time;
 9. the training path: 5 Adam steps of fit, 2 forward and 1 backward launch
    each, falling loss; kernel_bwd True vs False gradients; step times;
 10. AD against finite differences through the kernel path at 512x512, on
-    tests/test_grad.py's 2-octave scene (the 6-octave scene reported only).
+    tests/test_grad.py's 2-octave scene (the 6-octave scene reported only);
+11. volumetric: the forward kernel against its plain version (coarse and fine
+    pass, phase 3's gates) and its time;
+12. volumetric serving: 3 frames at 3 yaws, 2 forward launches each; frame
+    times, kernel path vs plain path; the device's busy share;
+13. volumetric: the backward kernel against its plain version on the forward
+    kernel's own (t, hit), bitwise repeatable, warp entries non-zero; time;
+14. volumetric training: 5 Adam steps of fit with the warp amplitude
+    trainable, 2 forward and 1 backward launch each, falling loss;
+    kernel_bwd True vs False gradients; step times; AD vs FD of the warp
+    amplitude on a 2-octave volumetric scene, reported only.
 
 A line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -61,6 +72,9 @@ BWD_RTOL, BWD_ATOL_REL = 1e-3, 1e-4
 # Range of the serving frame times recorded before the training path was
 # added, on an H100 80GB HBM3 at 700 W (PERF.md, section 5, runs 1-5).
 RECORDED_FRAME_MS = (1.0306, 1.4094)
+# The packed entries of the volumetric warp's amplitude and frequency
+# (utils/packing.py WARP_AMP, WARP_FREQ).
+WARP_ENTRIES = slice(48, 50)
 # AD vs FD checks of tests/test_grad.py: (leaf, component, eps, rtol, t_cap).
 FD_CHECKS = (
     ("noise.amplitudes", 0, 3e-3, 5e-2, 0.03),
@@ -178,46 +192,15 @@ def profile_frames(fn, frame_ms: float, frames: int = 5) -> str:
             f"top: {top}")
 
 
-def main() -> None:
-    # --- 1. host -----------------------------------------------------------
-    if not torch.cuda.is_available():
-        fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    from gpgpuraytrace_tpu_torch import RenderConfig, default_scene, render
-    from gpgpuraytrace_tpu_torch.kernels import build
-    from gpgpuraytrace_tpu_torch.kernels.trace import (
-        render_kernel_raw, trace_bwd_reference, trace_frame, trace_frame_bwd,
-        trace_frame_reference,
-    )
-    from gpgpuraytrace_tpu_torch.ops import fit as fitmod
-    from gpgpuraytrace_tpu_torch.ops.fd_check import fd_check_scalar, scene_with
+def forward_vs_plain(scene, cfg, tag: str) -> tuple[float, str, float, float]:
+    """The forward kernel against its plain version at the main path's shapes
+    (the coarse prime pass, then the fine pass from the kernel's prime map)
+    with phase 3's gates, and the fine pass's time: (max abs colour error,
+    report, kernel ms, plain ms)."""
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_reference
     from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
     from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
 
-    dev = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
-    phase(1, "host", f"{name}; nvidia-smi '{smi}'; torch {torch.__version__} "
-          f"CUDA {torch.version.cuda}; nvcc {build.find_nvcc()}")
-
-    # --- 2. build ----------------------------------------------------------
-    t0 = time.perf_counter()
-    lib_path, log = build.build_library()
-    build_s = time.perf_counter() - t0
-    for line in log.splitlines():
-        if line.startswith("---") or "registers" in line or "spill" in line:
-            print(f"    ptxas: {line.strip()}")
-    phase(2, "build", f"{lib_path.relative_to(REPO)} in {build_s:.2f} s")
-
-    # --- 3. kernel vs plain version at the main path's shapes --------------
-    cfg = RenderConfig(num_octaves=6)  # 512x512, the default march
-    scene = default_scene(6, device=dev)
     ccfg = coarse_prime_cfg(cfg)
     ch = cfg.height // cfg.prime_ds + 2
     with torch.no_grad():
@@ -225,22 +208,28 @@ def main() -> None:
         coarse_k = trace_frame(packed_c, seed, ccfg, ch)
         coarse_r = trace_frame_reference(packed_c, seed, ccfg, ch)
         torch.cuda.synchronize()
-        _, line_c = compare_trace(f"coarse {ch}x{ccfg.width}", coarse_k, coarse_r)
+        _, line_c = compare_trace(f"{tag}coarse {ch}x{ccfg.width}", coarse_k, coarse_r)
         prime = prime_from_coarse(coarse_k[1], cfg)
         packed, seed = pack_scene(scene, cfg.height, cfg.width, 0.0)
         fine_k = trace_frame(packed, seed, cfg, cfg.height, prime)
         fine_r = trace_frame_reference(packed, seed, cfg, cfg.height, prime)
         torch.cuda.synchronize()
-        err, line_f = compare_trace(f"fine {cfg.height}x{cfg.width}", fine_k, fine_r)
+        err, line_f = compare_trace(f"{tag}fine {cfg.height}x{cfg.width}", fine_k, fine_r)
         kern_ms = cuda_ms_back_to_back(
             lambda: trace_frame(packed, seed, cfg, cfg.height, prime), 50)
         plain_ms = cuda_ms_back_to_back(
             lambda: trace_frame_reference(packed, seed, cfg, cfg.height, prime), 3)
-    phase(3, "kernel vs plain", f"{line_c} | {line_f} | fine pass {kern_ms:.4f} ms "
-          f"kernel (50 back to back), {plain_ms:.3f} ms plain (3) ({name}, {smi})")
+    return err, (f"{line_c} | {line_f} | fine pass {kern_ms:.4f} ms kernel (50 back to "
+                 f"back), {plain_ms:.3f} ms plain (3)"), kern_ms, plain_ms
 
-    # --- 4. the main path ----------------------------------------------------
-    yaws = (0.0, 0.7, -1.3)
+
+def serve_frames(scene, cfg, yaws) -> tuple[int, str]:
+    """The serving path: one frame per camera yaw under ``torch.no_grad()``,
+    with the launch counts read around exactly these frames: (forward
+    launches, mean colours)."""
+    from gpgpuraytrace_tpu_torch import render
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
+
     frames = []
     reset_counts(trace_frame, trace_frame_bwd)
     with torch.no_grad():  # serving builds no autograd graph
@@ -261,9 +250,171 @@ def main() -> None:
         top = img[:8].mean(dim=(0, 1))
         if not top[2] > top[0]:
             fail(f"frame at yaw {yaw}: top rows not blue-dominant sky ({top.tolist()})")
-    means = ", ".join(f"{img.mean().item():.4f}" for img in frames)
-    phase(4, "serving path", f"{len(frames)} frames 512x512, {launches} kernel launches; "
-          f"mean colour {means}")
+    return launches, ", ".join(f"{img.mean().item():.4f}" for img in frames)
+
+
+def frame_times(scene, cfg, reps: dict[str, int]) -> tuple[dict, dict, str]:
+    """Serving frame times by CUDA events, kernel and plain path in turns
+    (kernel, plain, kernel, plain; ``reps`` frames each): (median ms by
+    path, frames by path, profile of a kernel-path frame)."""
+    from gpgpuraytrace_tpu_torch import render
+
+    plain_cfg = dataclasses.replace(cfg, use_kernel=False)
+    serve = torch.no_grad()(render)
+    times = {}
+    for label, c in (("kernel", cfg), ("plain", plain_cfg)) * 2:
+        times.setdefault(label, []).extend(cuda_ms(lambda: serve(scene, c), reps[label]))
+    median = {k: statistics.median(v) for k, v in times.items()}
+    prof = profile_frames(lambda: serve(scene, cfg), median["kernel"])
+    return median, {k: len(v) for k, v in times.items()}, prof
+
+
+def backward_vs_plain(scene, cfg) -> dict:
+    """The backward kernel against its plain version at 512x512, on the
+    forward kernel's own (t, hit): finite, two launches bitwise equal, every
+    entry within BWD_RTOL plus BWD_ATOL_REL of the largest; and its time."""
+    from gpgpuraytrace_tpu_torch.kernels.trace import (
+        render_kernel_raw, trace_bwd_reference, trace_frame_bwd,
+    )
+    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+
+    _, t_fwd, hit_fwd = render_kernel_raw(scene, cfg)
+    hit_fwd = hit_fwd.float()
+    packed, seed = pack_scene(scene, cfg.height, cfg.width, 0.0)
+    packed = packed.detach()
+    g = torch.randn(3, cfg.height, cfg.width,
+                    generator=torch.Generator().manual_seed(0)).to(packed.device)
+    args = (packed, seed, cfg, cfg.height, t_fwd, hit_fwd, g)
+    pbar_k = trace_frame_bwd(*args)
+    pbar_k2 = trace_frame_bwd(*args)
+    pbar_r = trace_bwd_reference(*args)
+    torch.cuda.synchronize()
+    if not torch.isfinite(pbar_k).all():
+        fail("backward kernel output not finite")
+    if not torch.equal(pbar_k, pbar_k2):
+        fail("two backward launches differ: the reduction is not deterministic")
+    err, worst = bwd_error(pbar_k, pbar_r)
+    if worst > 1.0:
+        fail(f"backward kernel vs plain: worst entry at {worst:.3f} of its "
+             f"tolerance (max abs err {err:.3e})")
+    return {
+        "pbar": pbar_k, "ref": pbar_r, "err": err, "worst": worst,
+        "hits": int(hit_fwd.sum().item()),
+        "ms": cuda_ms_back_to_back(lambda: trace_frame_bwd(*args), 50),
+        "plain_ms": cuda_ms_back_to_back(lambda: trace_bwd_reference(*args), 3),
+    }
+
+
+def bwd_report(b: dict) -> str:
+    return (f"{b['pbar'].shape[1]} packed entries on the fine pass's (t, hit), "
+            f"{b['hits']} hits: max abs err {b['err']:.3e}, worst entry at "
+            f"{b['worst']:.4f} of rtol {BWD_RTOL} + {BWD_ATOL_REL} x max|pbar| "
+            f"({b['ref'].abs().max().item():.4e}); two launches bitwise equal; "
+            f"{b['ms']:.4f} ms kernel (50 back to back), {b['plain_ms']:.3f} ms plain (3)")
+
+
+def train(start, target, cfg, trainable, steps: int, reps: dict[str, int]) -> dict:
+    """The training path: ``steps`` Adam steps of fit from ``start`` with the
+    launch counts read around exactly them (2 forward and 1 backward launch
+    per step), a falling loss, kernel_bwd True vs False gradients on every
+    trainable leaf, and step times by CUDA events (``reps`` steps per
+    variant, two rounds in turns) with a profile of a kernel-path step."""
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
+    from gpgpuraytrace_tpu_torch.ops import fit as fitmod
+
+    reset_counts(trace_frame, trace_frame_bwd)
+    _, losses = fitmod.fit(copy.deepcopy(start), cfg, target, steps=steps,
+                           learning_rate=5e-3, trainable=trainable, log_every=0)
+    torch.cuda.synchronize()
+    fwd, bwd = trace_frame.launches, trace_frame_bwd.launches
+    if (fwd, bwd) != (2 * steps, steps):
+        fail(f"training path launched the forward kernel {fwd} and the backward "
+             f"{bwd} times in {steps} steps, expected {2 * steps} and {steps}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"fit losses not finite or not falling: {losses}")
+    grads = []
+    for kernel_bwd in (True, False):
+        s = copy.deepcopy(start)
+        fitmod.partition_scene(s, trainable)
+        fitmod.pixel_loss(s, dataclasses.replace(cfg, kernel_bwd=kernel_bwd),
+                          target).backward()
+        grads.append({n: p.grad for n, p in s.named_parameters() if p.grad is not None})
+    worst_leaf = 0.0
+    for leaf, ref in grads[1].items():
+        _, w = bwd_error(grads[0][leaf], ref)
+        worst_leaf = max(worst_leaf, w)
+        if w > 1.0:
+            fail(f"{leaf}: kernel_bwd gradient at {w:.3f} of its tolerance vs the "
+                 f"plain re-shade")
+    step_cfgs = {"kernel": cfg, "kernel fwd + plain bwd":
+                 dataclasses.replace(cfg, kernel_bwd=False),
+                 "plain": dataclasses.replace(cfg, use_kernel=False)}
+    step_times = {}
+    for _ in range(2):
+        for label, c in step_cfgs.items():
+            s = copy.deepcopy(start)
+            opt = fitmod.make_optimizer(fitmod.partition_scene(s, trainable), 5e-3)
+            step_times.setdefault(label, []).extend(
+                cuda_ms(lambda: fitmod.fit_step(s, c, target, opt), reps[label]))
+    step_ms = {k: statistics.median(v) for k, v in step_times.items()}
+    s = copy.deepcopy(start)
+    opt = fitmod.make_optimizer(fitmod.partition_scene(s, trainable), 5e-3)
+    prof = profile_frames(lambda: fitmod.fit_step(s, cfg, target, opt), step_ms["kernel"])
+    return {"losses": losses, "fwd": fwd, "bwd": bwd, "leaves": sorted(grads[1]),
+            "worst_leaf": worst_leaf, "step_ms": step_ms, "prof": prof}
+
+
+def train_report(r: dict, steps: int) -> str:
+    return (f"{steps} Adam steps: loss " + " ".join(f"{x:.4e}" for x in r["losses"])
+            + f"; {r['fwd']} forward and {r['bwd']} backward launches; "
+            f"{len(r['leaves'])} leaves kernel_bwd True vs False, worst at "
+            f"{r['worst_leaf']:.4f} of tolerance; step time (median, CUDA events): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in r["step_ms"].items()))
+
+
+def main() -> None:
+    # --- 1. host -----------------------------------------------------------
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from gpgpuraytrace_tpu_torch import RenderConfig, default_scene, render
+    from gpgpuraytrace_tpu_torch.kernels import build
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
+    from gpgpuraytrace_tpu_torch.ops import fit as fitmod
+    from gpgpuraytrace_tpu_torch.ops.fd_check import fd_check_scalar, scene_with
+
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    card = f"({smi})"
+    phase(1, "host", f"{name}; nvidia-smi '{smi}'; torch {torch.__version__} "
+          f"CUDA {torch.version.cuda}; nvcc {build.find_nvcc()}")
+
+    # --- 2. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    lib_path, log = build.build_library()
+    build_s = time.perf_counter() - t0
+    for line in log.splitlines():
+        if line.startswith("---") or "registers" in line or "spill" in line:
+            print(f"    ptxas: {line.strip()}")
+    phase(2, "build", f"{lib_path.relative_to(REPO)} in {build_s:.2f} s")
+
+    # --- 3. kernel vs plain version at the main path's shapes --------------
+    cfg = RenderConfig(num_octaves=6)  # 512x512, the default march
+    err, line, kern_ms, plain_ms = forward_vs_plain(default_scene(6, device=dev), cfg, "")
+    phase(3, "kernel vs plain", f"{line} {card}")
+
+    # --- 4. the main path ----------------------------------------------------
+    yaws = (0.0, 0.7, -1.3)
+    serve_launches, means = serve_frames(default_scene(6, device=dev), cfg, yaws)
+    phase(4, "serving path", f"{len(yaws)} frames 512x512, {serve_launches} kernel "
+          f"launches; mean colour {means}")
 
     # --- 5. golden image through the kernel ---------------------------------
     cfg1 = RenderConfig(height=128, width=128, max_steps=96, num_octaves=1,
@@ -281,68 +432,39 @@ def main() -> None:
           f"{(img1 - golden).abs().max().item():.3e}")
 
     # --- 6. command line -----------------------------------------------------
+    cli_lines = []
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, "frame.png")
-        proc = subprocess.run(
-            [sys.executable, "-m", "gpgpuraytrace_tpu_torch.cli", "render",
-             "--size", "512", "--octaves", "6", "-o", png],
-            cwd=REPO, capture_output=True, text=True, timeout=600,
-        )
-        if proc.returncode != 0:
-            fail(f"cli render exited {proc.returncode}: {proc.stderr[-2000:]}")
-        with open(png, "rb") as fh:
-            if fh.read(8) != b"\x89PNG\r\n\x1a\n":
-                fail("cli render wrote no valid PNG")
-    phase(6, "cli", proc.stdout.strip())
+        for extra in ([], ["--volumetric"]):
+            proc = subprocess.run(
+                [sys.executable, "-m", "gpgpuraytrace_tpu_torch.cli", "render",
+                 "--size", "512", "--octaves", "6", *extra, "-o", png],
+                cwd=REPO, capture_output=True, text=True, timeout=600,
+            )
+            if proc.returncode != 0:
+                fail(f"cli render {extra} exited {proc.returncode}: {proc.stderr[-2000:]}")
+            with open(png, "rb") as fh:
+                if fh.read(8) != b"\x89PNG\r\n\x1a\n":
+                    fail(f"cli render {extra} wrote no valid PNG")
+            os.remove(png)
+            cli_lines.append(proc.stdout.strip())
+    phase(6, "cli", " | ".join(cli_lines))
 
     # --- 7. serving frame times -------------------------------------------------
-    scene = default_scene(6, device=dev)
-    plain_cfg = RenderConfig(num_octaves=6, use_kernel=False)
-    serve = torch.no_grad()(render)
-    times = {}
-    for label, c in (("kernel", cfg), ("plain", plain_cfg), ("kernel", cfg),
-                     ("plain", plain_cfg)):
-        times.setdefault(label, []).extend(cuda_ms(lambda: serve(scene, c), 5))
-    frame_kernel = statistics.median(times["kernel"])
-    frame_plain = statistics.median(times["plain"])
+    frame, n_frames, prof = frame_times(
+        default_scene(6, device=dev), cfg, {"kernel": 5, "plain": 5})
+    frame_kernel = frame["kernel"]
     lo, hi = RECORDED_FRAME_MS
     moved = ("within" if lo <= frame_kernel <= hi else
              "below" if frame_kernel < lo else "above")
-    phase(7, "serving times", f"512x512 6 octaves, median of {len(times['kernel'])} "
-          f"frames: kernel path {frame_kernel:.4f} ms, plain path {frame_plain:.3f} ms "
-          f"({name}, {smi}); {moved} the recorded {lo}-{hi} ms (PERF.md runs 1-5)")
-    print(f"    where a kernel-path frame goes: "
-          f"{profile_frames(lambda: serve(scene, cfg), frame_kernel)}")
+    phase(7, "serving times", f"512x512 6 octaves, median of {n_frames['kernel']} "
+          f"frames: kernel path {frame_kernel:.4f} ms, plain path {frame['plain']:.3f} ms "
+          f"{card}; {moved} the recorded {lo}-{hi} ms (PERF.md runs 1-5)")
+    print(f"    where a kernel-path frame goes: {prof}")
 
     # --- 8. backward kernel vs plain version at 512x512 ---------------------------
-    scene = default_scene(6, device=dev)
-    _, t_fwd, hit_fwd = render_kernel_raw(scene, cfg)
-    hit_fwd = hit_fwd.float()
-    packed, seed = pack_scene(scene, cfg.height, cfg.width, 0.0)
-    packed = packed.detach()
-    g = torch.randn(3, cfg.height, cfg.width,
-                    generator=torch.Generator().manual_seed(0)).to(dev)
-    bwd_args = (packed, seed, cfg, cfg.height, t_fwd, hit_fwd, g)
-    pbar_k = trace_frame_bwd(*bwd_args)
-    pbar_k2 = trace_frame_bwd(*bwd_args)
-    pbar_r = trace_bwd_reference(*bwd_args)
-    torch.cuda.synchronize()
-    if not torch.isfinite(pbar_k).all():
-        fail("backward kernel output not finite")
-    if not torch.equal(pbar_k, pbar_k2):
-        fail("two backward launches differ: the reduction is not deterministic")
-    bwd_err, bwd_worst = bwd_error(pbar_k, pbar_r)
-    if bwd_worst > 1.0:
-        fail(f"backward kernel vs plain: worst entry at {bwd_worst:.3f} of its "
-             f"tolerance (max abs err {bwd_err:.3e})")
-    bwd_ms = cuda_ms_back_to_back(lambda: trace_frame_bwd(*bwd_args), 50)
-    bwd_plain_ms = cuda_ms_back_to_back(lambda: trace_bwd_reference(*bwd_args), 3)
-    phase(8, "backward kernel vs plain", f"{pbar_k.shape[1]} packed entries on the "
-          f"fine pass's (t, hit), {int(hit_fwd.sum().item())} hits: max abs err "
-          f"{bwd_err:.3e}, worst entry at {bwd_worst:.4f} of rtol {BWD_RTOL} + "
-          f"{BWD_ATOL_REL} x max|pbar| ({pbar_r.abs().max().item():.4e}); two launches "
-          f"bitwise equal; {bwd_ms:.4f} ms kernel (50 back to back), "
-          f"{bwd_plain_ms:.3f} ms plain (3) ({name}, {smi})")
+    bwd = backward_vs_plain(default_scene(6, device=dev), cfg)
+    phase(8, "backward kernel vs plain", f"{bwd_report(bwd)} {card}")
 
     # --- 9. the training path --------------------------------------------------------
     target_scene = default_scene(6, device=dev)
@@ -350,53 +472,10 @@ def main() -> None:
         target = render(target_scene, cfg)
     start = fitmod.perturb_scene(target_scene, torch.Generator().manual_seed(0), rel=0.15)
     steps = 5
-    reset_counts(trace_frame, trace_frame_bwd)
-    _, losses = fitmod.fit(copy.deepcopy(start), cfg, target, steps=steps,
-                           learning_rate=5e-3, log_every=0)
-    torch.cuda.synchronize()
-    fwd_launches, bwd_launches = trace_frame.launches, trace_frame_bwd.launches
-    if (fwd_launches, bwd_launches) != (2 * steps, steps):
-        fail(f"training path launched the forward kernel {fwd_launches} and the "
-             f"backward {bwd_launches} times in {steps} steps, expected "
-             f"{2 * steps} and {steps}")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"fit losses not finite or not falling: {losses}")
-    grads = []
-    for kernel_bwd in (True, False):
-        s = copy.deepcopy(start)
-        fitmod.partition_scene(s)
-        fitmod.pixel_loss(s, dataclasses.replace(cfg, kernel_bwd=kernel_bwd),
-                          target).backward()
-        grads.append({n: p.grad for n, p in s.named_parameters() if p.grad is not None})
-    worst_leaf = 0.0
-    for leaf, ref in grads[1].items():
-        _, w = bwd_error(grads[0][leaf], ref)
-        worst_leaf = max(worst_leaf, w)
-        if w > 1.0:
-            fail(f"{leaf}: kernel_bwd gradient at {w:.3f} of its tolerance vs the "
-                 f"plain re-shade")
-    step_cfgs = {"kernel": cfg, "kernel fwd + plain bwd":
-                 dataclasses.replace(cfg, kernel_bwd=False), "plain": plain_cfg}
-    reps = {"kernel": 10, "kernel fwd + plain bwd": 3, "plain": 2}
-    step_times = {}
-    for _ in range(2):
-        for label, c in step_cfgs.items():
-            s = copy.deepcopy(start)
-            opt = fitmod.make_optimizer(fitmod.partition_scene(s), 5e-3)
-            step_times.setdefault(label, []).extend(
-                cuda_ms(lambda: fitmod.fit_step(s, c, target, opt), reps[label]))
-    step_ms = {k: statistics.median(v) for k, v in step_times.items()}
-    s = copy.deepcopy(start)
-    opt = fitmod.make_optimizer(fitmod.partition_scene(s), 5e-3)
-    phase(9, "training path", f"fit 512x512 6 octaves, {steps} Adam steps: loss "
-          + " ".join(f"{x:.4e}" for x in losses)
-          + f"; {fwd_launches} forward and {bwd_launches} backward launches; "
-          f"{len(grads[1])} leaves kernel_bwd True vs False, worst at "
-          f"{worst_leaf:.4f} of tolerance; step time (median, CUDA events): "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in step_ms.items())
-          + f" ({name}, {smi})")
-    print(f"    where a kernel-path training step goes: "
-          f"{profile_frames(lambda: fitmod.fit_step(s, cfg, target, opt), step_ms['kernel'])}")
+    tr = train(start, target, cfg, fitmod.default_trainable, steps,
+               {"kernel": 10, "kernel fwd + plain bwd": 3, "plain": 2})
+    phase(9, "training path", f"fit 512x512 6 octaves, {train_report(tr, steps)} {card}")
+    print(f"    where a kernel-path training step goes: {tr['prof']}")
 
     # --- 10. AD vs finite differences through the kernel path ---------------------
     # Gated on tests/test_grad.py's scene (2 octaves) at 512x512, primed. The
@@ -427,26 +506,99 @@ def main() -> None:
     phase(10, "AD vs FD", "; ".join(fd_lines)
           + f" ({trace_frame.launches} forward, {trace_frame_bwd.launches} backward launches)")
 
+    # --- 11. volumetric: forward kernel vs plain version ------------------------------
+    vcfg = RenderConfig(num_octaves=6, volumetric=True)  # relax 0.9, prime 8, 128 steps
+    vcfg_line = (f"512x512 6 octaves, warp_octaves {vcfg.warp_octaves}, relax "
+                 f"{vcfg.step_relax}, prime_ds {vcfg.prime_ds}")
+    verr, line, vkern_ms, vplain_ms = forward_vs_plain(
+        default_scene(6, volumetric=True, device=dev), vcfg, "volumetric ")
+    phase(11, "volumetric kernel vs plain", f"{vcfg_line}: {line} {card}")
+
+    # --- 12. volumetric serving --------------------------------------------------------
+    vserve_launches, means = serve_frames(default_scene(6, volumetric=True, device=dev),
+                                          vcfg, yaws)
+    vframe, n_frames, prof = frame_times(
+        default_scene(6, volumetric=True, device=dev), vcfg, {"kernel": 5, "plain": 2})
+    phase(12, "volumetric serving", f"{vcfg_line}: {len(yaws)} frames, {vserve_launches} "
+          f"kernel launches, mean colour {means}; median frame time (CUDA events): "
+          f"kernel path {vframe['kernel']:.4f} ms ({n_frames['kernel']} frames), plain "
+          f"path {vframe['plain']:.3f} ms ({n_frames['plain']} frames) {card}")
+    print(f"    where a volumetric kernel-path frame goes: {prof}")
+
+    # --- 13. volumetric: backward kernel vs plain version -------------------------------
+    vbwd = backward_vs_plain(default_scene(6, volumetric=True, device=dev), vcfg)
+    warp_bars = vbwd["pbar"][0, WARP_ENTRIES]
+    if not (warp_bars != 0).all():
+        fail(f"volumetric backward: warp entries {warp_bars.tolist()} must be non-zero")
+    phase(13, "volumetric backward kernel vs plain", f"{bwd_report(vbwd)}; warp amplitude "
+          f"and frequency entries {warp_bars.tolist()} (plain "
+          f"{vbwd['ref'][0, WARP_ENTRIES].tolist()}) {card}")
+
+    # --- 14. volumetric training ----------------------------------------------------------
+    target_scene = default_scene(6, volumetric=True, device=dev)
+    with torch.no_grad():
+        target = render(target_scene, vcfg)
+    start = fitmod.perturb_scene(target_scene, torch.Generator().manual_seed(0), rel=0.15)
+    with torch.no_grad():
+        start.noise.warp_amplitude.mul_(1.1)  # so the warp has a value to recover
+
+    def vtrainable(name: str) -> bool:
+        return fitmod.default_trainable(name) or name == "noise.warp_amplitude"
+
+    vtr = train(start, target, vcfg, vtrainable, steps,
+                {"kernel": 10, "kernel fwd + plain bwd": 3, "plain": 1})
+    if "noise.warp_amplitude" not in vtr["leaves"]:
+        fail("volumetric training: the warp amplitude got no gradient")
+    phase(14, "volumetric training", f"fit {vcfg_line}, warp amplitude trainable, "
+          f"{train_report(vtr, steps)} {card}")
+    print(f"    where a volumetric kernel-path training step goes: {vtr['prof']}")
+    # AD vs FD of the warp amplitude through the kernel path, reported only:
+    # the warp's net pixel-loss gradient is small against FD noise
+    # (tests/test_volumetric.py checks it per pixel, as the CPU suite does).
+    fd_cfg = RenderConfig(num_octaves=2, volumetric=True)
+    scene = default_scene(2, volumetric=True, device=dev)
+    warped = copy.deepcopy(scene)
+    with torch.no_grad():
+        warped.noise.warp_amplitude.mul_(1.1)
+        target = render(warped, fd_cfg)
+    ad, fd = fd_check_scalar(
+        lambda th: scene_with(scene, "noise.warp_amplitude", th),
+        scene.noise.warp_amplitude.detach(), fd_cfg, target, eps=3e-3, t_cap=0.03)
+    print(f"    AD vs FD, 2 oct volumetric noise.warp_amplitude at 512x512 (not gated): "
+          f"ad {ad:.6e} fd {fd:.6e} rel {abs(ad - fd) / max(abs(fd), 1e-5):.2e}")
+
+    paths = {"fwd": {"serving": serve_launches, "training": tr["fwd"],
+                     "volumetric serving": vserve_launches,
+                     "volumetric training": vtr["fwd"]},
+             "bwd": {"serving": 0, "training": tr["bwd"], "volumetric serving": 0,
+                     "volumetric training": vtr["bwd"]}}
     record = {"kernels": [
         {
             "name": "trace_fwd",
             "route": "cuda",
             "source": "gpgpuraytrace_tpu_torch/kernels/csrc/trace_fwd.cu",
             "replaces": "gpgpuraytrace_tpu/kernels/trace.py:510",
-            "launches": fwd_launches,
-            "max_abs_err": err,
+            "variants": ["heightfield", "volumetric"],
+            "launches": sum(paths["fwd"].values()),
+            "launches_by_path": paths["fwd"],
+            "max_abs_err": max(err, verr),
             "ms": kern_ms,
             "plain_ms": plain_ms,
+            "volumetric": {"max_abs_err": verr, "ms": vkern_ms, "plain_ms": vplain_ms},
         },
         {
             "name": "trace_bwd",
             "route": "cuda",
             "source": "gpgpuraytrace_tpu_torch/kernels/csrc/trace_bwd.cu",
             "replaces": "gpgpuraytrace_tpu/kernels/trace.py:716",
-            "launches": bwd_launches,
-            "max_abs_err": bwd_err,
-            "ms": bwd_ms,
-            "plain_ms": bwd_plain_ms,
+            "variants": ["heightfield", "volumetric"],
+            "launches": sum(paths["bwd"].values()),
+            "launches_by_path": paths["bwd"],
+            "max_abs_err": max(bwd["err"], vbwd["err"]),
+            "ms": bwd["ms"],
+            "plain_ms": bwd["plain_ms"],
+            "volumetric": {"max_abs_err": vbwd["err"], "ms": vbwd["ms"],
+                           "plain_ms": vbwd["plain_ms"]},
         },
     ]}
     print(json.dumps(record))

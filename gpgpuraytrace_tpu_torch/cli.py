@@ -2,6 +2,7 @@
 
   python -m gpgpuraytrace_tpu_torch.cli render --size 512 --octaves 6 -o frame.png
   python -m gpgpuraytrace_tpu_torch.cli fit --size 512 --steps 100
+  python -m gpgpuraytrace_tpu_torch.cli render --volumetric --size 512 -o frame.png
 
 ``--device cuda`` (the default) requires a CUDA GPU and raises without one;
 ``--device cpu`` runs the plain PyTorch versions. ``--kernel`` (the default)
@@ -27,17 +28,16 @@ def _parse_size(s: str) -> tuple[int, int]:
 def _cfg_from_args(args):
     from gpgpuraytrace_tpu_torch.models.scene import RenderConfig
 
-    if args.volumetric:
-        from gpgpuraytrace_tpu_torch.ops.field import VOLUMETRIC_TODO
-
-        raise NotImplementedError(VOLUMETRIC_TODO)
     h, w = _parse_size(args.size)
+    # step_relax stays None: RenderConfig resolves 1.0 (heightfield) or 0.9
+    # (volumetric) itself.
     return RenderConfig(
         height=h,
         width=w,
         max_steps=args.max_steps,
         num_octaves=args.octaves,
         use_kernel=args.kernel,
+        volumetric=args.volumetric,
         supersample=args.supersample,
         prime_ds=args.prime_ds,
         **({"prime_margin": args.prime_margin}
@@ -77,7 +77,8 @@ def cmd_render(args):
 
     device = _device(args.device)
     cfg = _cfg_from_args(args)
-    scene = default_scene(num_octaves=cfg.num_octaves, device=device)
+    scene = default_scene(num_octaves=cfg.num_octaves, volumetric=cfg.volumetric,
+                          device=device)
     serve = torch.no_grad()(render)  # serving builds no autograd graph
     t0 = time.perf_counter()
     img = serve(scene, cfg)
@@ -94,6 +95,7 @@ def cmd_render(args):
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(
         f"rendered {cfg.width}x{cfg.height} ({cfg.num_octaves} octaves, "
+        f"{'volumetric' if cfg.volumetric else 'heightfield'}, "
         f"kernel={cfg.use_kernel}, {name}) -> {args.out}  "
         f"first frame {first_s:.2f}s  frame {frame_s * 1e3:.3f} ms ({clock})  "
         f"{cfg.height * cfg.width / frame_s / 1e6:.1f} Mrays/s"
@@ -107,7 +109,8 @@ def cmd_fit(args):
 
     device = _device(args.device)
     cfg = _cfg_from_args(args)
-    target_scene = default_scene(num_octaves=cfg.num_octaves, device=device)
+    target_scene = default_scene(num_octaves=cfg.num_octaves, volumetric=cfg.volumetric,
+                                 device=device)
     with torch.no_grad():
         target = render(target_scene, cfg)
     scene0 = perturb_scene(target_scene, torch.Generator().manual_seed(args.seed), rel=0.15)
@@ -138,7 +141,7 @@ def _common(sp):
     sp.add_argument("--supersample", type=int, default=1, help="SSAA factor")
     sp.add_argument(
         "--volumetric", action="store_true",
-        help="3D-warped terrain volume (not ported yet: raises)",
+        help="3D-warped terrain volume (overhangs; step relax 0.9)",
     )
     sp.add_argument(
         "--prime-ds", type=int, default=None,

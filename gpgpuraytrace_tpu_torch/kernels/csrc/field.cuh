@@ -1,6 +1,7 @@
 // Device code shared by the trace kernels (trace_fwd.cu, trace_bwd.cu): the
-// packed-vector layout, the lattice hash, 2D gradient noise with its first
-// and second derivatives, the fBm heightfield along a ray, and camera rays.
+// packed-vector layout, the lattice hashes, 2D and 3D gradient noise with
+// their first and second derivatives, the terrain field along a ray (the fBm
+// heightfield, plus the 3D fBm warp in volumetric mode), and camera rays.
 //
 // Everything lives in an anonymous namespace, so each kernel source compiles
 // its own copy and the library needs no device linking.
@@ -23,15 +24,25 @@ constexpr int kPos = 0, kFwd = 3, kRight = 6, kUp = 9, kTanFov = 12,
               kSunColor = 21, kAmbient = 24, kAlbedoLow = 27,
               kAlbedoHigh = 30, kSnowColor = 33, kSnowHeight = 36,
               kFogColor = 37, kFogDensity = 40, kSkyZenith = 41,
-              kSkyHorizon = 44, kRow0 = 47, kAmps = 50;
+              kSkyHorizon = 44, kRow0 = 47, kWarpAmp = 48, kWarpFreq = 49,
+              kAmps = 50;
 constexpr int kMaxOctaves = 16;  // keep in sync with kernels/trace.py
 
 constexpr uint32_t kC1 = 0x85EBCA6Bu;
 constexpr uint32_t kKX = 0x8DA6B343u;
 constexpr uint32_t kKZ = 0xD8163841u;
 constexpr uint32_t kKY = 0xCB1AB31Fu;
+constexpr uint32_t kC2 = 0xC2B2AE35u;  // the 3D hash's seed key
 constexpr uint32_t kKXZ = kKX + kKZ;  // wraps, as the JAX constant does
+constexpr uint32_t kKXY = kKX + kKY;
+constexpr uint32_t kKYZ = kKY + kKZ;
+constexpr uint32_t kKXYZ = kKX + kKY + kKZ;
 constexpr float kInvSqrt5 = 0.4472135954999579f;
+constexpr float kInvSqrt2 = 0.7071067811865476f;
+// The volumetric warp: octave i of the 3D fBm hashes seed + 101 + i at
+// frequency 2^i with amplitude 0.5^i (ops/field.py:WARP_LACUNARITY, WARP_GAIN).
+constexpr uint32_t kWarpSeedOffset = 101u;
+constexpr float kWarpLacunarity = 2.f, kWarpGain = 0.5f;
 constexpr double kOctaveRot = 2.3999632297286535;  // golden angle
 
 constexpr float kDenomEps = 1e-4f;
@@ -180,6 +191,171 @@ __device__ __forceinline__ void noise2_hess(float x, float z, uint32_t seed,
   hzz = (2.f * dv * (cz + bz * u) + ddv * (k2 + k3 * u)) * kInvSqrt5;
 }
 
+// Raw cube-edge gradient (components 0/+-1) from hash bits 16+: bits 4-5 pick
+// the zero component (3 remaps to axis 0), bits 0 and 1 the signs.
+__device__ __forceinline__ void grad3(uint32_t h, float& gx, float& gy, float& gz) {
+  const uint32_t g = h >> 16;
+  uint32_t zero = (g >> 4) & 3u;
+  if (zero == 3u) zero = 0u;
+  const float s1 = (g & 1u) ? 1.f : -1.f;
+  const float s2 = (g & 2u) ? 1.f : -1.f;
+  gx = zero == 0u ? 0.f : s1;
+  gy = zero == 1u ? 0.f : (zero == 0u ? s1 : s2);
+  gz = zero == 2u ? 0.f : s2;
+}
+
+// One 3D lattice cell. Corner c is bit-packed (bit a set: the +1 corner along
+// axis a); per axis the fraction f[a], per corner the raw gradient g[a][c]
+// and the dot product n[c] = g[c] . (f - c).
+struct Cell3 {
+  float f[3];
+  float g[3][8];
+  float n[8];
+};
+
+__device__ __forceinline__ void cell3(float x, float y, float z, uint32_t seed,
+                                      Cell3& k) {
+  const float x0 = floorf(x), y0 = floorf(y), z0 = floorf(z);
+  k.f[0] = x - x0;
+  k.f[1] = y - y0;
+  k.f[2] = z - z0;
+  const uint32_t ix = static_cast<uint32_t>(static_cast<int>(x0));
+  const uint32_t iy = static_cast<uint32_t>(static_cast<int>(y0));
+  const uint32_t iz = static_cast<uint32_t>(static_cast<int>(z0));
+  const uint32_t base = ix * kKX + iy * kKY + iz * kKZ + seed * kC2;
+  const uint32_t off[8] = {0u, kKX, kKY, kKXY, kKZ, kKXZ, kKYZ, kKXYZ};
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    grad3(mix(base + off[c]), k.g[0][c], k.g[1][c], k.g[2][c]);
+    k.n[c] = k.g[0][c] * (k.f[0] - static_cast<float>(c & 1)) +
+             k.g[1][c] * (k.f[1] - static_cast<float>((c >> 1) & 1)) +
+             k.g[2][c] * (k.f[2] - static_cast<float>(c >> 2));
+  }
+}
+
+__device__ __forceinline__ float trilerp(const float (&q)[8], const float (&w)[3]) {
+  const float q00 = q[0] + w[0] * (q[1] - q[0]);
+  const float q10 = q[2] + w[0] * (q[3] - q[2]);
+  const float q01 = q[4] + w[0] * (q[5] - q[4]);
+  const float q11 = q[6] + w[0] * (q[7] - q[6]);
+  const float q0 = q00 + w[1] * (q10 - q00);
+  const float q1 = q01 + w[1] * (q11 - q01);
+  return q0 + w[2] * (q1 - q0);
+}
+
+// B_A(D_A q) of ops/noise.py:noise3_hessian: the differences q[c + 2^A] - q[c]
+// over the four corners c with bit A clear, blended over the two other axes,
+// the lower one first.
+template <int A>
+__device__ __forceinline__ float blend_diff(const float (&q)[8], const float (&w)[3]) {
+  constexpr int b = A == 0 ? 1 : 0, c = A == 2 ? 1 : 2;
+  float d[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int k = ((m >> A) << (A + 1)) | (m & ((1 << A) - 1));
+    d[m] = q[k | (1 << A)] - q[k];
+  }
+  const float q0 = d[0] + w[b] * (d[1] - d[0]);
+  const float q1 = d[2] + w[b] * (d[3] - d[2]);
+  return q0 + w[c] * (q1 - q0);
+}
+
+// M_AB: the mixed difference n[+A+B] - n[+A] - n[+B] + n[0], blended along
+// the third axis.
+template <int A, int B>
+__device__ __forceinline__ float mixed_diff(const float (&n)[8], const float (&w)[3]) {
+  constexpr int c = 3 - A - B, ba = 1 << A, bb = 1 << B, bc = 1 << c;
+  const float e0 = n[ba | bb] - n[ba] - n[bb] + n[0];
+  const float e1 = n[bc | ba | bb] - n[bc | ba] - n[bc | bb] + n[bc];
+  return e0 + w[c] * (e1 - e0);
+}
+
+__device__ __forceinline__ float noise3_value(float x, float y, float z, uint32_t seed) {
+  Cell3 k;
+  cell3(x, y, z, seed, k);
+  const float w[3] = {fade(k.f[0]), fade(k.f[1]), fade(k.f[2])};
+  return trilerp(k.n, w) * kInvSqrt2;
+}
+
+// 3D noise, its gradient d (ops/noise.py:noise3) and its Hessian
+// hs = (xx, xy, xz, yy, yz, zz), derived by hand (ops/noise.py:noise3_hessian
+// states the formula; the CPU tests hold it to autograd). A caller that
+// ignores hs leaves it to dead-code elimination.
+__device__ __forceinline__ void noise3_hess(float x, float y, float z, uint32_t seed,
+                                            float& value, float (&d)[3],
+                                            float (&hs)[6]) {
+  Cell3 k;
+  cell3(x, y, z, seed, k);
+  const float w[3] = {fade(k.f[0]), fade(k.f[1]), fade(k.f[2])};
+  const float dw[3] = {fade_d(k.f[0]), fade_d(k.f[1]), fade_d(k.f[2])};
+  const float ddw[3] = {fade_dd(k.f[0]), fade_dd(k.f[1]), fade_dd(k.f[2])};
+  const float bn[3] = {blend_diff<0>(k.n, w), blend_diff<1>(k.n, w), blend_diff<2>(k.n, w)};
+  value = trilerp(k.n, w) * kInvSqrt2;
+  d[0] = (dw[0] * bn[0] + trilerp(k.g[0], w)) * kInvSqrt2;
+  d[1] = (dw[1] * bn[1] + trilerp(k.g[1], w)) * kInvSqrt2;
+  d[2] = (dw[2] * bn[2] + trilerp(k.g[2], w)) * kInvSqrt2;
+  hs[0] = (ddw[0] * bn[0] + 2.f * dw[0] * blend_diff<0>(k.g[0], w)) * kInvSqrt2;
+  hs[1] = (dw[0] * dw[1] * mixed_diff<0, 1>(k.n, w) + dw[0] * blend_diff<0>(k.g[1], w) +
+           dw[1] * blend_diff<1>(k.g[0], w)) * kInvSqrt2;
+  hs[2] = (dw[0] * dw[2] * mixed_diff<0, 2>(k.n, w) + dw[0] * blend_diff<0>(k.g[2], w) +
+           dw[2] * blend_diff<2>(k.g[0], w)) * kInvSqrt2;
+  hs[3] = (ddw[1] * bn[1] + 2.f * dw[1] * blend_diff<1>(k.g[1], w)) * kInvSqrt2;
+  hs[4] = (dw[1] * dw[2] * mixed_diff<1, 2>(k.n, w) + dw[1] * blend_diff<1>(k.g[2], w) +
+           dw[2] * blend_diff<2>(k.g[1], w)) * kInvSqrt2;
+  hs[5] = (ddw[2] * bn[2] + 2.f * dw[2] * blend_diff<2>(k.g[2], w)) * kInvSqrt2;
+}
+
+// The volumetric warp's 3D fBm at q (ops/noise.py:fbm3_value, fbm3): octave i
+// at frequency 2^i, amplitude 0.5^i, seed + 101 + i; both exact in float.
+__device__ __forceinline__ float fbm3_value(float x, float y, float z, int octaves,
+                                            uint32_t seed) {
+  float value = 0.f, freq = 1.f, amp = 1.f;
+  for (int i = 0; i < octaves; ++i) {
+    value = value + amp * noise3_value(x * freq, y * freq, z * freq,
+                                       seed + kWarpSeedOffset + static_cast<uint32_t>(i));
+    freq = freq * kWarpLacunarity;
+    amp = amp * kWarpGain;
+  }
+  return value;
+}
+
+// The 3D fBm's value, gradient d and Hessian hs = (xx, xy, xz, yy, yz, zz)
+// in q.
+__device__ __forceinline__ void fbm3_hess(float x, float y, float z, int octaves,
+                                          uint32_t seed, float& value, float (&d)[3],
+                                          float (&hs)[6]) {
+  value = 0.f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) d[a] = 0.f;
+#pragma unroll
+  for (int a = 0; a < 6; ++a) hs[a] = 0.f;
+  float freq = 1.f, amp = 1.f;
+  for (int i = 0; i < octaves; ++i) {
+    float n, nd[3], nh[6];
+    noise3_hess(x * freq, y * freq, z * freq,
+                seed + kWarpSeedOffset + static_cast<uint32_t>(i), n, nd, nh);
+    value = value + amp * n;
+    const float af = amp * freq, aff = af * freq;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) d[a] = d[a] + af * nd[a];
+#pragma unroll
+    for (int a = 0; a < 6; ++a) hs[a] = hs[a] + aff * nh[a];
+    freq = freq * kWarpLacunarity;
+    amp = amp * kWarpGain;
+  }
+}
+
+// Σ gain^i over the warp octaves: |fbm3| never exceeds it, so the envelope
+// adds |warp_amplitude| times it (ops/field.py:warp_tail).
+__device__ __forceinline__ float warp_tail(int octaves) {
+  float tail = 0.f, amp = 1.f;
+  for (int i = 0; i < octaves; ++i) {
+    tail += amp;
+    amp = amp * kWarpGain;
+  }
+  return tail;
+}
+
 // One primary ray (kernels/trace.py:_raygen_rc), with the intermediates the
 // backward pulls back through: d = u / |u|, u = fwd + sx right + sy up.
 struct CameraRay {
@@ -206,7 +382,8 @@ __device__ __forceinline__ CameraRay camera_ray(const float* sc, int height,
   return r;
 }
 
-// The terrain along one ray: o + t d against the fBm heightfield.
+// The terrain along one ray: o + t d against the fBm heightfield, minus the
+// 3D fBm warp wa * fbm3(wf p) in volumetric mode.
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
 };
@@ -216,6 +393,8 @@ struct Field {
   const Octaves* oct;
   int num_octaves;
   uint32_t seed;
+  bool volumetric;
+  int warp_octaves;
 
   // Value-only field: the march's fast path.
   __device__ __forceinline__ float value(const Ray& r, float t) const {
@@ -230,12 +409,17 @@ struct Field {
                                          oct->sf[i] * x + oct->cf[i] * z,
                                          seed + static_cast<uint32_t>(i));
     }
-    return py - (sc[kHeightOffset] + sc[kHeightScale] * n);
+    float f = py - (sc[kHeightOffset] + sc[kHeightScale] * n);
+    if (volumetric) {
+      const float wf = sc[kWarpFreq];
+      f = f - sc[kWarpAmp] * fbm3_value(px * wf, py * wf, pz * wf, warp_octaves, seed);
+    }
+    return f;
   }
 
-  // f, its spatial gradient (gy = 1) and the terrain height h at o + t d.
+  // f, its spatial gradient (gx, gy, gz) and the terrain height h at o + t d.
   __device__ __forceinline__ void value_grad(const Ray& r, float t, float& f,
-                                             float& gx, float& gz,
+                                             float& gx, float& gy, float& gz,
                                              float& h) const {
     const float px = r.ox + t * r.dx;
     const float py = r.oy + t * r.dy;
@@ -255,7 +439,18 @@ struct Field {
     const float scale = sc[kHeightScale] * hs;
     f = py - h;
     gx = -scale * nxs;
+    gy = 1.f;
     gz = -scale * nzs;
+    if (volumetric) {
+      const float wa = sc[kWarpAmp], wf = sc[kWarpFreq];
+      float n3, d3[3], h3[6];
+      fbm3_hess(px * wf, py * wf, pz * wf, warp_octaves, seed, n3, d3, h3);
+      f = f - wa * n3;
+      const float waf = wa * wf;
+      gx = gx - waf * d3[0];
+      gy = gy - waf * d3[1];
+      gz = gz - waf * d3[2];
+    }
   }
 };
 

@@ -2,16 +2,18 @@
 // cotangent, one thread per pixel, then a deterministic two-step reduction.
 //
 // Replaces gpgpuraytrace_tpu/kernels/trace.py:_trace_bwd_kernel (launched by
-// _backward_pallas), which gets its adjoint from jax.vjp inside the kernel
-// and accumulates it in one SMEM block across a sequential TPU grid. Its
+// _backward_pallas; heightfield and volumetric), which gets its adjoint from
+// jax.vjp inside the kernel and accumulates it in one SMEM block across a
+// sequential TPU grid. Its
 // plain PyTorch version is
 // gpgpuraytrace_tpu_torch/kernels/trace.py:trace_bwd_reference (autograd of
 // the forward's own helpers).
 //
 // Per pixel, at the saved hit distance t, the adjoint is derived by hand, in
 // reverse order: recompute raygen, the fBm value, gradient and Hessian
-// (noise2_hess) and shade; reverse through shade, the normal and the
-// heightfield; add the implicit-function march channel at hits,
+// (noise2_hess; in volumetric mode also the 3D warp's, noise3_hess) and
+// shade; reverse through shade, the normal, the heightfield and the warp;
+// add the implicit-function march channel at hits,
 // scale = -t_bar / min(grad f . d, -1e-2), pulled back through f at fixed t;
 // reverse the ray direction's normalisation onto the camera scalars. The
 // per-octave frequency cotangents are reduced like the others and folded
@@ -19,8 +21,9 @@
 // same for every pixel).
 //
 // What bounds it on the H100: FP32 issue, about octaves x 2 noise-and-Hessian
-// evaluations per pixel, against 24 bytes read per pixel. Each thread keeps
-// its own cotangents in its own column of shared memory (no bank conflicts,
+// evaluations per pixel (plus warp_octaves 3D ones), against 24 bytes read
+// per pixel. Each thread keeps its own cotangents in its own column of shared
+// memory (no bank conflicts,
 // and the octave-indexed entries need no dynamically indexed registers);
 // the block then sums each column in a fixed order (sequential over four
 // slots, then a warp shuffle tree) into one row per block of a scratch
@@ -41,6 +44,8 @@ struct TraceBwdConfig {
   int width;
   int local_h;  // rows of this launch's band
   int num_octaves;
+  int volumetric;  // 1: the field subtracts the 3D fBm warp
+  int warp_octaves;
 };
 
 namespace {
@@ -108,6 +113,7 @@ __device__ __forceinline__ void pixel_bwd(const float* sc, const Octaves& oct,
   if (hit) {
     // --- recompute the field at p = o + t d: value, gradient, Hessian ----
     const float px = sc[kPos + 0] + t * dx;
+    const float py = sc[kPos + 1] + t * dy;
     const float pz = sc[kPos + 2] + t * dz;
     const float hs = sc[kHorizontalScale];
     const float x = px * hs, z = pz * hs;
@@ -129,11 +135,20 @@ __device__ __forceinline__ void pixel_bwd(const float* sc, const Octaves& oct,
     const float hscale = sc[kHeightScale];
     const float h = sc[kHeightOffset] + hscale * N;
     const float gsc = hscale * hs;
-    const float gx = -gsc * NX, gz = -gsc * NZ;  // gy = 1
+    float gx = -gsc * NX, gy = 1.f, gz = -gsc * NZ;
+    // The warp wa F(q), q = wf p: F, its gradient FD and Hessian FH in q.
+    const float wa = sc[kWarpAmp], wf = sc[kWarpFreq], waf = wa * wf;
+    float F = 0.f, FD[3] = {0.f, 0.f, 0.f}, FH[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (cfg.volumetric) {
+      fbm3_hess(px * wf, py * wf, pz * wf, cfg.warp_octaves, seed, F, FD, FH);
+      gx = gx - waf * FD[0];
+      gy = gy - waf * FD[1];
+      gz = gz - waf * FD[2];
+    }
 
     // --- recompute shade -------------------------------------------------
-    const float ninv = rsqrtf(gx * gx + 1.f + gz * gz + 1e-12f);
-    const float nxn = gx * ninv, nyn = ninv, nzn = gz * ninv;
+    const float ninv = rsqrtf(gx * gx + gy * gy + gz * gz + 1e-12f);
+    const float nxn = gx * ninv, nyn = gy * ninv, nzn = gz * ninv;
     const float w_steep = static_cast<float>(0.55 - 0.85);
     const float us_raw = (nyn - 0.85f) / w_steep;
     const float us = clip(us_raw, 0.f, 1.f);
@@ -199,9 +214,10 @@ __device__ __forceinline__ void pixel_bwd(const float* sc, const Octaves& oct,
       A(kSunDir + 1) += diffuse_bar * nyn;
       A(kSunDir + 2) += diffuse_bar * nzn;
     }
-    // n = g / |g|, g = (gx, 1, gz).
-    const float ndg = nxn_bar * gx + nyn_bar + nzn_bar * gz;
+    // n = g / |g|.
+    const float ndg = nxn_bar * gx + nyn_bar * gy + nzn_bar * gz;
     const float gx_bar = ninv * (nxn_bar - ninv * ninv * ndg * gx);
+    const float gy_bar = ninv * (nyn_bar - ninv * ninv * ndg * gy);
     const float gz_bar = ninv * (nzn_bar - ninv * ninv * ndg * gz);
 
     // --- reverse the heightfield: h, (gx, gz) -> N, (NX, NZ), (x, z) ------
@@ -213,12 +229,29 @@ __device__ __forceinline__ void pixel_bwd(const float* sc, const Octaves& oct,
     float hs_bar = gsc_bar * hscale;
     const float x_bar = N_bar * NX + NX_bar * HXX + NZ_bar * HXZ;
     const float z_bar = N_bar * NZ + NX_bar * HXZ + NZ_bar * HZZ;
-    float px_bar = x_bar * hs, pz_bar = z_bar * hs;
+    float px_bar = x_bar * hs, py_bar = 0.f, pz_bar = z_bar * hs;
     hs_bar += x_bar * px + z_bar * pz;
-    t_bar += px_bar * dx + pz_bar * dz;
+
+    // --- reverse the warp's gradient: g -= waf FD(q), q = wf p ----------
+    // q_bar = FH (-waf g_bar); wf collects q_bar . p and waf_bar wa.
+    float wa_bar = 0.f, wf_bar = 0.f;
+    if (cfg.volumetric) {
+      const float fxb = -waf * gx_bar, fyb = -waf * gy_bar, fzb = -waf * gz_bar;
+      const float waf_bar = -(gx_bar * FD[0] + gy_bar * FD[1] + gz_bar * FD[2]);
+      wa_bar = waf_bar * wf;
+      wf_bar = waf_bar * wa;
+      const float qx_bar = FH[0] * fxb + FH[1] * fyb + FH[2] * fzb;
+      const float qy_bar = FH[1] * fxb + FH[3] * fyb + FH[4] * fzb;
+      const float qz_bar = FH[2] * fxb + FH[4] * fyb + FH[5] * fzb;
+      px_bar += wf * qx_bar;
+      py_bar += wf * qy_bar;
+      pz_bar += wf * qz_bar;
+      wf_bar += qx_bar * px + qy_bar * py + qz_bar * pz;
+    }
+    t_bar += px_bar * dx + py_bar * dy + pz_bar * dz;
 
     // --- march channel: f(o + t d) = 0 at fixed t ------------------------
-    const float denom = fminf(gx * dx + dy + gz * dz, -kDenomMin);
+    const float denom = fminf(gx * dx + gy * dy + gz * dz, -kDenomMin);
     const float ms = -t_bar / denom;
     hoff_bar -= ms;
     hscale_bar -= ms * N;
@@ -226,7 +259,18 @@ __device__ __forceinline__ void pixel_bwd(const float* sc, const Octaves& oct,
     px_bar += Nm_bar * NX * hs;
     pz_bar += Nm_bar * NZ * hs;
     hs_bar += Nm_bar * NX * px + Nm_bar * NZ * pz;
-    const float py_bar = ms;
+    py_bar += ms;
+    if (cfg.volumetric) {  // f -= wa F(q): F_bar = -ms wa
+      wa_bar -= ms * F;
+      const float Fm_bar = -ms * wa;
+      const float qx_bar = Fm_bar * FD[0], qy_bar = Fm_bar * FD[1], qz_bar = Fm_bar * FD[2];
+      px_bar += wf * qx_bar;
+      py_bar += wf * qy_bar;
+      pz_bar += wf * qz_bar;
+      wf_bar += qx_bar * px + qy_bar * py + qz_bar * pz;
+    }
+    A(kWarpAmp) = wa_bar;
+    A(kWarpFreq) = wf_bar;
     A(kPos + 0) = px_bar;
     A(kPos + 1) = py_bar;
     A(kPos + 2) = pz_bar;

@@ -2,15 +2,16 @@
 // march -> bracketed Newton polish -> shade, one thread per pixel.
 //
 // Replaces gpgpuraytrace_tpu/kernels/trace.py:_trace_kernel (chunked march,
-// heightfield, optionally primed), which computes the same per pixel over
-// (16, 128) tiles of a sequential TPU grid. Its plain PyTorch version is
-// gpgpuraytrace_tpu_torch/kernels/trace.py:trace_frame_reference, line for
-// line the same arithmetic.
+// heightfield or volumetric, optionally primed), which computes the same per
+// pixel over (16, 128) tiles of a sequential TPU grid. Its plain PyTorch
+// version is gpgpuraytrace_tpu_torch/kernels/trace.py:trace_frame_reference,
+// line for line the same arithmetic.
 //
 // What bounds it on the H100: FP32/INT32 issue. Each march step evaluates
-// the value-only fBm, about octaves x 60 integer and float operations, and a
-// pixel marches tens of steps, while it reads one prime value and writes
-// five floats (about 20 bytes). So the design keeps all per-ray state in
+// the value-only fBm, about octaves x 60 integer and float operations (plus
+// about 250 per warp octave of the volumetric 3D noise), and a pixel marches
+// tens of steps, while it reads one prime value and writes five floats
+// (about 20 bytes). So the design keeps all per-ray state in
 // registers and uses shared memory only for the packed scene scalars and the
 // per-octave coefficients every thread of the block reads. Each thread stops
 // marching as soon as its own ray is done; the TPU kernel instead checks for
@@ -39,6 +40,8 @@ struct TraceConfig {
   float step_relax;
   float step_floor_t;
   int primed;  // 1: prime holds a (local_h, width) march-start map
+  int volumetric;  // 1: the field subtracts the 3D fBm warp
+  int warp_octaves;
 };
 
 namespace {
@@ -66,13 +69,15 @@ trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_
   const CameraRay cr = camera_ray(sc, cfg.height, cfg.width, row, col);
   const float dx = cr.dx, dy = cr.dy, dz = cr.dz;
   const Ray ray{sc[kPos + 0], sc[kPos + 1], sc[kPos + 2], dx, dy, dz};
-  const Field field{sc, &oct, cfg.num_octaves, static_cast<uint32_t>(*seed_ptr)};
+  const Field field{sc, &oct, cfg.num_octaves, static_cast<uint32_t>(*seed_ptr),
+                    cfg.volumetric != 0, cfg.warp_octaves};
 
   // --- sky-envelope entry (_envelope, _envelope_entry) -------------------
   float amps_abs = 0.f;
   for (int k = 0; k < cfg.num_octaves; ++k) amps_abs += fabsf(sc[kAmps + k]);
-  const float env =
-      (sc[kHeightOffset] + fabsf(sc[kHeightScale]) * amps_abs) + cfg.hit_eps;
+  float env = sc[kHeightOffset] + fabsf(sc[kHeightScale]) * amps_abs;
+  if (cfg.volumetric) env = env + fabsf(sc[kWarpAmp]) * warp_tail(cfg.warp_octaves);
+  env = env + cfg.hit_eps;  // the entry below and the escape test in the march
   const float oy = ray.oy;
   float t = cfg.t_min;
   if (oy > env) {
@@ -107,12 +112,12 @@ trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_
     active = t_new < cfg.t_max;
   }
 
-  float gx = 0.f, gz = 0.f, h = 0.f;
+  float gx = 0.f, gy = 1.f, gz = 0.f, h = 0.f;
   if (hit) {
     // --- bracketed safeguarded-Newton polish --------------------------
     float f0;
-    field.value_grad(ray, t, f0, gx, gz, h);
-    const float denom0 = gx * dx + dy + gz * dz;
+    field.value_grad(ray, t, f0, gx, gy, gz, h);
+    const float denom0 = gx * dx + gy * dy + gz * dz;
     const float down0 = fmaxf(-denom0, kDenomMin);
     float hi = t + fmaxf(f0, 0.f) / down0 * 1.25f + cfg.hit_eps;
     float lo = prev_t;
@@ -123,8 +128,8 @@ trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_
     float x = safe0 ? fmaxf(clip(newton0, lo, fminf(hi, cfg.t_max)), cfg.t_min) : t;
     for (int k = 1; k < cfg.newton_iters; ++k) {
       float f;
-      field.value_grad(ray, x, f, gx, gz, h);
-      const float denom = gx * dx + dy + gz * dz;
+      field.value_grad(ray, x, f, gx, gy, gz, h);
+      const float denom = gx * dx + gy * dy + gz * dz;
       const bool safe = fabsf(denom) > kDenomEps;
       const float newton = x - (safe ? f / denom : 0.f);
       if (f > 0.f) lo = x;
@@ -134,7 +139,7 @@ trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_
     t = x;
     // --- final evaluation: shading normal and residual verdict --------
     float f_fin;
-    field.value_grad(ray, t, f_fin, gx, gz, h);
+    field.value_grad(ray, t, f_fin, gx, gy, gz, h);
     if (cfg.march_eps_scale != 1.f) {
       hit = f_fin < kResidualSlack * cfg.hit_eps * t;
     }
@@ -154,7 +159,6 @@ trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_
 
   float steep = 0.f, snow = 0.f, diffuse = 0.f, sky_fill = 0.f, fog = 0.f;
   if (hit) {
-    const float gy = 1.f;
     const float ninv = rsqrtf(gx * gx + gy * gy + gz * gz + 1e-12f);
     const float nx = gx * ninv, ny = gy * ninv, nz = gz * ninv;
     steep = smoothstep(0.85f, static_cast<float>(0.55 - 0.85), ny);

@@ -4,7 +4,11 @@ scene-parameter cotangent), each for a full frame or a row band.
 
 Counterparts of ``gpgpuraytrace_tpu/kernels/trace.py``: ``_trace_kernel``
 with its launcher ``_render_pallas_raw``, and ``_trace_bwd_kernel`` with
-``_backward_pallas`` and the custom VJP ``render_pallas_cfg``. The pieces:
+``_backward_pallas`` and the custom VJP ``render_pallas_cfg``. Both kernels
+run ``march_mode="chunked"``, primed or not, with or without the
+``march_eps_scale`` residual verdict, on the heightfield and on the
+volumetric terrain (the 3D fBm warp). The other march modes and
+``march_bf16`` raise ``NotImplementedError`` (ROADMAP.md). The pieces:
 
 * ``trace_frame`` and ``trace_frame_bwd`` are the wrappers. Each validates
   its inputs, launches its hand-written CUDA kernel (``csrc/trace_fwd.cu``,
@@ -32,17 +36,18 @@ import torch
 from gpgpuraytrace_tpu_torch.models.scene import (
     MARCH_CHUNK_DEFAULT, RenderConfig, Scene,
 )
-from gpgpuraytrace_tpu_torch.ops.field import check_heightfield
+from gpgpuraytrace_tpu_torch.ops.field import WARP_GAIN, WARP_LACUNARITY, warp_tail
 from gpgpuraytrace_tpu_torch.ops.march import (
     _BWD_DENOM_MIN, _DENOM_EPS, _PRIME_PREV_PULLBACK, _RESIDUAL_SLACK,
     check_prime_band, coarse_prime_cfg, prime_from_coarse,
 )
-from gpgpuraytrace_tpu_torch.ops.noise import fbm2, fbm2_value
+from gpgpuraytrace_tpu_torch.ops.noise import fbm2, fbm2_value, fbm3, fbm3_value
 from gpgpuraytrace_tpu_torch.ops.shade import _smoothstep
 from gpgpuraytrace_tpu_torch.utils import packing as pk
 from gpgpuraytrace_tpu_torch.utils.convert import LEAF_NAMES
 
 MAX_OCTAVES = 16  # keep in sync with csrc/field.cuh
+MAX_WARP_OCTAVES = 8  # the kernels loop over warp octaves; octave 8 weighs 0.5^7
 
 
 class TraceConfig(ctypes.Structure):
@@ -62,6 +67,8 @@ class TraceConfig(ctypes.Structure):
         ("step_relax", ctypes.c_float),
         ("step_floor_t", ctypes.c_float),
         ("primed", ctypes.c_int),
+        ("volumetric", ctypes.c_int),
+        ("warp_octaves", ctypes.c_int),
     ]
 
 
@@ -73,11 +80,12 @@ class TraceBwdConfig(ctypes.Structure):
         ("width", ctypes.c_int),
         ("local_h", ctypes.c_int),
         ("num_octaves", ctypes.c_int),
+        ("volumetric", ctypes.c_int),
+        ("warp_octaves", ctypes.c_int),
     ]
 
 
 def _check_supported(cfg: RenderConfig) -> None:
-    check_heightfield(cfg.volumetric)
     if cfg.march_mode != "chunked":
         raise NotImplementedError(
             f"march_mode={cfg.march_mode!r} is not ported to the trace kernel "
@@ -91,6 +99,10 @@ def _check_supported(cfg: RenderConfig) -> None:
     if not 1 <= cfg.num_octaves <= MAX_OCTAVES:
         raise ValueError(
             f"num_octaves={cfg.num_octaves} must be in [1, {MAX_OCTAVES}]"
+        )
+    if cfg.volumetric and not 1 <= cfg.warp_octaves <= MAX_WARP_OCTAVES:
+        raise ValueError(
+            f"warp_octaves={cfg.warp_octaves} must be in [1, {MAX_WARP_OCTAVES}]"
         )
 
 
@@ -202,6 +214,7 @@ def _launch(packed, seed, cfg, local_height, t0_prime):
         t_min=cfg.t_min, t_max=cfg.t_max, hit_eps=cfg.hit_eps,
         march_eps_scale=cfg.march_eps_scale, step_relax=cfg.step_relax,
         step_floor_t=cfg.step_floor_t, primed=int(t0_prime is not None),
+        volumetric=int(cfg.volumetric), warp_octaves=cfg.warp_octaves,
     )
     with torch.cuda.device(dev):
         err = lib.trace_fwd_launch(
@@ -248,7 +261,8 @@ def _launch_bwd(packed, seed, cfg, local_height, t, hit, g):
     lib = _library()
     dev = packed.device
     kcfg = TraceBwdConfig(height=cfg.height, width=cfg.width, local_h=local_height,
-                          num_octaves=cfg.num_octaves)
+                          num_octaves=cfg.num_octaves, volumetric=int(cfg.volumetric),
+                          warp_octaves=cfg.warp_octaves)
     partial = torch.empty(lib.trace_bwd_scratch_floats(kcfg), dtype=torch.float32,
                           device=dev)
     pbar = torch.empty((1, pk.AMPS + cfg.num_octaves), dtype=torch.float32, device=dev)
@@ -282,11 +296,14 @@ def _raygen_rc(sc, cfg: RenderConfig, rows, cols):
 
 
 def _envelope(sc, cfg: RenderConfig):
-    """Certified terrain upper bound plus hit_eps."""
+    """Certified terrain upper bound (plus the volumetric warp's tail) plus
+    hit_eps."""
     amps_abs = torch.zeros((), dtype=torch.float32, device=sc(0).device)
     for k in range(cfg.num_octaves):
         amps_abs = amps_abs + torch.abs(sc(pk.AMPS + k))
     env = sc(pk.HEIGHT_OFFSET) + torch.abs(sc(pk.HEIGHT_SCALE)) * amps_abs
+    if cfg.volumetric:
+        env = env + torch.abs(sc(pk.WARP_AMP)) * warp_tail(cfg.warp_octaves)
     return env + cfg.hit_eps
 
 
@@ -313,6 +330,8 @@ def _field_fns(sc, packed, seed, cfg: RenderConfig, o, d):
     h_off = sc(pk.HEIGHT_OFFSET)
     h_scale = sc(pk.HEIGHT_SCALE)
     amps = packed[0, pk.AMPS:pk.AMPS + cfg.num_octaves]
+    w_amp, w_freq = sc(pk.WARP_AMP), sc(pk.WARP_FREQ)
+    warp = (cfg.warp_octaves, WARP_LACUNARITY, WARP_GAIN, seed)
 
     def field_grad_at(t):
         """f, its gradient (gx, gy, gz) and the terrain height h."""
@@ -320,12 +339,22 @@ def _field_fns(sc, packed, seed, cfg: RenderConfig, o, d):
         n, nx, nz = fbm2(px * hs, pz * hs, amps, lac, seed)
         h = h_off + h_scale * n
         scale = h_scale * hs
-        return py - h, -scale * nx, torch.ones_like(h), -scale * nz, h
+        f, gx, gy, gz = py - h, -scale * nx, torch.ones_like(h), -scale * nz
+        if cfg.volumetric:
+            n3, nx3, ny3, nz3 = fbm3(px * w_freq, py * w_freq, pz * w_freq, *warp)
+            f = f - w_amp * n3
+            gx = gx - w_amp * w_freq * nx3
+            gy = gy - w_amp * w_freq * ny3
+            gz = gz - w_amp * w_freq * nz3
+        return f, gx, gy, gz, h
 
     def field_at(t):
         px, py, pz = ox + t * dx, oy + t * dy, oz + t * dz
         n = fbm2_value(px * hs, pz * hs, amps, lac, seed)
-        return py - (h_off + h_scale * n)
+        f = py - (h_off + h_scale * n)
+        if cfg.volumetric:
+            f = f - w_amp * fbm3_value(px * w_freq, py * w_freq, pz * w_freq, *warp)
+        return f
 
     return field_grad_at, field_at
 

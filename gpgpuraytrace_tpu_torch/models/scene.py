@@ -111,9 +111,10 @@ class RenderConfig:
     the fused backward kernel, False autograd through the plain re-shade at
     the saved hit distances), and ``interpret`` does not exist.
 
-    The kernel path runs ``march_mode="chunked"`` on the heightfield; the
-    other modes, ``volumetric`` and ``march_bf16`` are still to be ported
-    (ROADMAP.md) and raise there. ``tile_h`` is the TPU kernel's tile height,
+    The kernel path runs ``march_mode="chunked"`` on the heightfield and on
+    the volumetric terrain (``warp_octaves`` in 1..8); the other march modes
+    and ``march_bf16`` are still to be ported (ROADMAP.md) and raise there.
+    ``tile_h`` is the TPU kernel's tile height,
     kept so configs carry across; the CUDA kernel runs one thread per pixel.
     """
 

@@ -158,20 +158,20 @@ def _march_loop(cfg: RenderConfig, ray_o, ray_d, noise: NoiseParams,
     return t, hit, steps
 
 
+_NOISE_LEAVES = ("amplitudes", "lacunarity", "height_scale", "height_offset",
+                 "horizontal_scale", "warp_amplitude", "warp_frequency")
+
+
 def _noise_leaves(noise: NoiseParams) -> tuple[torch.Tensor, ...]:
-    """The float tensors the heightfield reads, in ``_noise_view`` order."""
-    return (noise.amplitudes, noise.lacunarity, noise.height_scale,
-            noise.height_offset, noise.horizontal_scale)
+    """Every float tensor the field reads, in ``_NOISE_LEAVES`` order (the
+    warp's too: the implicit-function VJP gives each its gradient)."""
+    return tuple(getattr(noise, name) for name in _NOISE_LEAVES)
 
 
 def _noise_view(leaves, seed) -> types.SimpleNamespace:
     """Stand-in for ``NoiseParams`` over the given tensors (the field reads
     attributes only)."""
-    amplitudes, lacunarity, height_scale, height_offset, horizontal_scale = leaves
-    return types.SimpleNamespace(
-        amplitudes=amplitudes, lacunarity=lacunarity, height_scale=height_scale,
-        height_offset=height_offset, horizontal_scale=horizontal_scale, seed=seed,
-    )
+    return types.SimpleNamespace(seed=seed, **dict(zip(_NOISE_LEAVES, leaves)))
 
 
 def _march_bwd_core(cfg: RenderConfig, ray_o, ray_d, leaves, seed, t, hit, ct_t):

@@ -1,12 +1,12 @@
 """Shading: gradient normals, Lambert lighting, procedural sky, distance fog
-(counterpart of ``gpgpuraytrace_tpu/ops/shade.py``), heightfield mode."""
+(counterpart of ``gpgpuraytrace_tpu/ops/shade.py``)."""
 
 from __future__ import annotations
 
 import torch
 
 from gpgpuraytrace_tpu_torch.models.scene import Materials, NoiseParams
-from gpgpuraytrace_tpu_torch.ops.field import check_heightfield, terrain_height
+from gpgpuraytrace_tpu_torch.ops.field import surface_normal, terrain_height
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
@@ -51,11 +51,14 @@ def apply_fog(color, sky, t, mat: Materials):
 
 def shade(ray_o, ray_d, t, hit, noise: NoiseParams, mat: Materials,
           volumetric: bool = False, warp_octaves: int = 2):
-    """March result -> linear RGB (h, W, 3) in [0, ~1.5]."""
-    check_heightfield(volumetric)
+    """March result -> linear RGB (h, W, 3) in [0, ~1.5]. In volumetric
+    mode the normal includes the warp; snow still reads the heightfield h."""
     p = ray_o + t[..., None] * ray_d
     h, dh_dx, dh_dz = terrain_height(p[..., 0], p[..., 2], noise)
-    normal = _normalize(torch.stack([-dh_dx, torch.ones_like(h), -dh_dz], dim=-1))
+    if volumetric:
+        normal = surface_normal(p, noise, volumetric, warp_octaves)
+    else:
+        normal = _normalize(torch.stack([-dh_dx, torch.ones_like(h), -dh_dz], dim=-1))
     sky = sky_color(ray_d, mat)
     surf = surface_color(p, normal, mat, h)
     surf = apply_fog(surf, sky, t, mat)

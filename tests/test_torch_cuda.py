@@ -16,6 +16,7 @@ import torch
 from gpgpuraytrace_tpu_torch.kernels import trace as ktrace
 from gpgpuraytrace_tpu_torch.models.scene import RenderConfig, default_scene
 from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
+from gpgpuraytrace_tpu_torch.utils import packing as pk
 from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
 
 torch.set_num_threads(2)
@@ -34,12 +35,17 @@ def frac_within(a, b, atol):
     return ((a - b).abs() <= atol).float().mean().item()
 
 
+# Volumetric configs: RenderConfig resolves step_relax to 0.9 for them.
+VOL = {"volumetric": True, "step_relax": None}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kw", [{}, {"march_eps_scale": 4.0}, {"prime_ds": 0}],
-                         ids=["default", "residual_verdict", "unprimed"])
+@pytest.mark.parametrize(
+    "kw", [{}, {"march_eps_scale": 4.0}, {"prime_ds": 0}, VOL, {**VOL, "prime_ds": 0}],
+    ids=["default", "residual_verdict", "unprimed", "volumetric", "volumetric_unprimed"])
 def test_cuda_kernel_matches_plain_version(cuda, kw):
     cfg = dataclasses.replace(CFG, **kw)
-    scene = default_scene(3, device=cuda)
+    scene = default_scene(3, volumetric=cfg.volumetric, device=cuda)
     before = ktrace.trace_frame.launches
     color, t, hit = ktrace.render_kernel_raw(scene, cfg)
     torch.cuda.synchronize()
@@ -80,10 +86,11 @@ def within_bwd_tolerance(got, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kw", [{}, {"prime_ds": 0}], ids=["primed", "unprimed"])
+@pytest.mark.parametrize("kw", [{}, {"prime_ds": 0}, VOL, {**VOL, "prime_ds": 0}],
+                         ids=["primed", "unprimed", "volumetric", "volumetric_unprimed"])
 def test_cuda_bwd_kernel_matches_plain_version(cuda, kw):
     cfg = dataclasses.replace(CFG, **kw)
-    scene = default_scene(3, device=cuda)
+    scene = default_scene(3, volumetric=cfg.volumetric, device=cuda)
     _, t, hit = ktrace.render_kernel_raw(scene, cfg)
     packed, seed = pack_scene(scene, cfg.height, cfg.width)
     packed, hit = packed.detach(), hit.float()
@@ -97,14 +104,18 @@ def test_cuda_bwd_kernel_matches_plain_version(cuda, kw):
     assert ktrace.trace_frame_bwd.launches == before + 2
     assert torch.equal(a, b)  # no atomics: bitwise repeatable
     assert torch.isfinite(a).all() and within_bwd_tolerance(a, ref)
+    if cfg.volumetric:  # the warp amplitude and frequency get gradients
+        assert (a[0, pk.WARP_AMP:pk.WARP_FREQ + 1] != 0).all()
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_bwd_matches_plain_reshade(cuda):
+@pytest.mark.parametrize("volumetric", [False, True], ids=["heightfield", "volumetric"])
+def test_cuda_kernel_bwd_matches_plain_reshade(cuda, volumetric):
+    cfg = dataclasses.replace(CFG, volumetric=volumetric, step_relax=None)
     grads = []
     for kernel_bwd in (True, False):
-        scene = default_scene(3, device=cuda)
-        img = ktrace.render_kernel(scene, dataclasses.replace(CFG, kernel_bwd=kernel_bwd))
+        scene = default_scene(3, volumetric=volumetric, device=cuda)
+        img = ktrace.render_kernel(scene, dataclasses.replace(cfg, kernel_bwd=kernel_bwd))
         torch.mean(img * torch.cos(img)).backward()
         grads.append({n: p.grad for n, p in scene.named_parameters() if p.grad is not None})
     assert grads[0].keys() >= grads[1].keys() >= {"noise.amplitudes", "camera.yaw"}

@@ -79,12 +79,6 @@ def test_field_and_grad(scenes):
     close(tfield.envelope_height(ts.noise), jfield.envelope_height(js.noise), 1e-6)
 
 
-def test_volumetric_field_raises(scenes):
-    _, ts = scenes
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfield.field(torch.zeros(4, 3), ts.noise, volumetric=True)
-
-
 def test_shade_and_tonemap(scenes):
     js, ts = scenes
     rng = np.random.default_rng(4)

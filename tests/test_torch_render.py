@@ -106,12 +106,6 @@ def test_cli_render_cpu_writes_png(tmp_path, capsys):
     assert "rendered 64x64" in capsys.readouterr().out
 
 
-def test_cli_volumetric_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["render", "--device", "cpu", "--volumetric", "--size", "64",
-                  "-o", str(tmp_path / "f.png")])
-
-
 def test_port_never_imports_jax():
     code = (
         "import importlib, pkgutil, sys\n"

@@ -142,14 +142,26 @@ def test_trace_frame_bwd_rejects_bad_inputs(scene, case):
 
 
 @pytest.mark.parametrize(
-    "kw", [{"march_mode": "lod"}, {"march_bf16": True}, {"volumetric": True}],
-    ids=["lod", "bf16", "volumetric"],
+    "kw", [{"march_mode": "lod"}, {"march_bf16": True}], ids=["lod", "bf16"],
 )
 def test_unported_variants_raise(scene, kw):
     cfg = dataclasses.replace(CFG, prime_ds=0, **kw)
     packed, seed, _ = _inputs(scene)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ktrace.trace_frame(packed, seed, cfg, CFG.height)
+
+
+@pytest.mark.parametrize("warp_octaves", [0, ktrace.MAX_WARP_OCTAVES + 1])
+def test_volumetric_warp_octaves_out_of_range_raise(scene, warp_octaves):
+    cfg = dataclasses.replace(CFG, prime_ds=0, volumetric=True, warp_octaves=warp_octaves)
+    packed, seed, _ = _inputs(scene)
+    with pytest.raises(ValueError, match="warp_octaves"):
+        ktrace.trace_frame(packed, seed, cfg, CFG.height)
+    t = torch.ones(CFG.height, CFG.width)
+    hit = torch.zeros(CFG.height, CFG.width)
+    g = torch.zeros(3, CFG.height, CFG.width)
+    with pytest.raises(ValueError, match="warp_octaves"):
+        ktrace.trace_frame_bwd(packed, seed, cfg, CFG.height, t, hit, g)
 
 
 def test_no_fallback_without_cuda(monkeypatch, tmp_path):
