@@ -11,7 +11,7 @@ each prints one line and any failure exits non-zero:
 
 1. host: CUDA present; card name and power limit; CUDA and nvcc versions;
 2. build: the kernels from gpgpuraytrace_tpu_torch/kernels/csrc, one nvcc
-   per source, in parallel;
+   per source, in parallel, beside the test-only noise probe;
 3. the forward kernel against its plain PyTorch version on the card, at the
    main path's shapes (coarse prime pass 66x64, then the 512x512 pass);
 4. the serving path: 3 frames at 3 camera yaws, 2 forward launches each;
@@ -33,10 +33,34 @@ each prints one line and any failure exits non-zero:
 14. volumetric training: 5 Adam steps of fit with the warp amplitude
     trainable, 2 forward and 1 backward launch each, falling loss;
     kernel_bwd True vs False gradients; step times; AD vs FD of the warp
-    amplitude on a 2-octave volumetric scene, reported only.
+    amplitude on a 2-octave volumetric scene, reported only;
+15. the executed-step counter (``debug_steps``), both terrains: it changes no
+    output bit, JAX's per-tile bounds hold against the plain stats march from
+    the same prime map; useful steps per ray, executed steps per lane, per
+    warp and per TPU tile, the two divergence taxes, exhausted lanes;
+16. ``march_mode="fixed"``: bit for bit equal to chunked, against its plain
+    version with phase 3's gates, times at 128 and 64 steps and the marginal
+    cost of a march step beside its bound;
+17. ``march_mode="lod"``: against its plain version (phase 3's gates), the
+    counted launch bit for bit equal to the uncounted one, against chunked
+    (the JAX variant contract), its time beside chunked's;
+18. ``march_bf16`` under each march mode: the 2D noise's bf16 arithmetic on
+    the card against torch's, bit for bit (the test-only
+    tests/csrc/noise2_probe.cu); the kernel against its plain version with
+    the bf16 gates, and apart from the float32 instantiation on the same
+    inputs; chunked+bf16 against the float32 frame with the JAX bf16
+    contract; times beside float32's;
+19. ``utils/profiling.py`` on both scenes: ``march_stats``, ``warn_if_rough``
+    (and its warning on a rough scene), ``Timer`` and ``trace``.
 
-A line before the last is a JSON record of the kernels; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+Phases 15-18 each drive their variants through the entry point a user
+calls (``render``, or ``render_kernel_raw`` for the counter) with the launch
+counts set to 0 just before and read just after.
+
+A line before the last is a JSON record of the kernels, each with its least
+time on the card (``bound_ms``, from operation counts of the source and the
+published peaks); the last line is ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -45,11 +69,13 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -65,6 +91,22 @@ COLOR_ATOL, COLOR_FRAC = 2e-3, 0.999
 BULK_ATOL, BULK_FRAC = 1e-4, 0.99
 HIT_AGREE = 0.995
 T_ATOL, T_FRAC = 5e-2, 0.999
+F32_GATES = {"color": COLOR_FRAC, "bulk": BULK_FRAC, "hit": HIT_AGREE, "t": T_FRAC,
+             "mean": float("inf")}
+# The bf16 march field's kernel vs its plain version: a bf16 field value
+# moves in steps of a bf16 unit, so a last-bit difference in a sample point
+# (FMA contraction) can move a march step, and a grazing ray's end with it,
+# more often than in float32. Readings on an H100 80GB HBM3 at 700 W (the
+# chunked 66x64 coarse and 512x512 fine pass, both terrains): colour
+# 99.84-99.94% within 2e-3 and 99.61-99.84% within 1e-4, mean error 1.0e-5 to
+# 3.4e-5, hit agreement >= 99.9977%, t 99.70-99.90%. The float32 march's
+# output differs from the bf16 march's by a mean error of 1.2e-3 to 4.4e-3
+# on the same inputs (plain versions, CPU, 128x128 and its coarse pass), so
+# the mean-error gate (2e-4) sits between the two, and BF16_MIN_DIFF asks
+# the bf16 kernel to differ from the float32 kernel by a mean error above
+# 1e-4: a kernel that ignored its bf16 flag would fail both.
+BF16_GATES = {"color": 0.995, "bulk": 0.99, "hit": 0.999, "t": 0.995, "mean": 2e-4}
+BF16_MIN_DIFF = 1e-4
 # Backward kernel vs its plain version: every packed entry within rtol 1e-3
 # plus 1e-4 of the largest. The sums over 262,144 pixels run in another order,
 # and rsqrtf, expf and FMA contraction round differently from torch.
@@ -75,6 +117,59 @@ RECORDED_FRAME_MS = (1.0306, 1.4094)
 # The packed entries of the volumetric warp's amplitude and frequency
 # (utils/packing.py WARP_AMP, WARP_FREQ).
 WARP_ENTRIES = slice(48, 50)
+# The JAX variant contract between march modes (tests/test_pallas.py): 97% of
+# colour values within 5e-2, 95% within 1e-3; and between the bf16 and the
+# float32 march: mean image error under 5e-3, under 1% of hit verdicts flipped.
+VARIANT_ATOL, VARIANT_FRAC = 5e-2, 0.97
+VARIANT_BULK_ATOL, VARIANT_BULK_FRAC = 1e-3, 0.95
+BF16_MEAN_ERR, BF16_FLIPS = 5e-3, 0.01
+# Least time on the card (bound_ms): the larger of the bytes a kernel must
+# move over HBM's rate and, per type, its operations over the peak rate of
+# that type. Published peaks of the H100 SXM at its 700 W limit (NVIDIA's data
+# sheet and Hopper white paper): HBM 3.35 TB/s; FP32 67 TFLOP/s (132 SMs x 128
+# FP32 lanes x 2 for an FMA x 1.98 GHz); INT32 on 64 lanes per SM, 132 x 64 x
+# 1.98 GHz; bf16 outside the tensor cores 133.8 TFLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"fp32": 67e12, "int32": 132 * 64 * 1.98e9, "bf16": 133.8e12}
+# Operations per pixel, counted operator by operator in the sources
+# (kernels/csrc/field.cuh, trace_fwd.cu, trace_bwd.cu): each +, -, *, /, min,
+# max, floor, compare, select and conversion is one operation of its
+# operands' type; a multiply and an add count two, as the FP32 peak counts an
+# FMA. "step": a march step's ray point, field sum, hit and escape tests and
+# advance; "octave": one heightfield octave of the value-only field (the
+# rotation, noise2_value's floors, four corner hashes and gradients, dots,
+# fades and blend); "octave_bf16": the same with its blend in bf16;
+# "warp_octave": one 3D warp octave (noise3_value, eight corners);
+# "grad_octave" and "grad_warp_octave": the same in Field::value_grad (noise2
+# with derivatives; fbm3_hess), which the polish calls newton_iters + 1 times
+# per hit; "pixel": raygen, envelope and shade. The backward per hit pixel:
+# two noise2_hess per octave and one fbm3_hess per warp octave with their
+# adjoint sums; per pixel the raygen and shade adjoint and the column sums.
+OPS = {
+    "step": {"fp32": 25, "int32": 2},
+    "octave": {"fp32": 77, "int32": 49},
+    "octave_bf16": {"fp32": 48, "int32": 49, "bf16": 40},
+    "warp_step": {"fp32": 5},
+    "warp_octave": {"fp32": 147, "int32": 125},
+    "grad_octave": {"fp32": 117, "int32": 49},
+    "grad_warp_octave": {"fp32": 480, "int32": 125},
+    "pixel": {"fp32": 90},
+    "bwd_octave": {"fp32": 360, "int32": 98},
+    "bwd_warp_octave": {"fp32": 485, "int32": 125},
+    "bwd_pixel": {"fp32": 260},
+}
+# The TPU kernel's lines each forward instantiation replaces
+# (gpgpuraytrace_tpu/kernels/trace.py).
+FWD_SOURCE = "gpgpuraytrace_tpu_torch/kernels/csrc/trace_fwd.cu"
+REPLACES = {
+    "chunked": "gpgpuraytrace_tpu/kernels/trace.py:510",
+    "chunked+debug_steps": "gpgpuraytrace_tpu/kernels/trace.py:603",
+    "fixed": "gpgpuraytrace_tpu/kernels/trace.py:431",
+    "lod": "gpgpuraytrace_tpu/kernels/trace.py:556",
+    "chunked+bf16": "gpgpuraytrace_tpu/ops/noise.py:181",
+    "fixed+bf16": "gpgpuraytrace_tpu/ops/noise.py:181",
+    "lod+bf16": "gpgpuraytrace_tpu/ops/noise.py:181",
+}
 # AD vs FD checks of tests/test_grad.py: (leaf, component, eps, rtol, t_cap).
 FD_CHECKS = (
     ("noise.amplitudes", 0, 3e-3, 5e-2, 0.03),
@@ -103,23 +198,40 @@ def check_close(name, a, b, atol, frac):
     return got
 
 
-def compare_trace(tag, kern, ref):
-    """Hold a kernel result (color, t, hit) against the plain version's."""
+def compare_trace(tag, kern, ref, bf16: bool = False):
+    """Hold a kernel result (color, t, hit) against the plain version's with
+    phase 3's gates (F32_GATES), or for the bf16 march field with
+    BF16_GATES: (max abs colour error, report)."""
     (ck, tk, hk), (cr, tr, hr) = kern, ref
+    gates = BF16_GATES if bf16 else F32_GATES
     for x in (ck, tk):
         if not torch.isfinite(x).all():
             fail(f"{tag}: kernel output not finite")
-    c2 = check_close(f"{tag} color", ck, cr, COLOR_ATOL, COLOR_FRAC)
-    c4 = check_close(f"{tag} color bulk", ck, cr, BULK_ATOL, BULK_FRAC)
-    agree = (hk == hr).float().mean().item()
-    if agree <= HIT_AGREE:
-        fail(f"{tag}: hit masks agree on {100 * agree:.3f}% (need > {100 * HIT_AGREE}%)")
     both = (hk > 0.5) & (hr > 0.5)
-    tf = check_close(f"{tag} t", tk[both], tr[both], T_ATOL, T_FRAC) if both.any() else 1.0
     err = (ck - cr).abs().max().item()
+    mean_err = (ck - cr).abs().mean().item()
+    c2 = check_close(f"{tag} color", ck, cr, COLOR_ATOL, gates["color"])
+    c4 = check_close(f"{tag} color bulk", ck, cr, BULK_ATOL, gates["bulk"])
+    agree = (hk == hr).float().mean().item()
+    if agree <= gates["hit"]:
+        fail(f"{tag}: hit masks agree on {100 * agree:.4f}% (need > {100 * gates['hit']}%)")
+    tf = check_close(f"{tag} t", tk[both], tr[both], T_ATOL, gates["t"]) if both.any() else 1.0
+    if mean_err >= gates["mean"]:
+        fail(f"{tag}: mean abs colour error {mean_err:.3e} (need < {gates['mean']})")
     return err, (f"{tag}: color {100 * c2:.4f}% <= {COLOR_ATOL}, {100 * c4:.4f}% <= "
-                 f"{BULK_ATOL}, max abs err {err:.3e}; hit agree {100 * agree:.4f}%; "
-                 f"t {100 * tf:.4f}% <= {T_ATOL}")
+                 f"{BULK_ATOL}, mean abs err {mean_err:.3e}, max abs err {err:.3e}; hit "
+                 f"agree {100 * agree:.4f}%; t {100 * tf:.4f}% <= {T_ATOL}")
+
+
+def bf16_differs(tag, out16, out32) -> str:
+    """A bf16 kernel's colour against the float32 instantiation's on the same
+    inputs: the mean difference must exceed BF16_MIN_DIFF, or the bf16 field
+    did not run."""
+    diff = (out16[0] - out32[0]).abs().mean().item()
+    if not diff > BF16_MIN_DIFF:
+        fail(f"{tag}: the bf16 kernel's colour is within a mean {diff:.3e} of the float32 "
+             f"kernel's on the same inputs (need > {BF16_MIN_DIFF})")
+    return f"{tag} vs the float32 kernel: mean abs diff {diff:.3e}"
 
 
 def bwd_error(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
@@ -129,9 +241,79 @@ def bwd_error(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return err.max().item(), (err / tol).max().item()
 
 
-def reset_counts(*wrappers) -> None:
-    for w in wrappers:
-        w.launches = 0
+def reset_counts() -> None:
+    """Set the forward and backward kernels' launch counts to 0."""
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
+
+    trace_frame.launches.clear()
+    trace_frame_bwd.launches = 0
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """ptxas's register and spill lines, each with the kernel it reports on
+    (the forward kernel as trace_fwd_kernel<mode, bf16, debug>)."""
+    modes = ("chunked", "fixed", "lod")
+    name, out = "", []
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            m = re.search(r"\d(trace_\w+?)(?:ILi(\d)ELb(\d)ELb(\d)E)?E", entry.group(1))
+            name = m.group(1) if m else entry.group(1)
+            if m and m.group(2):
+                name += f"<{modes[int(m.group(2))]}, bf16={m.group(3)}, debug={m.group(4)}>"
+        elif line.startswith("---"):
+            out.append(line.strip())
+        elif "registers" in line or "spill" in line:
+            out.append(f"{name}: {line.strip().removeprefix('ptxas info    : ')}")
+    return out
+
+
+def add_ops(total: dict, part: dict, times: float) -> dict:
+    for k, n in part.items():
+        total[k] = total.get(k, 0.0) + n * times
+    return total
+
+
+def bound(ops: dict, nbytes: float) -> tuple[float, str]:
+    """(least time in ms, "bytes" or "operations")."""
+    t_ops = max(n / PEAK_OPS_PER_S[k] for k, n in ops.items())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def step_ops(cfg) -> dict:
+    """Operations of one march step of one pixel."""
+    ops = add_ops({}, OPS["step"], 1)
+    add_ops(ops, OPS["octave_bf16" if cfg.march_bf16 else "octave"], cfg.num_octaves)
+    if cfg.volumetric:
+        add_ops(ops, OPS["warp_step"], 1)
+        add_ops(ops, OPS["warp_octave"], cfg.warp_octaves)
+    return ops
+
+
+def fwd_bound(cfg, steps: float, hits: float, n_pix: int, debug: bool = False):
+    """Least time of a forward launch over ``n_pix`` pixels that march
+    ``steps`` field evaluations in all and polish ``hits`` hits: (ms, bound_by).
+    Bytes: the prime map read (when primed), colour, t and hit (and the
+    counter) written once."""
+    ops = add_ops({}, step_ops(cfg), steps)
+    add_ops(ops, OPS["grad_octave"], hits * (cfg.newton_iters + 1) * cfg.num_octaves)
+    if cfg.volumetric:
+        add_ops(ops, OPS["grad_warp_octave"],
+                hits * (cfg.newton_iters + 1) * cfg.warp_octaves)
+    add_ops(ops, OPS["pixel"], n_pix)
+    nbytes = n_pix * (4 * bool(cfg.prime_ds) + 20 + 4 * debug)
+    return bound(ops, nbytes)
+
+
+def bwd_bound(cfg, hits: float, n_pix: int):
+    """Least time of a backward launch: (ms, bound_by). Bytes: t, hit and the
+    three cotangent planes read once."""
+    ops = add_ops({}, OPS["bwd_octave"], hits * cfg.num_octaves)
+    if cfg.volumetric:
+        add_ops(ops, OPS["bwd_warp_octave"], hits * cfg.warp_octaves)
+    add_ops(ops, OPS["bwd_pixel"], n_pix)
+    return bound(ops, n_pix * 20)
 
 
 def cuda_ms(fn, reps: int) -> list[float]:
@@ -195,8 +377,9 @@ def profile_frames(fn, frame_ms: float, frames: int = 5) -> str:
 def forward_vs_plain(scene, cfg, tag: str) -> tuple[float, str, float, float]:
     """The forward kernel against its plain version at the main path's shapes
     (the coarse prime pass, then the fine pass from the kernel's prime map)
-    with phase 3's gates, and the fine pass's time: (max abs colour error,
-    report, kernel ms, plain ms)."""
+    with phase 3's gates (the bf16 gates, and apart from the float32 kernel,
+    for ``cfg.march_bf16``), and the fine pass's time: (max abs colour
+    error, report, kernel ms, plain ms)."""
     from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_reference
     from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
     from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
@@ -204,17 +387,25 @@ def forward_vs_plain(scene, cfg, tag: str) -> tuple[float, str, float, float]:
     ccfg = coarse_prime_cfg(cfg)
     ch = cfg.height // cfg.prime_ds + 2
     with torch.no_grad():
-        packed_c, seed = pack_scene(scene, ccfg.height, ccfg.width, -1.0)
-        coarse_k = trace_frame(packed_c, seed, ccfg, ch)
-        coarse_r = trace_frame_reference(packed_c, seed, ccfg, ch)
+        packed_c, seed_c = pack_scene(scene, ccfg.height, ccfg.width, -1.0)
+        coarse_k = trace_frame(packed_c, seed_c, ccfg, ch)
+        coarse_r = trace_frame_reference(packed_c, seed_c, ccfg, ch)
         torch.cuda.synchronize()
-        _, line_c = compare_trace(f"{tag}coarse {ch}x{ccfg.width}", coarse_k, coarse_r)
+        _, line_c = compare_trace(f"{tag}coarse {ch}x{ccfg.width}", coarse_k, coarse_r,
+                                  cfg.march_bf16)
         prime = prime_from_coarse(coarse_k[1], cfg)
         packed, seed = pack_scene(scene, cfg.height, cfg.width, 0.0)
         fine_k = trace_frame(packed, seed, cfg, cfg.height, prime)
         fine_r = trace_frame_reference(packed, seed, cfg, cfg.height, prime)
         torch.cuda.synchronize()
-        err, line_f = compare_trace(f"{tag}fine {cfg.height}x{cfg.width}", fine_k, fine_r)
+        err, line_f = compare_trace(f"{tag}fine {cfg.height}x{cfg.width}", fine_k, fine_r,
+                                    cfg.march_bf16)
+        if cfg.march_bf16:
+            c32, f32 = (dataclasses.replace(c, march_bf16=False) for c in (ccfg, cfg))
+            line_c += "; " + bf16_differs("coarse", coarse_k,
+                                          trace_frame(packed_c, seed_c, c32, ch))
+            line_f += "; " + bf16_differs("fine", fine_k,
+                                          trace_frame(packed, seed, f32, cfg.height, prime))
         kern_ms = cuda_ms_back_to_back(
             lambda: trace_frame(packed, seed, cfg, cfg.height, prime), 50)
         plain_ms = cuda_ms_back_to_back(
@@ -231,13 +422,13 @@ def serve_frames(scene, cfg, yaws) -> tuple[int, str]:
     from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
 
     frames = []
-    reset_counts(trace_frame, trace_frame_bwd)
+    reset_counts()
     with torch.no_grad():  # serving builds no autograd graph
         for yaw in yaws:
             scene.camera.yaw.fill_(yaw)
             frames.append(render(scene, cfg))
     torch.cuda.synchronize()
-    launches = trace_frame.launches
+    launches = trace_frame.launches.total()
     if launches != 2 * len(yaws) or trace_frame_bwd.launches:
         fail(f"serving path launched the forward kernel {launches} times and the "
              f"backward {trace_frame_bwd.launches} times, expected "
@@ -322,11 +513,11 @@ def train(start, target, cfg, trainable, steps: int, reps: dict[str, int]) -> di
     from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
     from gpgpuraytrace_tpu_torch.ops import fit as fitmod
 
-    reset_counts(trace_frame, trace_frame_bwd)
+    reset_counts()
     _, losses = fitmod.fit(copy.deepcopy(start), cfg, target, steps=steps,
                            learning_rate=5e-3, trainable=trainable, log_every=0)
     torch.cuda.synchronize()
-    fwd, bwd = trace_frame.launches, trace_frame_bwd.launches
+    fwd, bwd = trace_frame.launches.total(), trace_frame_bwd.launches
     if (fwd, bwd) != (2 * steps, steps):
         fail(f"training path launched the forward kernel {fwd} and the backward "
              f"{bwd} times in {steps} steps, expected {2 * steps} and {steps}")
@@ -372,6 +563,324 @@ def train_report(r: dict, steps: int) -> str:
             + ", ".join(f"{k} {v:.4f} ms" for k, v in r["step_ms"].items()))
 
 
+def fine_inputs(scene, cfg):
+    """(packed, seed, prime map or None) of the main path's fine pass."""
+    from gpgpuraytrace_tpu_torch.kernels.trace import _prime_map
+    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+
+    with torch.no_grad():
+        prime = _prime_map(scene, cfg, 0.0, cfg.height)
+        packed, seed = pack_scene(scene, cfg.height, cfg.width, 0.0)
+    return packed.detach(), seed, prime
+
+
+def drive(fn, name: str, expect: int):
+    """Run ``fn`` (a user's entry point) with the launch counts set to 0 just
+    before and read just after: the launches of the forward instantiation
+    ``name``, which must be ``expect``, and what ``fn`` returned."""
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
+
+    reset_counts()
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    got = trace_frame.launches[name]
+    if got != expect or trace_frame_bwd.launches:
+        fail(f"{name}: the path launched it {got} times, expected {expect} "
+             f"({trace_frame.launches.total()} forward, {trace_frame_bwd.launches} backward "
+             f"launches in all)")
+    return got, out
+
+
+def counter_phase(scene, cfg, tag: str) -> dict:
+    """Phase 15 on one terrain: the counter through render_kernel_raw, its
+    outputs against the uncounted frame bit for bit, JAX's per-tile bounds
+    against the plain stats march from the same prime map, and the taxes."""
+    from gpgpuraytrace_tpu_torch.kernels.trace import (
+        render_kernel_raw, tile_steps, trace_frame, trace_frame_reference, warp_steps,
+    )
+    from gpgpuraytrace_tpu_torch.ops.camera import generate_rays
+    from gpgpuraytrace_tpu_torch.ops.march import march_with_stats
+    from gpgpuraytrace_tpu_torch.utils.profiling import march_stats
+
+    launches, counted = drive(lambda: render_kernel_raw(scene, cfg, debug_steps=True),
+                              "chunked+debug_steps", 1)
+    with torch.no_grad():
+        plain = render_kernel_raw(scene, cfg)
+    for a, b, what in zip(counted[:3], plain, ("colour", "t", "hit")):
+        if not torch.equal(a, b):
+            fail(f"{tag}counter: {what} differs from the uncounted frame")
+    steps = counted[3]
+    packed, seed, prime = fine_inputs(scene, cfg)
+    with torch.no_grad():
+        o, d = generate_rays(scene.camera, cfg.height, cfg.width)
+        _, _, lanes = march_with_stats(cfg, o, d, scene.noise, prime)
+        stats = march_stats(scene, cfg, t0_prime=prime)
+        ref = trace_frame_reference(packed, seed, cfg, cfg.height, prime, debug_steps=True)
+    tiles = tile_steps(steps, cfg)
+    warps = warp_steps(steps)
+    th, chunk = cfg.tile_h, cfg.march_chunk or 8
+    tile_max = lanes.reshape(cfg.height // th, th, cfg.width // 128, 128).amax(dim=(1, 3))
+    if not ((tiles % chunk == 0).all() and (tiles <= cfg.max_steps).all()):
+        fail(f"{tag}counter: tile counts not whole chunks within max_steps")
+    low = (tiles < tile_max).sum().item()
+    high = (tiles > tile_max + 2 * chunk).sum().item()
+    if low or high:
+        fail(f"{tag}counter: {low} tiles below their lanes' longest useful march, "
+             f"{high} more than two chunks above it (of {tiles.numel()})")
+    err, _ = compare_trace(f"{tag}counter vs plain",
+                           (counted[0].permute(2, 0, 1), counted[1], counted[2].float()),
+                           ref[:3])
+    same = (steps == ref[3]).float().mean().item()
+    useful = lanes.float().mean().item()
+    ms = cuda_ms_back_to_back(
+        lambda: trace_frame(packed, seed, cfg, cfg.height, prime, debug_steps=True), 50)
+    plain_ms = cuda_ms_back_to_back(
+        lambda: trace_frame_reference(packed, seed, cfg, cfg.height, prime, debug_steps=True),
+        1)
+    hits = counted[2].sum().item()
+    bound_ms, bound_by = fwd_bound(cfg, lanes.sum().item(), hits, lanes.numel(), debug=True)
+    line = (f"{tag}{cfg.height}x{cfg.width}: launches {launches}; outputs bitwise equal with and without it; "
+            f"useful steps per ray {useful:.4f} (march_stats {stats['steps_mean']:.4f}, "
+            f"p99 {stats['steps_p99']:.1f}), executed per lane "
+            f"{steps.float().mean().item():.4f}, per warp {warps.float().mean().item():.4f}, "
+            f"per TPU tile {tiles.float().mean().item():.4f}; warp tax "
+            f"{warps.float().mean().item() / useful:.4f}x, tile tax "
+            f"{tiles.float().mean().item() / useful:.4f}x; exhausted lanes "
+            f"{stats['exhausted_lanes']}; kernel lanes equal to the plain version's on "
+            f"{100 * same:.4f}%; JAX tile bounds hold on all {tiles.numel()} tiles; fine "
+            f"pass with the counter {ms:.4f} ms (50 back to back), plain {plain_ms:.3f} ms; "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+    return {"line": line, "launches": launches, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "lanes": lanes, "hits": hits,
+            "err": err}
+
+
+def fixed_phase(scene, cfg, tag: str) -> dict:
+    """Phase 16 on one terrain."""
+    from gpgpuraytrace_tpu_torch import render
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_reference
+
+    fcfg = dataclasses.replace(cfg, march_mode="fixed")  # unprimed, as fixed frames are
+    launches, _ = drive(lambda: render(scene, fcfg), "fixed", 1)
+    packed, seed, _ = fine_inputs(scene, fcfg)
+    h = cfg.height
+    with torch.no_grad():
+        kf = trace_frame(packed, seed, fcfg, h)
+        kc = trace_frame(packed, seed, dataclasses.replace(cfg, prime_ds=0), h)
+        ref = trace_frame_reference(packed, seed, fcfg, h)
+    torch.cuda.synchronize()
+    for a, b, what in zip(kf, kc, ("colour", "t", "hit")):
+        if not torch.equal(a, b):
+            fail(f"{tag}fixed: {what} differs from the chunked kernel's")
+    err, line = compare_trace(f"{tag}fixed vs plain", kf, ref)
+    cfg64 = dataclasses.replace(fcfg, max_steps=64)
+    times = {128: [], 64: []}
+    for _ in range(2):
+        for steps, c in ((128, fcfg), (64, cfg64)):
+            times[steps].append(cuda_ms_back_to_back(lambda: trace_frame(packed, seed, c, h), 20))
+    t128, t64 = min(times[128]), min(times[64])
+    per_step_us = 1e3 * (t128 - t64) / 64
+    step_bound_us = 1e3 * bound(add_ops({}, step_ops(fcfg), h * cfg.width), 0.0)[0]
+    plain_ms = cuda_ms_back_to_back(lambda: trace_frame_reference(packed, seed, fcfg, h), 1)
+    n_pix = h * cfg.width
+    bound_ms, bound_by = fwd_bound(fcfg, fcfg.max_steps * n_pix, kf[2].sum().item(), n_pix)
+    return {"line": (f"{tag}launches {launches}; bit for bit equal to chunked (unprimed); "
+                     f"{line}; fine pass 128 steps {t128:.4f} ms, 64 steps {t64:.4f} ms "
+                     f"(best of 2 x 20 back to back), marginal {per_step_us:.4f} us per "
+                     f"march step over the frame against a bound of {step_bound_us:.4f} us "
+                     f"({per_step_us / step_bound_us:.2f}x); plain {plain_ms:.3f} ms; "
+                     f"bound {bound_ms:.4f} ms ({bound_by})"),
+            "launches": launches, "err": err, "ms": t128, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "per_step_us": per_step_us,
+            "step_bound_us": step_bound_us}
+
+
+def lod_phase(scene, cfg, tag: str) -> dict:
+    """Phase 17 on one terrain."""
+    from gpgpuraytrace_tpu_torch import render
+    from gpgpuraytrace_tpu_torch.kernels.trace import (
+        render_kernel_raw, trace_frame, trace_frame_reference,
+    )
+
+    lcfg = dataclasses.replace(cfg, march_mode="lod")  # unprimed, as lod frames are
+    launches, _ = drive(lambda: render(scene, lcfg), "lod", 1)
+    packed, seed, prime = fine_inputs(scene, cfg)
+    h = cfg.height
+    with torch.no_grad():
+        kl = trace_frame(packed, seed, lcfg, h)
+        *counted, lanes = trace_frame(packed, seed, lcfg, h, debug_steps=True)
+        ref = trace_frame_reference(packed, seed, lcfg, h)
+        lod_img = render_kernel_raw(scene, lcfg)[0]
+        base_img = render_kernel_raw(scene, cfg)[0]
+    for a, b, what in zip(counted, kl, ("colour", "t", "hit")):
+        if not torch.equal(a, b):
+            fail(f"{tag}lod: the counted launch's {what} differs from the uncounted one's")
+    err, line = compare_trace(f"{tag}lod vs plain", kl, ref)
+    v = check_close(f"{tag}lod vs chunked", lod_img, base_img, VARIANT_ATOL, VARIANT_FRAC)
+    vb = check_close(f"{tag}lod vs chunked bulk", lod_img, base_img, VARIANT_BULK_ATOL,
+                     VARIANT_BULK_FRAC)
+    times = {"lod": [], "chunked": []}
+    for _ in range(2):
+        times["lod"].append(cuda_ms_back_to_back(lambda: trace_frame(packed, seed, lcfg, h), 50))
+        times["chunked"].append(
+            cuda_ms_back_to_back(lambda: trace_frame(packed, seed, cfg, h, prime), 50))
+    ms, chunked_ms = min(times["lod"]), min(times["chunked"])
+    plain_ms = cuda_ms_back_to_back(lambda: trace_frame_reference(packed, seed, lcfg, h), 1)
+    # The fine phase's counted steps only: the coarse phase is not counted,
+    # so this bound is low.
+    bound_ms, bound_by = fwd_bound(lcfg, lanes.sum().item(), kl[2].sum().item(), h * cfg.width)
+    return {"line": (f"{tag}launches {launches}; {line}; the counted launch bit for bit "
+                     f"equal; vs chunked {100 * v:.4f}% <= "
+                     f"{VARIANT_ATOL}, {100 * vb:.4f}% <= {VARIANT_BULK_ATOL}; fine-phase "
+                     f"steps per lane {lanes.float().mean().item():.4f}; fine pass "
+                     f"{ms:.4f} ms beside chunked (primed) {chunked_ms:.4f} ms (best of 2 x 50 "
+                     f"back to back, in turns); plain {plain_ms:.3f} ms; bound {bound_ms:.4f} "
+                     f"ms ({bound_by}, fine phase only)"),
+            "launches": launches, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def noise_probe(lib, dev) -> str:
+    """The march field's 2D noise by the kernel's device function (the
+    test-only tests/csrc/noise2_probe.cu over kernels/csrc/field.cuh) against
+    ops/noise.py on the card at 10^6 seeded points: bit for bit in bf16 (each
+    operation rounds to bf16 on both sides), the largest difference in
+    float32 (FMA contraction)."""
+    from noise_probe import noise2_probe
+
+    from gpgpuraytrace_tpu_torch.ops import noise
+
+    gen = torch.Generator().manual_seed(5)
+    x = ((torch.rand(1_000_000, generator=gen) - 0.5) * 120.0).to(dev)
+    z = ((torch.rand(1_000_000, generator=gen) - 0.5) * 120.0).to(dev)
+    seed = torch.tensor(7, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        b_kernel = noise2_probe(lib, x, z, 7, bf16=True)
+        b_torch = noise.noise2_value_bf16(x, z, seed)
+        f_kernel, f_torch = noise2_probe(lib, x, z, 7), noise.noise2_value(x, z, seed)
+    if not torch.equal(b_kernel, b_torch):
+        fail(f"bf16 noise: the kernel's device arithmetic differs from torch's on "
+             f"{(b_kernel != b_torch).sum().item()} of 10^6 points")
+    return (f"2D noise at 10^6 points, kernel vs torch on the card: bf16 bit for bit, "
+            f"float32 max abs diff {(f_kernel - f_torch).abs().max().item():.3e}")
+
+
+def once_ms(fn):
+    """(``fn()``, its device time in ms by CUDA events, one call)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def bf16_phase(scene, cfg, tag: str, lanes, hits, probe_lib) -> dict:
+    """Phase 18 on one terrain, chunked: ``lanes`` and ``hits`` are the
+    float32 march's useful steps per lane and hits (phase 15)."""
+    from gpgpuraytrace_tpu_torch import render
+    from gpgpuraytrace_tpu_torch.kernels.trace import render_kernel_raw, trace_frame
+
+    bcfg = dataclasses.replace(cfg, march_bf16=True)
+    launches, _ = drive(lambda: render(scene, bcfg), "chunked+bf16", 2)  # coarse + fine
+    probe = noise_probe(probe_lib, scene.noise.amplitudes.device)
+    err, line, ms, plain_ms = forward_vs_plain(scene, bcfg, f"{tag}bf16 ")
+    with torch.no_grad():
+        c16, _, h16 = render_kernel_raw(scene, bcfg)
+        c32, _, h32 = render_kernel_raw(scene, cfg)
+    mean_err = (c16 - c32).abs().mean().item()
+    flips = (h16 != h32).float().mean().item()
+    if not (mean_err < BF16_MEAN_ERR and flips < BF16_FLIPS):
+        fail(f"{tag}bf16 vs float32: mean image error {mean_err:.3e}, {100 * flips:.3f}% "
+             f"hit flips (need < {BF16_MEAN_ERR}, < {100 * BF16_FLIPS}%)")
+    packed, seed, prime = fine_inputs(scene, cfg)
+    h = cfg.height
+    times = {"bf16": [], "f32": []}
+    for _ in range(2):
+        for label, c in (("bf16", bcfg), ("f32", cfg)):
+            times[label].append(
+                cuda_ms_back_to_back(lambda: trace_frame(packed, seed, c, h, prime), 50))
+    ms16, ms32 = min(times["bf16"]), min(times["f32"])
+    bound_ms, bound_by = fwd_bound(bcfg, lanes.sum().item(), hits, h * cfg.width)
+    return {"line": (f"{tag}launches {launches}; {probe}; {line}; vs float32 frame mean image "
+                     f"error {mean_err:.4e}, hit flips {100 * flips:.4f}%; fine pass "
+                     f"{ms16:.4f} ms beside float32 {ms32:.4f} ms (best of 2 x 50 back to "
+                     f"back, in turns, the float32 prime map); bound {bound_ms:.4f} ms "
+                     f"({bound_by})"),
+            "launches": launches, "err": err, "ms": ms16, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def bf16_mode_phase(scene, cfg, tag: str, mode: str) -> dict:
+    """Phase 18 on one terrain under ``mode`` ("fixed" or "lod"): the bf16
+    instantiation driven once through ``render``, against its plain version
+    with the bf16 gates and apart from its mode's float32 instantiation on
+    the same inputs; its time and bound (lod: the counted fine phase only)."""
+    from gpgpuraytrace_tpu_torch import render
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_reference
+
+    name = f"{mode}+bf16"
+    mcfg = dataclasses.replace(cfg, march_mode=mode, march_bf16=True)  # unprimed
+    launches, _ = drive(lambda: render(scene, mcfg), name, 1)
+    packed, seed, _ = fine_inputs(scene, mcfg)
+    h, n_pix = cfg.height, cfg.height * cfg.width
+    with torch.no_grad():
+        kern = trace_frame(packed, seed, mcfg, h)
+        ref, plain_ms = once_ms(lambda: trace_frame_reference(packed, seed, mcfg, h))
+        f32 = trace_frame(packed, seed, dataclasses.replace(mcfg, march_bf16=False), h)
+        lanes = trace_frame(packed, seed, mcfg, h, debug_steps=True)[3]
+    err, line = compare_trace(f"{tag}{name} vs plain", kern, ref, bf16=True)
+    line += "; " + bf16_differs(name, kern, f32)
+    ms = min(cuda_ms_back_to_back(lambda: trace_frame(packed, seed, mcfg, h), 20)
+             for _ in range(2))
+    steps = mcfg.max_steps * n_pix if mode == "fixed" else lanes.sum().item()
+    bound_ms, bound_by = fwd_bound(mcfg, steps, kern[2].sum().item(), n_pix)
+    return {"line": (f"{tag}launches {launches}; {line}; {ms:.4f} ms (best of 2 x 20 back "
+                     f"to back), plain {plain_ms:.3f} ms (1); bound {bound_ms:.4f} ms "
+                     f"({bound_by}{', fine phase only' if mode == 'lod' else ''})"),
+            "launches": launches, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def profiling_phase(scene, cfg, tag: str) -> str:
+    """Phase 19 on one terrain: march_stats, warn_if_rough (quiet here, and
+    warning on a rough copy), Timer and trace."""
+    from gpgpuraytrace_tpu_torch import render
+    from gpgpuraytrace_tpu_torch.utils import profiling
+
+    stats = profiling.march_stats(scene, cfg)
+    if not (0.0 < stats["hit_rate"] < 1.0 and sum(stats["histogram"]) == cfg.height * cfg.width):
+        fail(f"{tag}march_stats: {stats}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        proxy = profiling.warn_if_rough(scene, cfg)
+    rough = copy.deepcopy(scene)
+    with torch.no_grad():
+        n = rough.noise.amplitudes.numel()
+        rough.noise.amplitudes.copy_(0.65 ** torch.arange(n, dtype=torch.float32))
+        rough.noise.height_scale.fill_(8.0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        rough_proxy = profiling.warn_if_rough(rough, cfg)
+    if not any("roughness proxy" in str(w.message) for w in caught):
+        fail(f"{tag}warn_if_rough did not warn at proxy {rough_proxy:.3f}")
+    serve = torch.no_grad()(render)
+    frame_s = profiling.Timer(iters=5, warmup=1)(serve, scene, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as log_dir:
+            serve(scene, cfg)
+        size = os.path.getsize(os.path.join(log_dir, "trace.json"))
+    hist = " ".join(str(x) for x in stats["histogram"])
+    return (f"{tag}march_stats: hit rate {stats['hit_rate']:.6f}, useful steps mean "
+            f"{stats['steps_mean']:.4f} p50 {stats['steps_p50']:.1f} p99 "
+            f"{stats['steps_p99']:.1f} max {stats['steps_max']}, exhausted "
+            f"{stats['exhausted_lanes']}, histogram [{hist}]; roughness proxy {proxy:.4f} "
+            f"(quiet), rough copy {rough_proxy:.4f} (warned); Timer: a frame in "
+            f"{1e3 * frame_s:.4f} ms (best of 5); trace(): {size} bytes of trace.json")
+
+
 def main() -> None:
     # --- 1. host -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -397,12 +906,22 @@ def main() -> None:
           f"CUDA {torch.version.cuda}; nvcc {build.find_nvcc()}")
 
     # --- 2. build ----------------------------------------------------------
+    sys.path.insert(0, str(REPO / "tests"))
+    import noise_probe
+
+    probe_dir = tempfile.TemporaryDirectory()
     t0 = time.perf_counter()
-    lib_path, log = build.build_library()
+    probe_proc = noise_probe.start(probe_dir.name)
+    try:
+        lib_path, log = build.build_library()
+        probe_lib = noise_probe.load(noise_probe.finish(probe_proc))
+    finally:
+        if probe_proc.poll() is None:
+            probe_proc.kill()
+            probe_proc.wait()
     build_s = time.perf_counter() - t0
-    for line in log.splitlines():
-        if line.startswith("---") or "registers" in line or "spill" in line:
-            print(f"    ptxas: {line.strip()}")
+    for line in ptxas_lines(log):
+        print(f"    ptxas: {line}")
     phase(2, "build", f"{lib_path.relative_to(REPO)} in {build_s:.2f} s")
 
     # --- 3. kernel vs plain version at the main path's shapes --------------
@@ -420,10 +939,10 @@ def main() -> None:
     cfg1 = RenderConfig(height=128, width=128, max_steps=96, num_octaves=1,
                         step_floor_t=0.0, step_relax=0.7, newton_iters=4, prime_ds=0)
     golden = torch.from_numpy(np.load(GOLDEN)).to(dev)
-    before = trace_frame.launches
+    before = trace_frame.launches.total()
     with torch.no_grad():
         img1 = render(default_scene(1, device=dev), cfg1)
-    if trace_frame.launches != before + 1:
+    if trace_frame.launches.total() != before + 1:
         fail("golden render did not go through the kernel")
     g2 = check_close("golden", img1, golden, COLOR_ATOL, COLOR_FRAC)
     g4 = check_close("golden bulk", img1, golden, BULK_ATOL, BULK_FRAC)
@@ -481,7 +1000,7 @@ def main() -> None:
     # Gated on tests/test_grad.py's scene (2 octaves) at 512x512, primed. The
     # 6-octave scene is measured and reported only: the JAX reference's own
     # fd_check shows the same gap there (ROADMAP.md section C).
-    reset_counts(trace_frame, trace_frame_bwd)
+    reset_counts()
     fd_lines = []
     for octaves, gated in ((2, True), (6, False)):
         fd_cfg = RenderConfig(num_octaves=octaves)
@@ -501,10 +1020,10 @@ def main() -> None:
                 fail(f"AD vs FD {label}: ad={ad} fd={fd} (rtol {rtol})")
             fd_lines.append(f"{label} ad {ad:.6e} fd {fd:.6e} rel {rel:.2e}"
                             + ("" if gated else " (not gated)"))
-    if not (trace_frame.launches and trace_frame_bwd.launches):
+    if not (trace_frame.launches.total() and trace_frame_bwd.launches):
         fail("the FD checks did not run through both kernels")
     phase(10, "AD vs FD", "; ".join(fd_lines)
-          + f" ({trace_frame.launches} forward, {trace_frame_bwd.launches} backward launches)")
+          + f" ({trace_frame.launches.total()} forward, {trace_frame_bwd.launches} backward launches)")
 
     # --- 11. volumetric: forward kernel vs plain version ------------------------------
     vcfg = RenderConfig(num_octaves=6, volumetric=True)  # relax 0.9, prime 8, 128 steps
@@ -567,6 +1086,46 @@ def main() -> None:
     print(f"    AD vs FD, 2 oct volumetric noise.warp_amplitude at 512x512 (not gated): "
           f"ad {ad:.6e} fd {fd:.6e} rel {abs(ad - fd) / max(abs(fd), 1e-5):.2e}")
 
+    # --- 15-19. the variants of the forward kernel and the observability path ----
+    scenes = {"": (default_scene(6, device=dev), cfg),
+              "volumetric ": (default_scene(6, volumetric=True, device=dev), vcfg)}
+    results = {}
+    for n, label, run in ((15, "counter", counter_phase), (16, "fixed", fixed_phase),
+                          (17, "lod", lod_phase)):
+        for tag, (scene, c) in scenes.items():
+            results[label, tag] = run(scene, c, tag)
+            phase(n, label, f"{results[label, tag]['line']} {card}")
+    for tag, (scene, c) in scenes.items():
+        counter = results["counter", tag]
+        results["bf16", tag] = bf16_phase(scene, c, tag, counter["lanes"], counter["hits"],
+                                          probe_lib)
+        phase(18, "bf16", f"{results['bf16', tag]['line']} {card}")
+        for mode in ("fixed", "lod"):
+            results[f"{mode}+bf16", tag] = bf16_mode_phase(scene, c, tag, mode)
+            phase(18, f"{mode}+bf16", f"{results[f'{mode}+bf16', tag]['line']} {card}")
+    for tag, (scene, c) in scenes.items():
+        phase(19, "profiling", profiling_phase(scene, c, tag))
+
+    # Bounds of phases 3, 8, 11 and 13 from phase 15's useful steps and hits.
+    n_pix = cfg.height * cfg.width
+    fwd_b = {tag: fwd_bound(c, results["counter", tag]["lanes"].sum().item(),
+                            results["counter", tag]["hits"], n_pix)
+             for tag, (_, c) in scenes.items()}
+    bwd_b = {"": bwd_bound(cfg, bwd["hits"], n_pix),
+             "volumetric ": bwd_bound(vcfg, vbwd["hits"], n_pix)}
+
+    def variant_entry(label: str, name: str) -> dict:
+        h, v = results[label, ""], results[label, "volumetric "]
+        return {
+            "name": f"trace_fwd[{name}]", "route": "cuda", "source": FWD_SOURCE,
+            "replaces": REPLACES[name], "variants": ["heightfield", "volumetric"],
+            "launches": h["launches"] + v["launches"], "max_abs_err": max(h["err"], v["err"]),
+            "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+            "bound_by": h["bound_by"], "library_ms": None,
+            "volumetric": {"max_abs_err": v["err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
+                           "bound_ms": v["bound_ms"], "bound_by": v["bound_by"]},
+        }
+
     paths = {"fwd": {"serving": serve_launches, "training": tr["fwd"],
                      "volumetric serving": vserve_launches,
                      "volumetric training": vtr["fwd"]},
@@ -584,7 +1143,12 @@ def main() -> None:
             "max_abs_err": max(err, verr),
             "ms": kern_ms,
             "plain_ms": plain_ms,
-            "volumetric": {"max_abs_err": verr, "ms": vkern_ms, "plain_ms": vplain_ms},
+            "bound_ms": fwd_b[""][0],
+            "bound_by": fwd_b[""][1],
+            "library_ms": None,
+            "volumetric": {"max_abs_err": verr, "ms": vkern_ms, "plain_ms": vplain_ms,
+                           "bound_ms": fwd_b["volumetric "][0],
+                           "bound_by": fwd_b["volumetric "][1]},
         },
         {
             "name": "trace_bwd",
@@ -597,9 +1161,19 @@ def main() -> None:
             "max_abs_err": max(bwd["err"], vbwd["err"]),
             "ms": bwd["ms"],
             "plain_ms": bwd["plain_ms"],
+            "bound_ms": bwd_b[""][0],
+            "bound_by": bwd_b[""][1],
+            "library_ms": None,
             "volumetric": {"max_abs_err": vbwd["err"], "ms": vbwd["ms"],
-                           "plain_ms": vbwd["plain_ms"]},
+                           "plain_ms": vbwd["plain_ms"], "bound_ms": bwd_b["volumetric "][0],
+                           "bound_by": bwd_b["volumetric "][1]},
         },
+        variant_entry("counter", "chunked+debug_steps"),
+        variant_entry("fixed", "fixed"),
+        variant_entry("lod", "lod"),
+        variant_entry("bf16", "chunked+bf16"),
+        variant_entry("fixed+bf16", "fixed+bf16"),
+        variant_entry("lod+bf16", "lod+bf16"),
     ]}
     print(json.dumps(record))
     print(smi)

@@ -1,7 +1,8 @@
 // Device code shared by the trace kernels (trace_fwd.cu, trace_bwd.cu): the
 // packed-vector layout, the lattice hashes, 2D and 3D gradient noise with
-// their first and second derivatives, the terrain field along a ray (the fBm
-// heightfield, plus the 3D fBm warp in volumetric mode), and camera rays.
+// their first and second derivatives (and the 2D value with bf16 blend
+// math), the terrain field along a ray (the fBm heightfield, plus the 3D fBm
+// warp in volumetric mode), and camera rays.
 //
 // Everything lives in an anonymous namespace, so each kernel source compiles
 // its own copy and the library needs no device linking.
@@ -13,6 +14,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -143,6 +145,61 @@ __device__ __forceinline__ float noise2_value(float x, float z, uint32_t seed) {
   const float k2 = k.n01 - k.n00;
   const float k3 = k.n00 - k.n10 - k.n01 + k.n11;
   return (k.n00 + u * k1 + v * k2 + u * v * k3) * kInvSqrt5;
+}
+
+// bf16 arithmetic rounded after every operation: the _rn intrinsics are
+// never contracted into an FMA, and a product or sum of two bf16 values is
+// exact in float, so this rounds as torch's bf16 ops do (float, then round).
+__device__ __forceinline__ __nv_bfloat16 bf_dot(__nv_bfloat16 a, __nv_bfloat16 b,
+                                                __nv_bfloat16 c, __nv_bfloat16 d) {
+  return __hadd_rn(__hmul_rn(a, b), __hmul_rn(c, d));
+}
+
+__device__ __forceinline__ __nv_bfloat16 fade_bf16(__nv_bfloat16 f) {
+  const __nv_bfloat16 six = __float2bfloat16_rn(6.f);
+  const __nv_bfloat16 fifteen = __float2bfloat16_rn(15.f);
+  const __nv_bfloat16 ten = __float2bfloat16_rn(10.f);
+  return __hmul_rn(__hmul_rn(__hmul_rn(f, f), f),
+                   __hadd_rn(__hmul_rn(f, __hsub_rn(__hmul_rn(f, six), fifteen)), ten));
+}
+
+// noise2_value with its blend math in bf16 (ops/noise.py:noise2_value_bf16,
+// the march field of RenderConfig.march_bf16): the floor, the fractions and
+// the hash in float and uint32; the fractions, the raw corner gradients, the
+// dot products, the fades and the lerps in bf16, in the JAX operation order;
+// the 1/sqrt(5) in float.
+__device__ __forceinline__ float noise2_value_bf16(float x, float z, uint32_t seed) {
+  const float x0 = floorf(x);
+  const float z0 = floorf(z);
+  const __nv_bfloat16 fx = __float2bfloat16_rn(x - x0);
+  const __nv_bfloat16 fz = __float2bfloat16_rn(z - z0);
+  const uint32_t ix = static_cast<uint32_t>(static_cast<int>(x0));
+  const uint32_t iz = static_cast<uint32_t>(static_cast<int>(z0));
+  const uint32_t base = ix * kKX + iz * kKZ + seed * kKY;
+  const uint32_t off[4] = {0u, kKX, kKZ, kKXZ};
+  __nv_bfloat16 gx[4], gz[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    float fgx, fgz;
+    grad2(mix(base + off[c]), fgx, fgz);
+    gx[c] = __float2bfloat16_rn(fgx);  // +-1, +-2: exact
+    gz[c] = __float2bfloat16_rn(fgz);
+  }
+  const __nv_bfloat16 one = __float2bfloat16_rn(1.f);
+  const __nv_bfloat16 fx1 = __hsub_rn(fx, one), fz1 = __hsub_rn(fz, one);
+  const __nv_bfloat16 n00 = bf_dot(gx[0], fx, gz[0], fz);
+  const __nv_bfloat16 n10 = bf_dot(gx[1], fx1, gz[1], fz);
+  const __nv_bfloat16 n01 = bf_dot(gx[2], fx, gz[2], fz1);
+  const __nv_bfloat16 n11 = bf_dot(gx[3], fx1, gz[3], fz1);
+  const __nv_bfloat16 u = fade_bf16(fx);
+  const __nv_bfloat16 v = fade_bf16(fz);
+  const __nv_bfloat16 k1 = __hsub_rn(n10, n00);
+  const __nv_bfloat16 k2 = __hsub_rn(n01, n00);
+  const __nv_bfloat16 k3 = __hadd_rn(__hsub_rn(__hsub_rn(n00, n10), n01), n11);
+  const __nv_bfloat16 blended =
+      __hadd_rn(__hadd_rn(__hadd_rn(n00, __hmul_rn(u, k1)), __hmul_rn(v, k2)),
+                __hmul_rn(__hmul_rn(u, v), k3));
+  return __bfloat162float(blended) * kInvSqrt5;
 }
 
 __device__ __forceinline__ void noise2(float x, float z, uint32_t seed,
@@ -396,7 +453,9 @@ struct Field {
   bool volumetric;
   int warp_octaves;
 
-  // Value-only field: the march's fast path.
+  // Value-only field: the march's fast path; kBf16 blends each octave of
+  // the heightfield in bf16 (the warp stays float).
+  template <bool kBf16 = false>
   __device__ __forceinline__ float value(const Ray& r, float t) const {
     const float px = r.ox + t * r.dx;
     const float py = r.oy + t * r.dy;
@@ -405,9 +464,16 @@ struct Field {
     const float x = px * hs, z = pz * hs;
     float n = 0.f;
     for (int i = 0; i < num_octaves; ++i) {
-      n = n + oct->amp[i] * noise2_value(oct->cf[i] * x - oct->sf[i] * z,
-                                         oct->sf[i] * x + oct->cf[i] * z,
-                                         seed + static_cast<uint32_t>(i));
+      const float xi = oct->cf[i] * x - oct->sf[i] * z;
+      const float zi = oct->sf[i] * x + oct->cf[i] * z;
+      const uint32_t si = seed + static_cast<uint32_t>(i);
+      float ni;
+      if constexpr (kBf16) {
+        ni = noise2_value_bf16(xi, zi, si);
+      } else {
+        ni = noise2_value(xi, zi, si);
+      }
+      n = n + oct->amp[i] * ni;
     }
     float f = py - (sc[kHeightOffset] + sc[kHeightScale] * n);
     if (volumetric) {

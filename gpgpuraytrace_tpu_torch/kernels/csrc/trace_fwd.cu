@@ -1,17 +1,25 @@
 // Forward trace kernel: raygen -> primed, envelope-skipping sphere-trace
 // march -> bracketed Newton polish -> shade, one thread per pixel.
 //
-// Replaces gpgpuraytrace_tpu/kernels/trace.py:_trace_kernel (chunked march,
-// heightfield or volumetric, optionally primed), which computes the same per
-// pixel over (16, 128) tiles of a sequential TPU grid. Its plain PyTorch
-// version is gpgpuraytrace_tpu_torch/kernels/trace.py:trace_frame_reference,
-// line for line the same arithmetic.
+// Replaces gpgpuraytrace_tpu/kernels/trace.py:_trace_kernel (heightfield or
+// volumetric, optionally primed) with every variant of its march: chunked,
+// fixed (no early exit), lod (a certified coarse-field phase, then the fine
+// march), the bf16 march field, and the debug_steps executed-step counter.
+// The TPU kernel computes the same per pixel over (16, 128) tiles of a
+// sequential TPU grid. Its plain PyTorch version is
+// gpgpuraytrace_tpu_torch/kernels/trace.py:trace_frame_reference, line for
+// line the same arithmetic.
 //
-// What bounds it on the H100: FP32/INT32 issue. Each march step evaluates
-// the value-only fBm, about octaves x 60 integer and float operations (plus
-// about 250 per warp octave of the volumetric 3D noise), and a pixel marches
-// tens of steps, while it reads one prime value and writes five floats
-// (about 20 bytes). So the design keeps all per-ray state in
+// The variants are template parameters (mode, bf16, debug), dispatched by
+// trace_fwd_launch, so each instantiation carries only its own march and the
+// default (chunked, float, no counter) compiles as it did alone.
+//
+// What bounds it on the H100: INT32 and FP32 issue. Each march step
+// evaluates the value-only fBm, about 77 FP32 and 49 INT32 operations per
+// octave (the lattice hash is integer work; plus about 150 and 125 per warp
+// octave of the volumetric 3D noise; chip_smoke.py:OPS counts them), and a
+// pixel marches a few to tens of steps, while it reads one prime value and
+// writes five floats (about 20 bytes). So the design keeps all per-ray state in
 // registers and uses shared memory only for the packed scene scalars and the
 // per-octave coefficients every thread of the block reads. Each thread stops
 // marching as soon as its own ray is done; the TPU kernel instead checks for
@@ -23,6 +31,8 @@
 
 namespace {
 constexpr int kThreads = 256;
+// Must match kernels/trace.py:MARCH_MODES.
+enum MarchMode : int { kChunked = 0, kFixed = 1, kLod = 2 };
 }  // namespace
 
 // Must match kernels/trace.py:TraceConfig field for field.
@@ -42,21 +52,52 @@ struct TraceConfig {
   int primed;  // 1: prime holds a (local_h, width) march-start map
   int volumetric;  // 1: the field subtracts the 3D fBm warp
   int warp_octaves;
+  int march_mode;  // MarchMode
+  int bf16;  // 1: bf16 blend math in the march's value-only field
 };
 
 namespace {
 
+// The lod march's certified margin (kernels/trace.py:_coarse_field): what
+// the octaves past the first k, and the warp octaves past the first wo, can
+// add to the field, summed in float in JAX's order.
+__device__ __forceinline__ float lod_margin(const float* sc, int num_octaves, int k,
+                                            bool volumetric, int warp_octaves, int wo) {
+  float skipped = 0.f;
+  for (int i = k; i < num_octaves; ++i) skipped = __fadd_rn(skipped, fabsf(sc[kAmps + i]));
+  float margin = __fmul_rn(fabsf(sc[kHeightScale]), skipped);
+  if (volumetric) {
+    float tail = 0.f, amp = 1.f;
+    for (int i = 0; i < warp_octaves; ++i) {
+      if (i >= wo) tail += amp;
+      amp = amp * kWarpGain;
+    }
+    margin = __fadd_rn(margin, __fmul_rn(fabsf(sc[kWarpAmp]), tail));
+  }
+  return margin;
+}
+
+template <int kMode, bool kBf16, bool kDebug>
 __global__ void __launch_bounds__(kThreads)
 trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_ptr,
                  const float* __restrict__ prime, float* __restrict__ color,
                  float* __restrict__ t_out, float* __restrict__ hit_out,
-                 TraceConfig cfg) {
+                 int* __restrict__ steps_out, TraceConfig cfg) {
   __shared__ float sc[kAmps + kMaxOctaves];
   __shared__ Octaves oct;
+  __shared__ float margin;  // lod only
   const int n_params = kAmps + cfg.num_octaves;
+  const int k_coarse = max(1, (cfg.num_octaves + 1) / 2);
+  const int wo_coarse = max(1, cfg.warp_octaves - 1);
   for (int k = threadIdx.x; k < n_params; k += blockDim.x) sc[k] = packed[k];
   __syncthreads();
-  if (threadIdx.x == 0) load_octaves(sc, cfg.num_octaves, oct);
+  if (threadIdx.x == 0) {
+    load_octaves(sc, cfg.num_octaves, oct);
+    if constexpr (kMode == kLod) {
+      margin = lod_margin(sc, cfg.num_octaves, k_coarse, cfg.volumetric != 0,
+                          cfg.warp_octaves, wo_coarse);
+    }
+  }
   __syncthreads();
 
   const int n_pix = cfg.local_h * cfg.width;
@@ -69,8 +110,9 @@ trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_
   const CameraRay cr = camera_ray(sc, cfg.height, cfg.width, row, col);
   const float dx = cr.dx, dy = cr.dy, dz = cr.dz;
   const Ray ray{sc[kPos + 0], sc[kPos + 1], sc[kPos + 2], dx, dy, dz};
-  const Field field{sc, &oct, cfg.num_octaves, static_cast<uint32_t>(*seed_ptr),
-                    cfg.volumetric != 0, cfg.warp_octaves};
+  const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
+  const Field field{sc, &oct, cfg.num_octaves, seed, cfg.volumetric != 0,
+                    cfg.warp_octaves};
 
   // --- sky-envelope entry (_envelope, _envelope_entry) -------------------
   float amps_abs = 0.f;
@@ -91,26 +133,73 @@ trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_
     prev_t = fmaxf(t * kPrimePullback, cfg.t_min);
   }
 
-  // --- march (_tile_trace march_step), per-thread exit ------------------
+  if constexpr (kMode == kLod) {
+    // --- lod phase 1 (_trace_kernel lod branch, _coarse_field_fn) -------
+    // Step on f_coarse - margin <= f while it exceeds max(margin/2,
+    // hit_eps t): no step can pass a surface of the full field. A parked
+    // lane never changes state again, so the per-thread exit is exact.
+    const Field coarse{sc, &oct, k_coarse, seed, cfg.volumetric != 0, wo_coarse};
+    const float park_eps = 0.5f * margin;
+    for (int s = 0; s < cfg.max_steps && active; ++s) {
+      const float fl = coarse.value(ray, t) - margin;
+      if (!(fl > fmaxf(park_eps, cfg.hit_eps * t))) break;  // parked
+      if (oy + t * dy > env && dy >= 0.f) {  // envelope escape: certain miss
+        t = cfg.t_max;
+        break;
+      }
+      t = fminf(__fadd_rn(t, __fmul_rn(cfg.step_relax, fl)), cfg.t_max);
+      active = t < cfg.t_max;
+    }
+    // Phase 2 is the standard march from the parked t.
+    active = t < cfg.t_max;
+    prev_t = t;
+  }
+
+  // --- march (_tile_trace march_step) --------------------------------------
   const float eps_m = cfg.hit_eps * cfg.march_eps_scale;
   bool hit = false;
-  for (int s = 0; s < cfg.max_steps && active; ++s) {
-    const float f = field.value(ray, t);
-    if (f < eps_m * t) {
-      hit = true;
-      break;
+  int executed = 0;  // iterations run while active (the debug_steps count)
+  if constexpr (kMode == kFixed) {
+    // No early exit: every thread runs all max_steps iterations and
+    // evaluates f in each; a finished lane's updates are masked, so it
+    // changes no state and the result equals the chunked march's.
+    for (int s = 0; s < cfg.max_steps; ++s) {
+      const float f = field.value<kBf16>(ray, t);
+      const bool is_hit = active & (f < eps_m * t);
+      const bool escape = active & !is_hit & (oy + t * dy > env) & (dy >= 0.f);
+      const bool advance = active & !is_hit & !escape;
+      float step = fmaxf(cfg.step_relax * f, cfg.hit_eps);
+      if (cfg.step_floor_t > 0.f) step = fmaxf(step, cfg.step_floor_t * t);
+      const float t_new = escape ? cfg.t_max : (advance ? fminf(t + step, cfg.t_max) : t);
+      prev_t = advance ? t : prev_t;
+      hit = hit | is_hit;
+      active = advance & (t_new < cfg.t_max);
+      t = t_new;
     }
-    if (oy + t * dy > env && dy >= 0.f) {  // envelope escape: certain miss
-      t = cfg.t_max;
-      break;
+    executed = cfg.max_steps;
+  } else {
+    // Per-thread exit: a finished lane never changes state, so stopping it
+    // early gives what the TPU kernel's whole-tile chunked exit gives.
+    for (int s = 0; s < cfg.max_steps && active; ++s) {
+      if constexpr (kDebug) ++executed;
+      const float f = field.value<kBf16>(ray, t);
+      if (f < eps_m * t) {
+        hit = true;
+        break;
+      }
+      if (oy + t * dy > env && dy >= 0.f) {  // envelope escape: certain miss
+        t = cfg.t_max;
+        break;
+      }
+      float step = fmaxf(cfg.step_relax * f, cfg.hit_eps);
+      if (cfg.step_floor_t > 0.f) step = fmaxf(step, cfg.step_floor_t * t);
+      const float t_new = fminf(t + step, cfg.t_max);
+      prev_t = t;
+      t = t_new;
+      active = t_new < cfg.t_max;
     }
-    float step = fmaxf(cfg.step_relax * f, cfg.hit_eps);
-    if (cfg.step_floor_t > 0.f) step = fmaxf(step, cfg.step_floor_t * t);
-    const float t_new = fminf(t + step, cfg.t_max);
-    prev_t = t;
-    t = t_new;
-    active = t_new < cfg.t_max;
   }
+  if constexpr (kDebug) steps_out[idx] = executed;
 
   float gx = 0.f, gy = 1.f, gz = 0.f, h = 0.f;
   if (hit) {
@@ -191,20 +280,58 @@ trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_
   hit_out[idx] = hit ? 1.f : 0.f;
 }
 
+template <int kMode, bool kBf16, bool kDebug>
+void launch_variant(const float* packed, const int* seed, const float* prime, float* color,
+                    float* t, float* hit, int* steps, const TraceConfig& cfg,
+                    cudaStream_t stream) {
+  const int n_pix = cfg.local_h * cfg.width;
+  const int blocks = (n_pix + kThreads - 1) / kThreads;
+  trace_fwd_kernel<kMode, kBf16, kDebug><<<blocks, kThreads, 0, stream>>>(
+      packed, seed, prime, color, t, hit, steps, cfg);
+}
+
+template <int kMode>
+void launch_mode(const float* packed, const int* seed, const float* prime, float* color,
+                 float* t, float* hit, int* steps, const TraceConfig& cfg,
+                 cudaStream_t stream) {
+  const bool bf16 = cfg.bf16 != 0, debug = steps != nullptr;
+  if (bf16 && debug) {
+    launch_variant<kMode, true, true>(packed, seed, prime, color, t, hit, steps, cfg, stream);
+  } else if (bf16) {
+    launch_variant<kMode, true, false>(packed, seed, prime, color, t, hit, steps, cfg, stream);
+  } else if (debug) {
+    launch_variant<kMode, false, true>(packed, seed, prime, color, t, hit, steps, cfg, stream);
+  } else {
+    launch_variant<kMode, false, false>(packed, seed, prime, color, t, hit, steps, cfg, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on ``stream`` and returns cudaGetLastError() (0 on
+// Launches the kernel instantiation that cfg.march_mode, cfg.bf16 and
+// ``steps`` select on ``stream`` and returns cudaGetLastError() (0 on
 // success). Pointers are device pointers; ``prime`` is null unless
-// cfg.primed. The caller validates shapes, dtypes and contiguity.
+// cfg.primed, ``steps`` (an int32 per pixel) null unless the counter is
+// wanted. The caller validates shapes, dtypes and contiguity.
 int trace_fwd_launch(const float* packed, const int* seed, const float* prime,
-                     float* color, float* t, float* hit, TraceConfig cfg,
+                     float* color, float* t, float* hit, int* steps, TraceConfig cfg,
                      void* stream) {
-  const int n_pix = cfg.local_h * cfg.width;
-  const int blocks = (n_pix + kThreads - 1) / kThreads;
-  trace_fwd_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      packed, seed, prime, color, t, hit, cfg);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cfg.march_mode) {
+    case kChunked:
+      launch_mode<kChunked>(packed, seed, prime, color, t, hit, steps, cfg, s);
+      break;
+    case kFixed:
+      launch_mode<kFixed>(packed, seed, prime, color, t, hit, steps, cfg, s);
+      break;
+    case kLod:
+      launch_mode<kLod>(packed, seed, prime, color, t, hit, steps, cfg, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

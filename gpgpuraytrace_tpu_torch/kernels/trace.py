@@ -4,23 +4,31 @@ scene-parameter cotangent), each for a full frame or a row band.
 
 Counterparts of ``gpgpuraytrace_tpu/kernels/trace.py``: ``_trace_kernel``
 with its launcher ``_render_pallas_raw``, and ``_trace_bwd_kernel`` with
-``_backward_pallas`` and the custom VJP ``render_pallas_cfg``. Both kernels
-run ``march_mode="chunked"``, primed or not, with or without the
-``march_eps_scale`` residual verdict, on the heightfield and on the
-volumetric terrain (the 3D fBm warp). The other march modes and
-``march_bf16`` raise ``NotImplementedError`` (ROADMAP.md). The pieces:
+``_backward_pallas`` and the custom VJP ``render_pallas_cfg``. The forward
+runs every variant of ``_trace_kernel``: ``march_mode`` "chunked" (primed or
+not), "fixed" (no early exit) and "lod" (a certified coarse-field phase
+before the fine march), each with or without ``march_bf16`` (bf16 blend math
+in the march field), the ``march_eps_scale`` residual verdict and the
+``debug_steps`` executed-step counter, on the heightfield and on the
+volumetric terrain (the 3D fBm warp). The variants change only where the
+march stops, so one backward serves them all. ``march_mode="compact"`` (two
+more TPU kernels) raises ``NotImplementedError`` (ROADMAP.md A6). The
+pieces:
 
 * ``trace_frame`` and ``trace_frame_bwd`` are the wrappers. Each validates
   its inputs, launches its hand-written CUDA kernel (``csrc/trace_fwd.cu``,
   ``csrc/trace_bwd.cu``) on CUDA tensors, and runs its plain version on CPU
-  tensors. ``.launches`` counts kernel launches. A CUDA input never falls
-  back to the plain version: a failed build or launch raises.
+  tensors. ``.launches`` counts kernel launches (``trace_frame``'s, a
+  ``Counter`` by instantiation). A CUDA input never falls back to the plain
+  version: a failed build or launch raises.
 * ``trace_frame_reference`` and ``trace_bwd_reference`` are the plain
   PyTorch versions of exactly what the kernels compute, written against the
   same packed scalar vector.
 * ``render_kernel_raw`` renders a frame through ``trace_frame`` (coarse
-  depth-prime pass, prime map, full pass) and returns its (t, hit) too; it
-  builds no autograd graph.
+  depth-prime pass, prime map, full pass) and returns its (t, hit) too, and
+  the per-lane step counts with ``debug_steps``; it builds no autograd
+  graph. ``tile_steps`` and ``warp_steps`` reduce those counts to what a
+  (tile_h, 128) TPU tile and a 32-thread warp execute.
 * ``render_kernel`` is the differentiable render of the kernel path: its
   backward is ``trace_frame_bwd`` (``cfg.kernel_bwd``) or autograd through
   the plain re-shade at the saved (t, hit).
@@ -28,7 +36,9 @@ volumetric terrain (the 3D fBm warp). The other march modes and
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import dataclasses
 import operator
 
 import torch
@@ -48,6 +58,10 @@ from gpgpuraytrace_tpu_torch.utils.convert import LEAF_NAMES
 
 MAX_OCTAVES = 16  # keep in sync with csrc/field.cuh
 MAX_WARP_OCTAVES = 8  # the kernels loop over warp octaves; octave 8 weighs 0.5^7
+# The forward kernel's march modes (csrc/trace_fwd.cu:MarchMode).
+MARCH_MODES = {"chunked": 0, "fixed": 1, "lod": 2}
+TILE_W = 128  # the TPU kernel's tile width (lanes)
+WARP = 32  # threads of a warp: 32 consecutive pixels of a row-major frame
 
 
 class TraceConfig(ctypes.Structure):
@@ -69,6 +83,8 @@ class TraceConfig(ctypes.Structure):
         ("primed", ctypes.c_int),
         ("volumetric", ctypes.c_int),
         ("warp_octaves", ctypes.c_int),
+        ("march_mode", ctypes.c_int),
+        ("bf16", ctypes.c_int),
     ]
 
 
@@ -86,15 +102,16 @@ class TraceBwdConfig(ctypes.Structure):
 
 
 def _check_supported(cfg: RenderConfig) -> None:
-    if cfg.march_mode != "chunked":
+    if cfg.march_mode == "compact":
         raise NotImplementedError(
-            f"march_mode={cfg.march_mode!r} is not ported to the trace kernel "
-            f"yet (ROADMAP.md, TPU kernels still to port); use march_mode='chunked'"
+            "march_mode='compact' is not ported to the trace kernels yet "
+            "(ROADMAP.md A6: the two compaction kernels); use 'chunked', "
+            "'fixed' or 'lod'"
         )
-    if cfg.march_bf16:
-        raise NotImplementedError(
-            "march_bf16 is not ported to the trace kernel yet (ROADMAP.md, "
-            "TPU kernels still to port)"
+    if cfg.march_mode not in MARCH_MODES:
+        raise ValueError(
+            f"march_mode={cfg.march_mode!r} must be one of {sorted(MARCH_MODES)} "
+            f"or 'compact'"
         )
     if not 1 <= cfg.num_octaves <= MAX_OCTAVES:
         raise ValueError(
@@ -134,8 +151,13 @@ def _check_tensors(packed, seed, cfg, local_height, named) -> None:
             raise ValueError("trace kernel inputs must be contiguous")
 
 
-def _check_inputs(packed, seed, cfg, local_height, t0_prime) -> None:
+def _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps) -> None:
     """Raise on anything the forward kernel does not take."""
+    if debug_steps and cfg.march_mode == "compact":
+        raise ValueError(
+            "debug_steps is not supported for march_mode='compact' (two "
+            "kernels; the TPU kernel counts one tile march)"
+        )
     if bool(cfg.prime_ds) != (t0_prime is not None):
         raise ValueError(
             f"t0_prime must be given exactly when cfg primes "
@@ -153,32 +175,46 @@ def _check_inputs(packed, seed, cfg, local_height, t0_prime) -> None:
 
 
 def trace_frame(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
-                local_height: int, t0_prime: torch.Tensor | None = None):
+                local_height: int, t0_prime: torch.Tensor | None = None,
+                debug_steps: bool = False):
     """Trace ``local_height`` rows of the frame ``cfg`` describes.
 
     ``packed`` (1, AMPS + octaves) float32 and ``seed`` (1, 1) int32 come from
     ``utils.packing.pack_scene`` (its ``row0`` places the band);
     ``t0_prime`` is the (local_height, width) march-start map when
     ``cfg.prime_ds`` is set. Returns (color (3, h, w), t (h, w),
-    hit (h, w) float 0/1). CUDA inputs launch the CUDA kernel; CPU inputs
-    run ``trace_frame_reference``.
+    hit (h, w) float 0/1), and with ``debug_steps`` a fourth result: the
+    int32 (h, w) count of march iterations each lane executed while active,
+    the one that detects a hit or an escape included (fixed mode: every lane
+    ``max_steps``; lod: the fine phase only). CUDA inputs launch the CUDA
+    kernel; CPU inputs run ``trace_frame_reference``.
     """
-    _check_inputs(packed, seed, cfg, local_height, t0_prime)
+    _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps)
     if packed.device.type == "cpu":
-        return trace_frame_reference(packed, seed, cfg, local_height, t0_prime)
+        return trace_frame_reference(packed, seed, cfg, local_height, t0_prime,
+                                     debug_steps)
     if packed.device.type != "cuda":
         raise RuntimeError(f"trace_frame: unsupported device {packed.device}")
-    return _launch(packed, seed, cfg, local_height, t0_prime)
+    return _launch(packed, seed, cfg, local_height, t0_prime, debug_steps)
 
 
-trace_frame.launches = 0
+# Launches of the CUDA kernel by instantiation (``variant_name``); the
+# total is ``trace_frame.launches.total()``.
+trace_frame.launches = collections.Counter()
+
+
+def variant_name(cfg: RenderConfig, debug_steps: bool = False) -> str:
+    """The forward kernel's instantiation a launch with ``cfg`` runs:
+    the march mode, then "+bf16" and "+debug_steps" where set."""
+    return (cfg.march_mode + ("+bf16" if cfg.march_bf16 else "")
+            + ("+debug_steps" if debug_steps else ""))
 
 
 def _library() -> ctypes.CDLL:
     from gpgpuraytrace_tpu_torch.kernels.build import load_library
 
     lib = load_library()
-    lib.trace_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + [
+    lib.trace_fwd_launch.argtypes = [ctypes.c_void_p] * 7 + [
         TraceConfig, ctypes.c_void_p,
     ]
     lib.trace_fwd_launch.restype = ctypes.c_int
@@ -201,13 +237,14 @@ def _raise_on(lib, err: int, what: str) -> None:
         )
 
 
-def _launch(packed, seed, cfg, local_height, t0_prime):
+def _launch(packed, seed, cfg, local_height, t0_prime, debug_steps):
     lib = _library()
     dev = packed.device
     h, w = local_height, cfg.width
     color = torch.empty((3, h, w), dtype=torch.float32, device=dev)
     t = torch.empty((h, w), dtype=torch.float32, device=dev)
     hit = torch.empty((h, w), dtype=torch.float32, device=dev)
+    steps = torch.empty((h, w), dtype=torch.int32, device=dev) if debug_steps else None
     kcfg = TraceConfig(
         height=cfg.height, width=w, local_h=h, max_steps=cfg.max_steps,
         num_octaves=cfg.num_octaves, newton_iters=cfg.newton_iters,
@@ -215,17 +252,19 @@ def _launch(packed, seed, cfg, local_height, t0_prime):
         march_eps_scale=cfg.march_eps_scale, step_relax=cfg.step_relax,
         step_floor_t=cfg.step_floor_t, primed=int(t0_prime is not None),
         volumetric=int(cfg.volumetric), warp_octaves=cfg.warp_octaves,
+        march_mode=MARCH_MODES[cfg.march_mode], bf16=int(cfg.march_bf16),
     )
     with torch.cuda.device(dev):
         err = lib.trace_fwd_launch(
             packed.data_ptr(), seed.data_ptr(),
             None if t0_prime is None else t0_prime.data_ptr(),
-            color.data_ptr(), t.data_ptr(), hit.data_ptr(), kcfg,
+            color.data_ptr(), t.data_ptr(), hit.data_ptr(),
+            None if steps is None else steps.data_ptr(), kcfg,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(lib, err, "trace_fwd")
-    trace_frame.launches += 1
-    return color, t, hit
+    trace_frame.launches[variant_name(cfg, debug_steps)] += 1
+    return (color, t, hit) if steps is None else (color, t, hit, steps)
 
 
 def _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g) -> None:
@@ -321,8 +360,11 @@ def _envelope_entry(sc, cfg: RenderConfig, dy):
     return t0, t0 < cfg.t_max, env
 
 
-def _field_fns(sc, packed, seed, cfg: RenderConfig, o, d):
-    """(field_grad_at, field_at) along the rays at distance t."""
+def _field_fns(sc, packed, seed, cfg: RenderConfig, o, d, bf16: bool = False):
+    """(field_grad_at, field_at) along the rays at distance t; ``bf16``
+    gives the value-only march field bf16 blend math (``cfg.march_bf16``:
+    the forward's march only; the polish, the shade and the backward
+    evaluate the float32 field)."""
     ox, oy, oz = o
     dx, dy, dz = d
     hs = sc(pk.HORIZONTAL_SCALE)
@@ -350,7 +392,7 @@ def _field_fns(sc, packed, seed, cfg: RenderConfig, o, d):
 
     def field_at(t):
         px, py, pz = ox + t * dx, oy + t * dy, oz + t * dz
-        n = fbm2_value(px * hs, pz * hs, amps, lac, seed)
+        n = fbm2_value(px * hs, pz * hs, amps, lac, seed, bf16)
         f = py - (h_off + h_scale * n)
         if cfg.volumetric:
             f = f - w_amp * fbm3_value(px * w_freq, py * w_freq, pz * w_freq, *warp)
@@ -404,17 +446,95 @@ def _pixel_grid(h: int, w: int, dev):
     return rows, cols
 
 
+def _coarse_field(sc, packed, seed, cfg: RenderConfig, o, d):
+    """(field_coarse_at, margin) of the lod march's phase 1 (JAX
+    ``_coarse_field_fn``): the value-only float32 field over the first
+    k = max(1, (octaves + 1) // 2) octaves and, when volumetric,
+    wo = max(1, warp_octaves - 1) warp octaves; ``margin`` bounds what the
+    skipped octaves can add (every noise value lies in [-1, 1]), so
+    f_coarse - margin <= f_full everywhere. Float32, summed in JAX's order."""
+    k = max(1, (cfg.num_octaves + 1) // 2)
+    wo = max(1, cfg.warp_octaves - 1)
+    skipped = torch.zeros((), dtype=torch.float32, device=packed.device)
+    for i in range(k, cfg.num_octaves):
+        skipped = skipped + torch.abs(sc(pk.AMPS + i))
+    margin = torch.abs(sc(pk.HEIGHT_SCALE)) * skipped
+    if cfg.volumetric:
+        tail = float(sum(WARP_GAIN**i for i in range(wo, cfg.warp_octaves)))
+        margin = margin + torch.abs(sc(pk.WARP_AMP)) * tail
+    coarse = dataclasses.replace(cfg, num_octaves=k, warp_octaves=wo)
+    return _field_fns(sc, packed, seed, coarse, o, d)[1], margin
+
+
+def _lod_park(field_coarse_at, margin, cfg: RenderConfig, t, active, oy, dy, env):
+    """Phase 1 of the lod march (``_trace_kernel``'s lod branch): step by
+    relax·(f_coarse - margin) while that exceeds max(margin/2, hit_eps·t),
+    so no step can pass a surface of the full field; rays that climb out of
+    the envelope heading up jump to t_max. Returns the parked t."""
+    park_eps = 0.5 * margin
+    t_max = torch.full_like(t, cfg.t_max)
+    chunk = cfg.march_chunk or MARCH_CHUNK_DEFAULT
+    for s in range(cfg.max_steps):
+        if s % chunk == 0 and not bool(active.any()):
+            break
+        fl = field_coarse_at(t) - margin
+        go = active & (fl > torch.maximum(park_eps, cfg.hit_eps * t))
+        escape = go & (oy + t * dy > env) & (dy >= 0.0)
+        go = go & ~escape
+        t_new = torch.minimum(torch.where(go, t + cfg.step_relax * fl, t), t_max)
+        t = torch.where(escape, t_max, t_new)
+        active = go & (t < cfg.t_max)
+    return t
+
+
+def _march(field_at, cfg: RenderConfig, t, prev_t, active, oy, dy, env):
+    """The fine march (``_tile_trace``'s march_step): (t, prev_t, hit,
+    steps), ``steps`` the int32 count of iterations each lane ran while
+    active. The chunked and lod modes stop when no lane is active at a
+    chunk boundary, where the CUDA kernel stops per thread; fixed runs all
+    ``max_steps`` and counts them for every lane. A finished lane never
+    changes state, so all three give the same t and hit."""
+    t_max = torch.full_like(t, cfg.t_max)
+    hit = torch.zeros_like(active)
+    steps = torch.zeros(t.shape, dtype=torch.int32, device=t.device)
+    eps_m = cfg.hit_eps * cfg.march_eps_scale
+    fixed = cfg.march_mode == "fixed"
+    chunk = cfg.march_chunk or MARCH_CHUNK_DEFAULT
+    for s in range(cfg.max_steps):
+        if not fixed and s % chunk == 0 and not bool(active.any()):
+            break
+        steps += active
+        f = field_at(t)
+        is_hit = active & (f < eps_m * t)
+        advance = active & ~is_hit
+        escape = advance & (oy + t * dy > env) & (dy >= 0.0)
+        advance = advance & ~escape
+        step = torch.clamp(cfg.step_relax * f, min=cfg.hit_eps)
+        if cfg.step_floor_t > 0.0:
+            step = torch.maximum(step, cfg.step_floor_t * t)
+        t_new = torch.minimum(torch.where(advance, t + step, t), t_max)
+        t_new = torch.where(escape, t_max, t_new)
+        prev_t = torch.where(advance, t, prev_t)
+        hit = hit | is_hit
+        active = advance & (t_new < cfg.t_max)
+        t = t_new
+    if fixed:
+        steps.fill_(cfg.max_steps)
+    return t, prev_t, hit, steps
+
+
 @torch.no_grad()
 def trace_frame_reference(packed: torch.Tensor, seed: torch.Tensor,
                           cfg: RenderConfig, local_height: int,
-                          t0_prime: torch.Tensor | None = None):
+                          t0_prime: torch.Tensor | None = None,
+                          debug_steps: bool = False):
     """Plain PyTorch version of the trace kernel, on any device; same
     arguments and results as ``trace_frame``.
 
     Vectorized over pixels, with the TPU kernel's whole-frame chunked exit
     (every ``march_chunk`` steps) where the CUDA kernel exits per thread:
     finished lanes never change state, so both give the same result."""
-    _check_inputs(packed, seed, cfg, local_height, t0_prime)
+    _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps)
 
     def sc(k):
         return packed[0, k]
@@ -428,30 +548,12 @@ def trace_frame_reference(packed: torch.Tensor, seed: torch.Tensor,
         t = torch.maximum(t, t0_prime)
         active = active & (t < cfg.t_max)
         prev_t = torch.clamp(t * _PRIME_PREV_PULLBACK, min=cfg.t_min)
-    field_grad_at, field_at = _field_fns(sc, packed, seed[0, 0], cfg, o, d)
-    t_max = torch.full_like(t, cfg.t_max)
-    hit = torch.zeros_like(active)
-    eps_m = cfg.hit_eps * cfg.march_eps_scale
-
-    chunk = cfg.march_chunk or MARCH_CHUNK_DEFAULT
-    for _ in range(-(-cfg.max_steps // chunk)):
-        if not bool(active.any()):
-            break
-        for _ in range(chunk):
-            f = field_at(t)
-            is_hit = active & (f < eps_m * t)
-            advance = active & ~is_hit
-            escape = advance & (oy + t * dy > env) & (dy >= 0.0)
-            advance = advance & ~escape
-            step = torch.clamp(cfg.step_relax * f, min=cfg.hit_eps)
-            if cfg.step_floor_t > 0.0:
-                step = torch.maximum(step, cfg.step_floor_t * t)
-            t_new = torch.minimum(torch.where(advance, t + step, t), t_max)
-            t_new = torch.where(escape, t_max, t_new)
-            prev_t = torch.where(advance, t, prev_t)
-            hit = hit | is_hit
-            active = advance & (t_new < cfg.t_max)
-            t = t_new
+    s0 = seed[0, 0]
+    field_grad_at, field_at = _field_fns(sc, packed, s0, cfg, o, d, cfg.march_bf16)
+    if cfg.march_mode == "lod":
+        t = _lod_park(*_coarse_field(sc, packed, s0, cfg, o, d), cfg, t, active, oy, dy, env)
+        active, prev_t = t < cfg.t_max, t
+    t, prev_t, hit, steps = _march(field_at, cfg, t, prev_t, active, oy, dy, env)
 
     # Bracketed safeguarded-Newton polish; the first iteration also sets the
     # bracket's upper bound from the local descent rate (+25% margin).
@@ -479,7 +581,36 @@ def trace_frame_reference(packed: torch.Tensor, seed: torch.Tensor,
     if cfg.march_eps_scale != 1.0:
         hit = hit & (f_fin < _RESIDUAL_SLACK * cfg.hit_eps * t)
     colors = _shade_from_grads(sc, t, hit, d, (gx, gy, gz, hgt))
-    return torch.stack(colors), t, hit.to(torch.float32)
+    out = (torch.stack(colors), t, hit.to(torch.float32))
+    return out + (steps,) if debug_steps else out
+
+
+def tile_steps(steps: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    """The march steps each (tile_h, 128) tile of the TPU kernel executes,
+    from per-lane counts (h, w): a (grid_h, grid_w) int32 array, equal to
+    ``_render_pallas_raw(..., debug_steps=True)``'s. A tile runs whole
+    chunks until its longest lane is done, so chunked and lod read
+    ceil(tile max / chunk)·chunk; fixed reads ``max_steps``."""
+    h, w = steps.shape
+    th = cfg.tile_h
+    gh, gw = -(-h // th), -(-w // TILE_W)
+    padded = steps.new_zeros((gh * th, gw * TILE_W))
+    padded[:h, :w] = steps
+    tile_max = padded.reshape(gh, th, gw, TILE_W).amax(dim=(1, 3))
+    if cfg.march_mode == "fixed":
+        return torch.full_like(tile_max, cfg.max_steps)
+    chunk = cfg.march_chunk or MARCH_CHUNK_DEFAULT
+    return (tile_max + chunk - 1) // chunk * chunk
+
+
+def warp_steps(steps: torch.Tensor) -> torch.Tensor:
+    """The march steps each warp of the CUDA kernel executes, from per-lane
+    counts (h, w): the maximum over each 32 consecutive pixels in row-major
+    order (one thread per pixel), flat, int32."""
+    flat = steps.reshape(-1)
+    padded = flat.new_zeros(-(-flat.numel() // WARP) * WARP)
+    padded[:flat.numel()] = flat
+    return padded.reshape(-1, WARP).amax(dim=1)
 
 
 def trace_bwd_reference(packed: torch.Tensor, seed: torch.Tensor,
@@ -535,9 +666,10 @@ def _prime_map(scene: Scene, cfg: RenderConfig, row0, local_height: int):
 
 @torch.no_grad()
 def render_kernel_raw(scene: Scene, cfg: RenderConfig, row0=0.0,
-                      local_height: int | None = None):
+                      local_height: int | None = None, debug_steps: bool = False):
     """Render a full frame or a row band through ``trace_frame``:
-    (color (h, W, 3), t (h, W), hit bool (h, W)).
+    (color (h, W, 3), t (h, W), hit bool (h, W)), plus the fine pass's
+    per-lane step counts (``trace_frame``) with ``debug_steps``.
 
     With ``cfg.prime_ds`` it first traces the coarse depth-prime pass
     (``_prime_map``) and then traces the band from it: two launches per
@@ -545,8 +677,8 @@ def render_kernel_raw(scene: Scene, cfg: RenderConfig, row0=0.0,
     h = cfg.height if local_height is None else local_height
     t0p = _prime_map(scene, cfg, row0, h)
     packed, seed = pk.pack_scene(scene, cfg.height, cfg.width, row0)
-    color, t, hit_f = trace_frame(packed, seed, cfg, h, t0p)
-    return color.permute(1, 2, 0), t, hit_f > 0.5
+    color, t, hit_f, *steps = trace_frame(packed, seed, cfg, h, t0p, debug_steps)
+    return (color.permute(1, 2, 0), t, hit_f > 0.5, *steps)
 
 
 def _float_leaves(scene: Scene) -> list[torch.Tensor]:

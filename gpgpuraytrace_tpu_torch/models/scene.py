@@ -24,6 +24,18 @@ from torch import nn
 MARCH_CHUNK_DEFAULT = 8
 
 
+def check_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without CUDA raises
+    (nothing falls back to the CPU: pass ``device="cpu"`` for that)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r}: CUDA is not available (no GPU, or a "
+            f"CPU-only torch); pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
 def _param(value, device) -> nn.Parameter:
     return nn.Parameter(
         torch.as_tensor(np.array(value, np.float32), device=device)
@@ -44,9 +56,10 @@ class NoiseParams(nn.Module):
         seed=7,
         warp_amplitude=0.0,
         warp_frequency=0.25,
-        device=None,
+        device="cuda",
     ):
         super().__init__()
+        device = check_device(device)
         self.amplitudes = _param(amplitudes, device)
         self.lacunarity = _param(lacunarity, device)
         self.height_scale = _param(height_scale, device)
@@ -62,8 +75,9 @@ class NoiseParams(nn.Module):
 class Camera(nn.Module):
     """Flythrough camera: position (3,), yaw, pitch, vertical fov (radians)."""
 
-    def __init__(self, position, yaw, pitch, fov_y, device=None):
+    def __init__(self, position, yaw, pitch, fov_y, device="cuda"):
         super().__init__()
+        device = check_device(device)
         self.position = _param(position, device)
         self.yaw = _param(yaw, device)
         self.pitch = _param(pitch, device)
@@ -80,8 +94,9 @@ MATERIAL_FIELDS = (
 class Materials(nn.Module):
     """Lighting, material and atmosphere constants (see MATERIAL_FIELDS)."""
 
-    def __init__(self, device=None, **values):
+    def __init__(self, device="cuda", **values):
         super().__init__()
+        device = check_device(device)
         if set(values) != set(MATERIAL_FIELDS):
             raise ValueError(
                 f"Materials needs exactly {MATERIAL_FIELDS}, got {sorted(values)}"
@@ -111,11 +126,16 @@ class RenderConfig:
     the fused backward kernel, False autograd through the plain re-shade at
     the saved hit distances), and ``interpret`` does not exist.
 
-    The kernel path runs ``march_mode="chunked"`` on the heightfield and on
-    the volumetric terrain (``warp_octaves`` in 1..8); the other march modes
-    and ``march_bf16`` are still to be ported (ROADMAP.md) and raise there.
-    ``tile_h`` is the TPU kernel's tile height,
-    kept so configs carry across; the CUDA kernel runs one thread per pixel.
+    The kernel path runs ``march_mode`` "chunked", "fixed" and "lod", each
+    with or without ``march_bf16``, on the heightfield and on the volumetric
+    terrain (``warp_octaves`` in 1..8); "compact" is still to be ported
+    (ROADMAP.md A6) and raises there. The plain op-by-op path
+    (``use_kernel=False``) marches chunked in float32 whatever these say, as
+    the JAX package's XLA path does. ``fixed`` and ``lod`` frames are
+    unprimed (one launch, no coarse pass): ``prime_ds`` resolves to 0 for
+    them. ``tile_h`` is the TPU kernel's tile height, kept so configs carry
+    across and for ``kernels/trace.py:tile_steps``; the CUDA kernel runs one
+    thread per pixel.
     """
 
     height: int = 512
@@ -205,10 +225,11 @@ class RenderConfig:
 
 
 def default_scene(
-    num_octaves: int = 6, volumetric: bool = False, device=None
+    num_octaves: int = 6, volumetric: bool = False, device="cuda"
 ) -> Scene:
     """The canonical terrain scene (same values as the JAX package's
-    ``default_scene``); ``device`` places every parameter."""
+    ``default_scene``); ``device`` places every parameter: the card by
+    default, which raises without CUDA (pass ``device="cpu"``)."""
     amps = np.asarray([0.5 ** i for i in range(num_octaves)], np.float32)
     noise = NoiseParams(
         amplitudes=amps,

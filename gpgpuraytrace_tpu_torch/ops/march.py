@@ -237,6 +237,25 @@ def march_primed(cfg: RenderConfig, ray_o, ray_d, noise: NoiseParams, t0_prime):
                         *_noise_leaves(noise))
 
 
+@torch.no_grad()
+def march_with_stats(cfg: RenderConfig, ray_o, ray_d, noise: NoiseParams,
+                     t0_prime=None):
+    """Non-differentiable march that also returns the per-pixel useful step
+    counts: (t, hit, steps), ``steps`` the int32 number of advancing steps.
+
+    A primed config needs its prime map: stats of the unprimed march under a
+    config that primes would describe an algorithm the config does not run.
+    To measure the raw march, pin ``prime_ds=0``."""
+    if cfg.prime_ds and t0_prime is None:
+        raise ValueError(
+            f"march_with_stats: cfg primes (prime_ds={cfg.prime_ds}) but no "
+            f"t0_prime was passed; pass the prime map "
+            f"(ops.render.prime_map_torch) or pin prime_ds=0 to measure the "
+            f"unprimed march"
+        )
+    return _march_loop(cfg, ray_o, ray_d, noise, t0_prime)
+
+
 def march_from_saved(cfg: RenderConfig, ray_o, ray_d, noise: NoiseParams,
                      t_saved, hit_saved):
     """Checkpoint-resume march: returns the saved (t, hit) (the per-pixel

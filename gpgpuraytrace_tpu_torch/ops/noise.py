@@ -114,6 +114,38 @@ def noise2_value(x: torch.Tensor, z: torch.Tensor, seed) -> torch.Tensor:
     return (n00 + u * k1 + v * k2 + u * v * k3) * _INV_SQRT5
 
 
+def noise2_value_bf16(x: torch.Tensor, z: torch.Tensor, seed) -> torch.Tensor:
+    """``noise2_value`` with its blend math in bfloat16 (the
+    ``RenderConfig.march_bf16`` march field; JAX ``noise2_value_bf16``).
+
+    The floor, the cell fractions and the int32 hash stay in float32 and
+    int32 (world coordinates reach O(100), where bf16 resolves half a
+    lattice cell); the fractions, the raw ±1/±2 corner gradients, the dot
+    products, the quintic fades and the lerps are bfloat16, each operation
+    rounded, in the JAX operation order; the 1/√5 scale is float32. Returns
+    float32."""
+    bf = torch.bfloat16
+    x0 = torch.floor(x)
+    z0 = torch.floor(z)
+    fx = (x - x0).to(bf)
+    fz = (z - z0).to(bf)
+    hs = _corner_hashes2(x0.to(torch.int32), z0.to(torch.int32), seed)
+    (g00x, g00z), (g10x, g10z), (g01x, g01z), (g11x, g11z) = (
+        tuple(g.to(bf) for g in _grad2_raw(h)) for h in hs)
+    fx1, fz1 = fx - 1.0, fz - 1.0
+    n00 = g00x * fx + g00z * fz
+    n10 = g10x * fx1 + g10z * fz
+    n01 = g01x * fx + g01z * fz1
+    n11 = g11x * fx1 + g11z * fz1
+    u = fx * fx * fx * (fx * (fx * 6.0 - 15.0) + 10.0)
+    v = fz * fz * fz * (fz * (fz * 6.0 - 15.0) + 10.0)
+    k1 = n10 - n00
+    k2 = n01 - n00
+    k3 = n00 - n10 - n01 + n11
+    blended = n00 + u * k1 + v * k2 + u * v * k3
+    return blended.to(torch.float32) * _INV_SQRT5
+
+
 def noise2(x: torch.Tensor, z: torch.Tensor, seed):
     """2D gradient noise: (value, d/dx, d/dz), all analytic."""
     fx, fz, g, (n00, n10, n01, n11) = _cell(x, z, seed)
@@ -363,12 +395,15 @@ def fbm2(x, z, amplitudes, lacunarity, seed):
     return value, d_dx, d_dz
 
 
-def fbm2_value(x, z, amplitudes, lacunarity, seed):
+def fbm2_value(x, z, amplitudes, lacunarity, seed, bf16: bool = False):
     """Value-only fBm (the march's fast path; counterpart of the TPU
-    kernel's ``_fbm_scalar_amps_value``)."""
+    kernel's ``_fbm_scalar_amps_value``). ``bf16`` blends each octave with
+    ``noise2_value_bf16``; the rotation, the frequencies and the amplitude
+    sum stay float32."""
+    nv = noise2_value_bf16 if bf16 else noise2_value
     value = torch.zeros_like(x, dtype=torch.float32)
     seed = torch.as_tensor(seed, dtype=torch.int32)
     for i, c, s, amp, freq in _octaves(amplitudes, lacunarity):
         cf, sf = c * freq, s * freq
-        value = value + amp * noise2_value(cf * x - sf * z, sf * x + cf * z, seed + i)
+        value = value + amp * nv(cf * x - sf * z, sf * x + cf * z, seed + i)
     return value

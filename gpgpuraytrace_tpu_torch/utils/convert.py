@@ -27,8 +27,9 @@ LEAF_NAMES = (
 )
 
 
-def scene_from_numpy(named: dict[str, np.ndarray], device=None) -> Scene:
-    """Build a ``Scene`` on ``device`` from ``{dotted name: array}``.
+def scene_from_numpy(named: dict[str, np.ndarray], device="cuda") -> Scene:
+    """Build a ``Scene`` on ``device`` (the card by default; without CUDA
+    that raises, so pass ``device="cpu"``) from ``{dotted name: array}``.
 
     Floats are cast to float32 and the seed to int32; the key set must be
     exactly ``LEAF_NAMES``.

@@ -51,7 +51,7 @@ def jax_scene_dict(scene):
 
 
 def port_scene():
-    return scene_from_numpy(jax_scene_dict(jax_default_scene(num_octaves=OCT)))
+    return scene_from_numpy(jax_scene_dict(jax_default_scene(num_octaves=OCT)), device="cpu")
 
 
 def leaf_grads(scene):
@@ -157,7 +157,7 @@ def test_supersample_grads_match_jax(use_kernel):
     ref = jax.grad(lambda a: jnp.mean(jax_render(dataclasses.replace(
         js, noise=dataclasses.replace(js.noise, amplitudes=a)), jcfg) ** 2))(
         js.noise.amplitudes)
-    scene = scene_from_numpy(jax_scene_dict(js))
+    scene = scene_from_numpy(jax_scene_dict(js), device="cpu")
     torch.mean(render(scene, cfg) ** 2).backward()
     np.testing.assert_allclose(scene.noise.amplitudes.grad.numpy(), np.asarray(ref),
                                rtol=5e-3, atol=1e-5)

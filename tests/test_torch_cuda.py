@@ -15,6 +15,7 @@ import torch
 
 from gpgpuraytrace_tpu_torch.kernels import trace as ktrace
 from gpgpuraytrace_tpu_torch.models.scene import RenderConfig, default_scene
+from gpgpuraytrace_tpu_torch.ops import noise as tn
 from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
 from gpgpuraytrace_tpu_torch.utils import packing as pk
 from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
@@ -46,10 +47,10 @@ VOL = {"volumetric": True, "step_relax": None}
 def test_cuda_kernel_matches_plain_version(cuda, kw):
     cfg = dataclasses.replace(CFG, **kw)
     scene = default_scene(3, volumetric=cfg.volumetric, device=cuda)
-    before = ktrace.trace_frame.launches
+    before = ktrace.trace_frame.launches.total()
     color, t, hit = ktrace.render_kernel_raw(scene, cfg)
     torch.cuda.synchronize()
-    assert ktrace.trace_frame.launches == before + (2 if cfg.prime_ds else 1)
+    assert ktrace.trace_frame.launches.total() == before + (2 if cfg.prime_ds else 1)
     with torch.no_grad():
         prime = None
         if cfg.prime_ds:
@@ -59,14 +60,59 @@ def test_cuda_kernel_matches_plain_version(cuda, kw):
             prime = prime_from_coarse(t_c, cfg)
         packed, seed = pack_scene(scene, cfg.height, cfg.width)
         ref_c, ref_t, ref_hit = ktrace.trace_frame_reference(packed, seed, cfg, cfg.height, prime)
-    kc = color.permute(2, 0, 1)
-    # Grazing rays are chaotic (2e-3 on 99.9%); FMA contraction and rsqrtf
-    # move the bulk's rounding (1e-4 on 99%, not the CPU suite's 1e-5).
+    assert_matches_plain((color.permute(2, 0, 1), t, hit.float()), (ref_c, ref_t, ref_hit))
+
+
+def assert_matches_plain(kern, ref):
+    """(color (3, h, w), t, hit float) of the kernel against its plain
+    version. Grazing rays are chaotic (2e-3 on 99.9%); FMA contraction and
+    rsqrtf move the bulk's rounding (1e-4 on 99%, not the CPU suite's 1e-5)."""
+    (kc, t, hit), (ref_c, ref_t, ref_hit) = kern, ref
+    assert torch.isfinite(kc).all() and torch.isfinite(t).all()
     assert frac_within(kc, ref_c, 2e-3) >= 0.999
     assert frac_within(kc, ref_c, 1e-4) >= 0.99
-    assert (hit.float() == ref_hit).float().mean().item() > 0.995
-    both = hit & (ref_hit > 0.5)
+    assert (hit == ref_hit).float().mean().item() > 0.995
+    both = (hit > 0.5) & (ref_hit > 0.5)
     assert frac_within(t[both], ref_t[both], 5e-2) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("volumetric", [False, True], ids=["heightfield", "volumetric"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["chunked", "fixed", "lod"])
+def test_cuda_variant_matches_plain_version(cuda, mode, bf16, volumetric):
+    """Every instantiation of the forward kernel (march mode x bf16 march field
+    x step counter) against the plain version, unprimed as fixed and lod
+    frames are: the counter changes no output bit, the kernel's per-lane
+    count agrees with the plain version's on 99% of lanes (a lane that
+    rounds its way to another step count is a grazing ray), and fixed mode
+    counts max_steps and gives chunked's output bit for bit."""
+    cfg = dataclasses.replace(CFG, march_mode=mode, march_bf16=bf16, volumetric=volumetric,
+                              step_relax=None, prime_ds=0)
+    scene = default_scene(3, volumetric=volumetric, device=cuda)
+    packed, seed = pack_scene(scene, cfg.height, cfg.width)
+    packed = packed.detach()
+    name = ktrace.variant_name(cfg, debug_steps=True)
+    before = ktrace.trace_frame.launches[name]
+    with torch.no_grad():
+        *out, steps = ktrace.trace_frame(packed, seed, cfg, cfg.height, debug_steps=True)
+        uncounted = ktrace.trace_frame(packed, seed, cfg, cfg.height)
+        *ref, ref_steps = ktrace.trace_frame_reference(packed, seed, cfg, cfg.height,
+                                                       debug_steps=True)
+    torch.cuda.synchronize()
+    assert ktrace.trace_frame.launches[name] == before + 1
+    for a, b in zip(out, uncounted):
+        assert torch.equal(a, b)
+    assert_matches_plain(out, ref)
+    assert (steps == ref_steps).float().mean().item() >= 0.99
+    if mode == "fixed":
+        assert (steps == cfg.max_steps).all()
+        with torch.no_grad():
+            chunked = ktrace.trace_frame(packed, seed,
+                                         dataclasses.replace(cfg, march_mode="chunked"),
+                                         cfg.height)
+        for a, b in zip(out, chunked):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -121,3 +167,36 @@ def test_cuda_kernel_bwd_matches_plain_reshade(cuda, volumetric):
     assert grads[0].keys() >= grads[1].keys() >= {"noise.amplitudes", "camera.yaw"}
     for name, ref in grads[1].items():
         assert within_bwd_tolerance(grads[0][name], ref), name
+
+
+@pytest.fixture(scope="module")
+def probe_lib(tmp_path_factory):
+    """tests/csrc/noise2_probe.cu, built apart from the kernel library."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import noise_probe
+
+    return noise_probe.load(noise_probe.build(tmp_path_factory.mktemp("probe")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_cuda_noise_arithmetic_matches_torch(cuda, probe_lib, bf16):
+    """The march field's 2D noise by the kernel's own device function
+    (kernels/csrc/field.cuh, through the test-only tests/csrc/noise2_probe.cu)
+    against torch's on the card. bf16: every operation rounds to bf16 on both
+    sides (a product or sum of two bf16 values is exact in float), so they
+    agree bit for bit. float32: FMA contraction moves the last bits only."""
+    import noise_probe
+
+    gen = torch.Generator().manual_seed(5)
+    x = ((torch.rand(100_000, generator=gen) - 0.5) * 120.0).to(cuda)
+    z = ((torch.rand(100_000, generator=gen) - 0.5) * 120.0).to(cuda)
+    got = noise_probe.noise2_probe(probe_lib, x, z, 7, bf16=bf16)
+    ref = (tn.noise2_value_bf16 if bf16 else tn.noise2_value)(
+        x, z, torch.tensor(7, dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    if bf16:
+        assert torch.equal(got, ref)
+    else:
+        assert (got - ref).abs().max().item() < 1e-5

@@ -54,7 +54,7 @@ def jax_run():
 def test_fit_matches_jax(jax_run, use_kernel):
     target, start, grad0, ref, ref_losses = jax_run
     scene, losses = tfit.fit(
-        scene_from_numpy(start), dataclasses.replace(CFG, use_kernel=use_kernel),
+        scene_from_numpy(start, device="cpu"), dataclasses.replace(CFG, use_kernel=use_kernel),
         torch.from_numpy(target), steps=STEPS, learning_rate=LR, log_every=0,
     )
     np.testing.assert_allclose(losses, ref_losses, rtol=1e-4)
@@ -75,7 +75,7 @@ def test_fit_matches_jax(jax_run, use_kernel):
 
 
 def test_partition_scene_marks_trainables():
-    scene = default_scene(num_octaves=2)
+    scene = default_scene(num_octaves=2, device="cpu")
     params = tfit.partition_scene(scene)
     names = [n for n, p in scene.named_parameters() if p.requires_grad]
     assert names == ["noise.amplitudes", "camera.position", "camera.yaw",
@@ -89,7 +89,7 @@ def test_partition_scene_marks_trainables():
 
 
 def test_perturb_scene_is_seeded():
-    scene = default_scene(num_octaves=3)
+    scene = default_scene(num_octaves=3, device="cpu")
     a = tfit.perturb_scene(scene, torch.Generator().manual_seed(1))
     b = tfit.perturb_scene(scene, torch.Generator().manual_seed(1))
     c = tfit.perturb_scene(scene, torch.Generator().manual_seed(2))
@@ -100,7 +100,7 @@ def test_perturb_scene_is_seeded():
         assert not torch.equal(pa, p0) and not torch.equal(pa, pc), name
     # The original is untouched and everything else is copied as it was.
     assert torch.equal(scene.noise.amplitudes.detach(),
-                       default_scene(num_octaves=3).noise.amplitudes.detach())
+                       default_scene(num_octaves=3, device="cpu").noise.amplitudes.detach())
     assert torch.equal(a.materials.sun_color, scene.materials.sun_color)
     rel = (a.noise.amplitudes / scene.noise.amplitudes - 1.0).abs()
     assert rel.max() <= 0.25

@@ -20,8 +20,8 @@ CFG = RenderConfig(height=48, width=64, max_steps=96, num_octaves=2)
 
 @pytest.fixture(scope="module")
 def setup():
-    scene = default_scene(num_octaves=2)
-    bright = default_scene(num_octaves=2)
+    scene = default_scene(num_octaves=2, device="cpu")
+    bright = default_scene(num_octaves=2, device="cpu")
     with torch.no_grad():
         bright.noise.amplitudes.mul_(1.1)
         target = render(bright, CFG)

@@ -36,7 +36,7 @@ def setup():
     js = jax_default_scene(num_octaves=3)
     o, d = generate_rays(js.camera, JCFG.height, JCFG.width)
     t0p = prime_map_jax(js, JCFG)
-    ts = scene_from_numpy(jax_scene_dict(js))
+    ts = scene_from_numpy(jax_scene_dict(js), device="cpu")
     return js, ts, (o, d, t0p)
 
 

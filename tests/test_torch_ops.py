@@ -34,7 +34,7 @@ def scenes():
     # A non-default camera so yaw and the basis cross products matter.
     js = js.replace(camera=js.camera.replace(yaw=jnp.float32(0.4),
                                              pitch=jnp.float32(-0.2)))
-    return js, scene_from_numpy(jax_scene_dict(js))
+    return js, scene_from_numpy(jax_scene_dict(js), device="cpu")
 
 
 def close(got, ref, atol=ATOL):

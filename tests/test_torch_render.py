@@ -48,7 +48,7 @@ def jax_image():
 
 @pytest.mark.parametrize("use_kernel", [True, False], ids=["kernel_path", "plain_path"])
 def test_render_matches_render_jax(jax_image, use_kernel):
-    scene = scene_from_numpy(jax_scene_dict(jax_default_scene(num_octaves=3)))
+    scene = scene_from_numpy(jax_scene_dict(jax_default_scene(num_octaves=3)), device="cpu")
     img = render(scene, dataclasses.replace(CFG, use_kernel=use_kernel))
     # Differentiable: the scene's parameters require grad.
     assert tuple(img.shape) == (64, 128, 3) and img.requires_grad
@@ -60,7 +60,7 @@ def test_render_matches_render_jax(jax_image, use_kernel):
 @pytest.mark.parametrize("use_kernel", [True, False], ids=["kernel_path", "plain_path"])
 def test_golden_image(use_kernel):
     """The JAX package's frozen golden, at its tolerance (tests/test_render.py)."""
-    img = render(default_scene(num_octaves=1),
+    img = render(default_scene(num_octaves=1, device="cpu"),
                  dataclasses.replace(CFG1, use_kernel=use_kernel)).detach()
     golden = np.load(GOLDEN)
     np.testing.assert_allclose(img.numpy(), golden, rtol=1e-3, atol=2e-3)
@@ -74,7 +74,7 @@ def test_supersample_matches_jax():
                      use_pallas=False, supersample=2)
     ref = np.asarray(jrender.render(jax_default_scene(num_octaves=1), jcfg))
     for use_kernel in (True, False):
-        img = render(default_scene(num_octaves=1),
+        img = render(default_scene(num_octaves=1, device="cpu"),
                      dataclasses.replace(cfg, use_kernel=use_kernel)).detach()
         assert tuple(img.shape) == (32, 32, 3)
         assert_mostly_close(img, ref, 2e-3, 0.999, f"ssaa use_kernel={use_kernel}")
@@ -82,18 +82,19 @@ def test_supersample_matches_jax():
 
 def test_scene_converter_round_trip():
     named = jax_scene_dict(jax_default_scene(num_octaves=4, volumetric=True))
-    scene = scene_from_numpy(named)
+    scene = scene_from_numpy(named, device="cpu")
     back = scene_to_numpy(scene)
     assert back.keys() == named.keys()
     for k, v in named.items():
         assert back[k].dtype == v.dtype, k
         np.testing.assert_array_equal(back[k], v, err_msg=k)
     # The port's own default scene carries the same values.
-    ported = scene_to_numpy(default_scene(num_octaves=4, volumetric=True))
+    ported = scene_to_numpy(default_scene(num_octaves=4, volumetric=True, device="cpu"))
     for k, v in named.items():
         np.testing.assert_array_equal(ported[k], v, err_msg=k)
     with pytest.raises(ValueError, match="missing"):
-        scene_from_numpy({k: v for k, v in named.items() if k != "camera.yaw"})
+        scene_from_numpy({k: v for k, v in named.items() if k != "camera.yaw"},
+                         device="cpu")
 
 
 def test_cli_render_cpu_writes_png(tmp_path, capsys):

@@ -46,7 +46,7 @@ def assert_mostly_close(a, b, atol, frac, msg):
 
 @pytest.fixture(scope="module")
 def scene():
-    return scene_from_numpy(jax_scene_dict(jax_default_scene(num_octaves=3)))
+    return scene_from_numpy(jax_scene_dict(jax_default_scene(num_octaves=3)), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -58,13 +58,13 @@ def port_full(scene):
     "kw", [{}, {"march_eps_scale": 4.0}], ids=["default", "residual_verdict"]
 )
 def test_render_kernel_raw_matches_pallas_interpret(scene, kw):
-    launches = ktrace.trace_frame.launches
+    launches = ktrace.trace_frame.launches.total()
     color, t, hit = ktrace.render_kernel_raw(scene, dataclasses.replace(CFG, **kw))
     j_color, j_t, j_hit = _render_pallas_raw(
         jax_default_scene(num_octaves=3), dataclasses.replace(JCFG, **kw)
     )
     # The plain version ran: a CPU tensor never launches the CUDA kernel.
-    assert ktrace.trace_frame.launches == launches == 0
+    assert ktrace.trace_frame.launches.total() == launches == 0
     assert tuple(color.shape) == (64, 128, 3) and hit.dtype == torch.bool
     assert_mostly_close(color, j_color, 2e-3, 0.999, "image")
     assert_mostly_close(color, j_color, 1e-5, 0.99, "image-exact")
@@ -142,13 +142,20 @@ def test_trace_frame_bwd_rejects_bad_inputs(scene, case):
 
 
 @pytest.mark.parametrize(
-    "kw", [{"march_mode": "lod"}, {"march_bf16": True}], ids=["lod", "bf16"],
+    "debug_steps, error, match",
+    [(False, NotImplementedError, "ROADMAP.md A6"), (True, ValueError, "debug_steps")],
+    ids=["compact", "compact_debug_steps"],
 )
-def test_unported_variants_raise(scene, kw):
-    cfg = dataclasses.replace(CFG, prime_ds=0, **kw)
+def test_unported_variants_raise(scene, debug_steps, error, match):
+    """Compaction (two more TPU kernels) is not ported; its step counter is
+    refused as the JAX package refuses it."""
+    cfg = dataclasses.replace(CFG, march_mode="compact")
     packed, seed, _ = _inputs(scene)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ktrace.trace_frame(packed, seed, cfg, CFG.height)
+    with pytest.raises(error, match=match):
+        ktrace.trace_frame(packed, seed, cfg, CFG.height, debug_steps=debug_steps)
+    with pytest.raises(error, match=match):
+        ktrace.trace_frame_reference(packed, seed, cfg, CFG.height,
+                                     debug_steps=debug_steps)
 
 
 @pytest.mark.parametrize("warp_octaves", [0, ktrace.MAX_WARP_OCTAVES + 1])

@@ -66,7 +66,8 @@ def jax_scene_dict(scene):
 
 
 def port_scene():
-    return scene_from_numpy(jax_scene_dict(jax_default_scene(OCT, volumetric=True)))
+    return scene_from_numpy(jax_scene_dict(jax_default_scene(OCT, volumetric=True)),
+                            device="cpu")
 
 
 def leaf_grads(scene):
@@ -151,7 +152,7 @@ def test_noise3_hessian_matches_autograd():
 @pytest.fixture(scope="module")
 def scenes():
     js = jax_default_scene(num_octaves=3, volumetric=True)
-    return js, scene_from_numpy(jax_scene_dict(js))
+    return js, scene_from_numpy(jax_scene_dict(js), device="cpu")
 
 
 def close(got, ref, atol=1e-5):
@@ -209,11 +210,11 @@ def test_render_torch_matches_render_jax(prime):
 def test_render_kernel_raw_matches_pallas_interpret(prime):
     cfg = dataclasses.replace(CFG, prime_ds=PRIME[prime])
     jcfg = dataclasses.replace(JCFG, prime_ds=PRIME[prime], use_pallas=True, interpret=True)
-    launches = ktrace.trace_frame.launches
+    launches = ktrace.trace_frame.launches.total()
     color, t, hit = ktrace.render_kernel_raw(port_scene(), cfg)
     j_color, j_t, j_hit = _render_pallas_raw(jax_default_scene(OCT, volumetric=True), jcfg)
     # The plain version ran: a CPU tensor never launches the CUDA kernel.
-    assert ktrace.trace_frame.launches == launches == 0
+    assert ktrace.trace_frame.launches.total() == launches == 0
     assert_image_close(color, j_color, f"render_kernel_raw {prime}")
     hit, j_hit = hit.numpy(), np.asarray(j_hit)
     assert (hit == j_hit).mean() > 0.995
@@ -225,7 +226,7 @@ def test_render_kernel_raw_matches_pallas_interpret(prime):
 def test_zero_warp_matches_heightfield():
     """With warp_amplitude 0 the volumetric config gives the heightfield
     image (tests/test_volumetric.py), on both routes."""
-    scene = default_scene(OCT)  # warp_amplitude 0
+    scene = default_scene(OCT, device="cpu")  # warp_amplitude 0
     for use_kernel in (True, False):
         cfg = dataclasses.replace(CFG, use_kernel=use_kernel)
         img_v = render(scene, cfg).detach().numpy()
@@ -294,7 +295,7 @@ def test_warp_amplitude_ad_vs_fd():
     hit-stable pixels (tests/test_volumetric.py's check and config: a
     whole-image loss gradient is FD-noise dominated here)."""
     cfg = dataclasses.replace(CFG, step_relax=0.4, prime_ds=0, use_kernel=False)
-    scene = default_scene(OCT, volumetric=True)
+    scene = default_scene(OCT, volumetric=True, device="cpu")
     with torch.no_grad():
         o, d = generate_rays(scene.camera, H, W)
 
