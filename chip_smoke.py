@@ -51,11 +51,32 @@ each prints one line and any failure exits non-zero:
     inputs; chunked+bf16 against the float32 frame with the JAX bf16
     contract; times beside float32's;
 19. ``utils/profiling.py`` on both scenes: ``march_stats``, ``warn_if_rough``
-    (and its warning on a rough scene), ``Timer`` and ``trace``.
+    (and its warning on a rough scene), ``Timer`` and ``trace``;
+20. ``march_mode="compact"`` (two-phase ray compaction, budget 32), both
+    terrains: ``render`` launches phase 1 and phase 2 once each and nothing
+    else; each phase kernel against its plain version (phase 3's gates,
+    phase 2's on the survivors' pixels only; ``alive`` and the survivors'
+    list exactly); the compact frame against the unprimed chunked kernel's
+    with JAX's exactness contract, traced with host syncs raising; the
+    survivors; the times of phase 1 and phase 2 beside the unprimed and
+    primed chunked passes; one training step under compact; the default
+    instantiation's registers and fine-pass times held to their record;
+21. the flythrough: ``fly_frames`` at 512x512, 8 frames in batches of 4 under
+    the default config and 4 under compact, each frame equal to ``render`` of
+    its camera, tonemapped and quantized; a tweak file read between batches
+    changes the next batch and reports an unknown name; the command line's
+    ``fly`` and ``tweaks``; frames per second with and without writing;
+22. the backward kernel's bf16 instantiation (its march channel through the
+    bf16 field), both terrains: a training step under ``march_bf16`` launches
+    it; against its plain version on the bf16 frame's (t, hit), with phase
+    8's gates on the training loss's cotangent and the bf16 backward gates on
+    a seeded normal one, bitwise repeatable, and apart from the float32
+    instantiation on the same inputs; its time.
 
-Phases 15-18 each drive their variants through the entry point a user
-calls (``render``, or ``render_kernel_raw`` for the counter) with the launch
-counts set to 0 just before and read just after.
+Phases 15-18 and 20-22 each drive their variants through the entry point a
+user calls (``render``, ``render_kernel_raw`` for the counter, ``fly_frames``,
+``fit_step``) with the launch counts set to 0 just before and read just
+after.
 
 A line before the last is a JSON record of the kernels, each with its least
 time on the card (``bound_ms``, from operation counts of the source and the
@@ -111,6 +132,16 @@ BF16_MIN_DIFF = 1e-4
 # plus 1e-4 of the largest. The sums over 262,144 pixels run in another order,
 # and rsqrtf, expf and FMA contraction round differently from torch.
 BWD_RTOL, BWD_ATOL_REL = 1e-3, 1e-4
+# The bf16 backward (its march channel through the bf16 field) vs its plain
+# version. On the training loss's cotangent it keeps the backward gates
+# (readings on an H100 80GB HBM3 at 700 W: 0.018 and 0.077 of them); on a
+# seeded normal cotangent, whose pixel sums cancel, it reads 2.4 of them:
+# an input off in its last bits (chiefly t's cotangent, summed in another
+# order) moves a bf16 rounding, and so that pixel's contribution, by 2^-8,
+# far more often than in float32. So that case is gated at
+# rtol 5e-3 plus 5e-4 of the largest (read: 0.48-0.49), where the float32
+# instantiation reads 15-21.
+BF16_BWD_RTOL, BF16_BWD_ATOL_REL = 5e-3, 5e-4
 # Range of the serving frame times recorded before the training path was
 # added, on an H100 80GB HBM3 at 700 W (PERF.md, section 5, runs 1-5).
 RECORDED_FRAME_MS = (1.0306, 1.4094)
@@ -157,7 +188,23 @@ OPS = {
     "bwd_octave": {"fp32": 360, "int32": 98},
     "bwd_warp_octave": {"fp32": 485, "int32": 125},
     "bwd_pixel": {"fp32": 260},
+    # The bf16 march channel per hit and octave (trace_bwd.cu, field.cuh:
+    # noise2_value_bf16_bwd): the rotation, the floors, the hash and the
+    # conversions, 40 bf16 operations forward and 57 back, and the float
+    # accumulations of the amplitude, frequency and position cotangents.
+    "bwd_octave_bf16": {"fp32": 50, "int32": 49, "bf16": 97},
 }
+# Compaction's phase-1 budget on the main path (RenderConfig's default), and
+# JAX's exactness contract between the compact and the unprimed chunked march
+# (tests/test_pallas.py:169-190): no hit flip, every colour value within
+# 1e-4, t within atol 5e-3 plus rtol 1e-4 where both hit.
+COMPACT_BUDGET = 32
+COMPACT_COLOR_ATOL, COMPACT_T_ATOL, COMPACT_T_RTOL = 1e-4, 5e-3, 1e-4
+# The default instantiation's register count and fine-pass times before the
+# compaction phases shared its march (PERF.md run 13: heightfield,
+# volumetric), which phase 20 holds it to: the same registers, and a fine
+# pass at most DEFAULT_FINE_SLACK slower.
+DEFAULT_REGISTERS, DEFAULT_FINE_MS, DEFAULT_FINE_SLACK = 76, (0.1342, 0.2494), 0.03
 # The TPU kernel's lines each forward instantiation replaces
 # (gpgpuraytrace_tpu/kernels/trace.py).
 FWD_SOURCE = "gpgpuraytrace_tpu_torch/kernels/csrc/trace_fwd.cu"
@@ -169,6 +216,9 @@ REPLACES = {
     "chunked+bf16": "gpgpuraytrace_tpu/ops/noise.py:181",
     "fixed+bf16": "gpgpuraytrace_tpu/ops/noise.py:181",
     "lod+bf16": "gpgpuraytrace_tpu/ops/noise.py:181",
+    "compact:phase1": "gpgpuraytrace_tpu/kernels/trace.py:610",
+    "compact:phase2": "gpgpuraytrace_tpu/kernels/trace.py:650",
+    "bwd+bf16": "gpgpuraytrace_tpu/kernels/trace.py:796",
 }
 # AD vs FD checks of tests/test_grad.py: (leaf, component, eps, rtol, t_cap).
 FD_CHECKS = (
@@ -234,10 +284,11 @@ def bf16_differs(tag, out16, out32) -> str:
     return f"{tag} vs the float32 kernel: mean abs diff {diff:.3e}"
 
 
-def bwd_error(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+def bwd_error(got: torch.Tensor, ref: torch.Tensor, rtol: float = BWD_RTOL,
+              atol_rel: float = BWD_ATOL_REL) -> tuple[float, float]:
     """(max abs error, worst error as a fraction of its tolerance)."""
     err = (got - ref).abs()
-    tol = BWD_RTOL * ref.abs() + BWD_ATOL_REL * ref.abs().max()
+    tol = rtol * ref.abs() + atol_rel * ref.abs().max()
     return err.max().item(), (err / tol).max().item()
 
 
@@ -246,21 +297,25 @@ def reset_counts() -> None:
     from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
 
     trace_frame.launches.clear()
-    trace_frame_bwd.launches = 0
+    trace_frame_bwd.launches.clear()
 
 
 def ptxas_lines(log: str) -> list[str]:
     """ptxas's register and spill lines, each with the kernel it reports on
-    (the forward kernel as trace_fwd_kernel<mode, bf16, debug>)."""
-    modes = ("chunked", "fixed", "lod")
+    (the forward kernel as trace_fwd_kernel<mode, bf16, debug>, phase 2 and
+    the backward kernel as <bf16>)."""
+    modes = ("chunked", "fixed", "lod", "compact")
     name, out = "", []
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            m = re.search(r"\d(trace_\w+?)(?:ILi(\d)ELb(\d)ELb(\d)E)?E", entry.group(1))
+            m = re.search(r"\d(trace_\w+?)(?:ILi(\d)ELb(\d)ELb(\d)E|ILb(\d)E)?E",
+                          entry.group(1))
             name = m.group(1) if m else entry.group(1)
             if m and m.group(2):
                 name += f"<{modes[int(m.group(2))]}, bf16={m.group(3)}, debug={m.group(4)}>"
+            elif m and m.group(5):
+                name += f"<bf16={m.group(5)}>"
         elif line.startswith("---"):
             out.append(line.strip())
         elif "registers" in line or "spill" in line:
@@ -291,18 +346,20 @@ def step_ops(cfg) -> dict:
     return ops
 
 
-def fwd_bound(cfg, steps: float, hits: float, n_pix: int, debug: bool = False):
+def fwd_bound(cfg, steps: float, hits: float, n_pix: int, debug: bool = False,
+              nbytes: float | None = None):
     """Least time of a forward launch over ``n_pix`` pixels that march
     ``steps`` field evaluations in all and polish ``hits`` hits: (ms, bound_by).
     Bytes: the prime map read (when primed), colour, t and hit (and the
-    counter) written once."""
+    counter) written once, unless ``nbytes`` says otherwise."""
     ops = add_ops({}, step_ops(cfg), steps)
     add_ops(ops, OPS["grad_octave"], hits * (cfg.newton_iters + 1) * cfg.num_octaves)
     if cfg.volumetric:
         add_ops(ops, OPS["grad_warp_octave"],
                 hits * (cfg.newton_iters + 1) * cfg.warp_octaves)
     add_ops(ops, OPS["pixel"], n_pix)
-    nbytes = n_pix * (4 * bool(cfg.prime_ds) + 20 + 4 * debug)
+    if nbytes is None:
+        nbytes = n_pix * (4 * bool(cfg.prime_ds) + 20 + 4 * debug)
     return bound(ops, nbytes)
 
 
@@ -310,6 +367,8 @@ def bwd_bound(cfg, hits: float, n_pix: int):
     """Least time of a backward launch: (ms, bound_by). Bytes: t, hit and the
     three cotangent planes read once."""
     ops = add_ops({}, OPS["bwd_octave"], hits * cfg.num_octaves)
+    if cfg.march_bf16:
+        add_ops(ops, OPS["bwd_octave_bf16"], hits * cfg.num_octaves)
     if cfg.volumetric:
         add_ops(ops, OPS["bwd_warp_octave"], hits * cfg.warp_octaves)
     add_ops(ops, OPS["bwd_pixel"], n_pix)
@@ -429,9 +488,9 @@ def serve_frames(scene, cfg, yaws) -> tuple[int, str]:
             frames.append(render(scene, cfg))
     torch.cuda.synchronize()
     launches = trace_frame.launches.total()
-    if launches != 2 * len(yaws) or trace_frame_bwd.launches:
+    if launches != 2 * len(yaws) or trace_frame_bwd.launches.total():
         fail(f"serving path launched the forward kernel {launches} times and the "
-             f"backward {trace_frame_bwd.launches} times, expected "
+             f"backward {trace_frame_bwd.launches.total()} times, expected "
              f"{2 * len(yaws)} (coarse + fine per frame) and 0")
     for yaw, img in zip(yaws, frames):
         if img.shape != (cfg.height, cfg.width, 3) or not torch.isfinite(img).all():
@@ -517,7 +576,7 @@ def train(start, target, cfg, trainable, steps: int, reps: dict[str, int]) -> di
     _, losses = fitmod.fit(copy.deepcopy(start), cfg, target, steps=steps,
                            learning_rate=5e-3, trainable=trainable, log_every=0)
     torch.cuda.synchronize()
-    fwd, bwd = trace_frame.launches.total(), trace_frame_bwd.launches
+    fwd, bwd = trace_frame.launches.total(), trace_frame_bwd.launches.total()
     if (fwd, bwd) != (2 * steps, steps):
         fail(f"training path launched the forward kernel {fwd} and the backward "
              f"{bwd} times in {steps} steps, expected {2 * steps} and {steps}")
@@ -585,9 +644,9 @@ def drive(fn, name: str, expect: int):
         out = fn()
     torch.cuda.synchronize()
     got = trace_frame.launches[name]
-    if got != expect or trace_frame_bwd.launches:
+    if got != expect or trace_frame_bwd.launches.total():
         fail(f"{name}: the path launched it {got} times, expected {expect} "
-             f"({trace_frame.launches.total()} forward, {trace_frame_bwd.launches} backward "
+             f"({trace_frame.launches.total()} forward, {trace_frame_bwd.launches.total()} backward "
              f"launches in all)")
     return got, out
 
@@ -881,6 +940,358 @@ def profiling_phase(scene, cfg, tag: str) -> str:
             f"{1e3 * frame_s:.4f} ms (best of 5); trace(): {size} bytes of trace.json")
 
 
+def launch_counts() -> dict:
+    """The launches since the last ``reset_counts()``, by instantiation."""
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
+
+    return {**trace_frame.launches, **trace_frame_bwd.launches}
+
+
+def expect_counts(what: str, expect: dict) -> None:
+    got = {k: v for k, v in launch_counts().items() if v}
+    if got != expect:
+        fail(f"{what}: launches {got}, expected {expect}")
+
+
+def compact_phase(scene, cfg, tag: str) -> dict:
+    """Phase 20 on one terrain: compaction through ``render`` and a training
+    step, each phase kernel against its plain version, the frame against the
+    unprimed chunked kernel's, the survivors and the times."""
+    from gpgpuraytrace_tpu_torch import render
+    from gpgpuraytrace_tpu_torch.kernels.trace import (
+        _prime_map, phase_name, trace_frame, trace_phase1, trace_phase1_reference,
+        trace_phase2, trace_phase2_reference, warp_steps,
+    )
+    from gpgpuraytrace_tpu_torch.ops import fit as fitmod
+
+    ccfg = dataclasses.replace(cfg, march_mode="compact", compact_budget=COMPACT_BUDGET)
+    ucfg = dataclasses.replace(cfg, prime_ds=0)
+    names = (phase_name(ccfg, 1), phase_name(ccfg, 2))
+    h, n_pix = cfg.height, cfg.height * cfg.width
+    reset_counts()
+    with torch.no_grad():
+        img = render(scene, ccfg)
+    torch.cuda.synchronize()
+    expect_counts(f"{tag}compact render", {names[0]: 1, names[1]: 1})
+    launches = launch_counts()
+    if img.shape != (h, cfg.width, 3) or not torch.isfinite(img).all():
+        fail(f"{tag}compact frame: shape {tuple(img.shape)} or non-finite")
+    packed, seed, _ = fine_inputs(scene, ccfg)
+    with torch.no_grad():
+        p1 = trace_phase1(packed, seed, ccfg, h)
+        r1, plain1_ms = once_ms(lambda: trace_phase1_reference(packed, seed, ccfg, h))
+        err1, line1 = compare_trace(f"{tag}phase 1 vs plain", p1[:3], r1[:3])
+        alive_diff = (p1[3] != r1[3]).sum().item()
+        if alive_diff:
+            fail(f"{tag}phase 1: alive differs from the plain version's on {alive_diff} lanes")
+        prev, ids, n_alive = p1[4:]
+        n = int(n_alive.item())
+        # The kernel lists the survivors in the order its warps finish, the
+        # plain version in pixel order: the same set.
+        if n != int(r1[6].item()) or not torch.equal(ids[:n].sort().values, r1[5][:n]):
+            fail(f"{tag}phase 1: the survivors' list ({n}) differs from the plain "
+                 f"version's ({int(r1[6].item())})")
+        k2 = [x.clone() for x in p1[:3]]
+        trace_phase2(packed, seed, ccfg, h, n_alive, ids, prev, *k2)
+        r2 = [x.clone() for x in p1[:3]]
+        _, plain2_ms = once_ms(lambda: trace_phase2_reference(
+            packed, seed, ccfg, h, n_alive, ids, prev, *r2))
+        # Phase 2 writes the survivors' pixels only; the others are phase
+        # 1's on both sides, so phase 3's gates hold on the survivors alone.
+        sel = ids[:n].long()
+
+        def survivors(out):
+            return out[0].view(3, -1)[:, sel], out[1].view(-1)[sel], out[2].view(-1)[sel]
+
+        err2, line2 = compare_trace(f"{tag}phase 2 vs plain on the {n} survivors",
+                                    survivors(k2), survivors(r2))
+        # The frame, traced with every host sync raising, against the
+        # unprimed chunked kernel's: JAX's exactness contract.
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            frame = trace_frame(packed, seed, ccfg, h)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        chunked = trace_frame(packed, seed, ucfg, h)
+        *_, lanes = trace_frame(packed, seed, ucfg, h, debug_steps=True)
+    torch.cuda.synchronize()
+    flips = (frame[2] != chunked[2]).sum().item()
+    color_err = (frame[0] - chunked[0]).abs().max().item()
+    both = (frame[2] > 0.5) & (chunked[2] > 0.5)
+    t_gap = (frame[1] - chunked[1]).abs() - COMPACT_T_RTOL * chunked[1].abs()
+    t_worst = t_gap[both].max().item() if both.any() else 0.0
+    if flips or color_err > COMPACT_COLOR_ATOL or t_worst > COMPACT_T_ATOL:
+        fail(f"{tag}compact vs unprimed chunked: {flips} hit flips, max colour error "
+             f"{color_err:.3e} (need 0, <= {COMPACT_COLOR_ATOL}), t {t_worst:.3e} beyond "
+             f"rtol {COMPACT_T_RTOL} (need <= {COMPACT_T_ATOL})")
+    bitwise = all(torch.equal(a, b) for a, b in zip(frame, chunked))
+    counted = (lanes > COMPACT_BUDGET).sum().item()
+
+    # Times: 50 launches back to back each (phase 2 on its own copy of
+    # phase 1's t per launch: it writes t in place), then the whole traces
+    # in turns, best of two.
+    ms1 = cuda_ms_back_to_back(lambda: trace_phase1(packed, seed, ccfg, h), 50)
+    t_copies = iter([p1[1].clone() for _ in range(51)])
+    ms2 = cuda_ms_back_to_back(lambda: trace_phase2(
+        packed, seed, ccfg, h, n_alive, ids, prev, k2[0], next(t_copies), k2[2]), 50)
+    prime = _prime_map(scene, cfg, 0.0, h)
+    traces = {
+        "compact": lambda: trace_frame(packed, seed, ccfg, h),
+        "unprimed chunked": lambda: trace_frame(packed, seed, ucfg, h),
+        "primed chunked fine pass": lambda: trace_frame(packed, seed, cfg, h, prime),
+        "primed chunked with its coarse pass": lambda: trace_frame(
+            packed, seed, cfg, h, _prime_map(scene, cfg, 0.0, h)),
+    }
+    times = {k: [] for k in traces}
+    for _ in range(2):
+        for k, fn in traces.items():
+            times[k].append(cuda_ms_back_to_back(fn, 50))
+    best = {k: min(v) for k, v in times.items()}
+    prof = profile_frames(traces["compact"], best["compact"])
+    prof_u = profile_frames(traces["unprimed chunked"], best["unprimed chunked"])
+
+    # One training step under compact: phase 1, phase 2 and the backward
+    # once each; its gradients against unprimed chunked's.
+    target = render(scene, cfg).detach()
+    start = fitmod.perturb_scene(scene, torch.Generator().manual_seed(0), rel=0.15)
+    grads = []
+    for c, expect in ((ccfg, {names[0]: 1, names[1]: 1, "bwd": 1}),
+                      (ucfg, {"chunked": 1, "bwd": 1})):
+        s = copy.deepcopy(start)
+        opt = fitmod.make_optimizer(fitmod.partition_scene(s), 5e-3)
+        reset_counts()
+        loss = fitmod.fit_step(s, c, target, opt)
+        torch.cuda.synchronize()
+        expect_counts(f"{tag}training step ({c.march_mode})", expect)
+        if c is ccfg:
+            for k, v in launch_counts().items():
+                launches[k] = launches.get(k, 0) + v
+        if not torch.isfinite(loss):
+            fail(f"{tag}training step under {c.march_mode}: loss {loss.item()}")
+        grads.append({n_: p.grad for n_, p in s.named_parameters() if p.grad is not None})
+    grads_equal = all(torch.equal(grads[0][k], grads[1][k]) for k in grads[1])
+    if bitwise and not grads_equal:
+        fail(f"{tag}compact training step: gradients differ from unprimed chunked's on "
+             f"the same (t, hit)")
+    worst_grad = max(bwd_error(grads[0][k], grads[1][k])[1] for k in grads[1])
+    if worst_grad > 1.0:
+        fail(f"{tag}compact training step: a gradient at {worst_grad:.3f} of its tolerance")
+
+    hits1 = p1[2].sum().item()
+    hits2 = frame[2].sum().item() - hits1
+    # Bytes: phase 1 writes five planes, the survivors' ids and n_alive;
+    # phase 2 reads n_alive and, per survivor, its id, t and prev, and writes
+    # its colour, t and hit.
+    b1 = fwd_bound(ccfg, lanes.clamp(max=COMPACT_BUDGET).sum().item(), hits1, n_pix,
+                   nbytes=28 * n_pix + 4 * n + 4)
+    b2 = fwd_bound(ccfg, (lanes - COMPACT_BUDGET).clamp(min=0).sum().item(), hits2, n,
+                   nbytes=32 * n + 4)
+    line = (f"{tag}budget {COMPACT_BUDGET}: render launched {names[0]} and {names[1]} once "
+            f"each, nothing else; {line1}; alive equal on all {n_pix} lanes, the "
+            f"survivors' list equal as a set; {line2}; "
+            f"survivors n_alive {n} ({100 * n / n_pix:.4f}%; the counted unprimed march "
+            f"leaves {counted} lanes active after {COMPACT_BUDGET} steps; it executes "
+            f"{lanes.float().mean().item():.4f} steps per lane, "
+            f"{warp_steps(lanes).float().mean().item():.4f} per warp, at most "
+            f"{lanes.max().item()}, of which {(lanes - COMPACT_BUDGET).clamp(min=0).sum().item()} "
+            f"are left to phase 2); vs the unprimed "
+            f"chunked kernel: 0 hit flips, max colour error {color_err:.3e}, "
+            f"{'bit for bit equal' if bitwise else 'not bit for bit equal'}; no host sync "
+            f"in the compact trace; times (50 back to back): phase 1 {ms1:.4f} ms (bound "
+            f"{b1[0]:.4f} ms, {b1[1]}; plain {plain1_ms:.3f} ms; it lists the survivors "
+            f"itself, so no glue runs between the phases), phase 2 {ms2:.4f} ms (bound "
+            f"{b2[0]:.4f} ms, {b2[1]}; plain {plain2_ms:.3f} ms); "
+            f"whole traces, best of 2 x 50 in turns: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in best.items())
+            + f"; profile of the compact trace: {prof}; of the unprimed chunked pass: {prof_u}"
+            + f"; training step: 1 + 1 launches and 1 backward, gradients "
+            f"{'bitwise equal to' if grads_equal else 'within the backward gates of'} "
+            f"unprimed chunked's (worst {worst_grad:.4f} of tolerance)")
+    return {"line": line, "phase1": {"launches": launches[names[0]], "err": err1, "ms": ms1,
+                                     "plain_ms": plain1_ms, "bound_ms": b1[0],
+                                     "bound_by": b1[1]},
+            "phase2": {"launches": launches[names[1]], "err": err2, "ms": ms2,
+                       "plain_ms": plain2_ms, "bound_ms": b2[0], "bound_by": b2[1]}}
+
+
+def fly_phase(cfg, dev) -> tuple[str, dict]:
+    """Phase 21: the flythrough through ``fly_frames``, its tweaks and its
+    command line: (report, the compact frames' launches by instantiation)."""
+    from gpgpuraytrace_tpu_torch import default_scene, render
+    from gpgpuraytrace_tpu_torch.kernels.trace import phase_name
+    from gpgpuraytrace_tpu_torch.models.scene import Scene
+    from gpgpuraytrace_tpu_torch.ops.flythrough import fly_frames, flythrough_camera
+    from gpgpuraytrace_tpu_torch.ops.shade import tonemap
+    from gpgpuraytrace_tpu_torch.utils.image import write_png
+    from gpgpuraytrace_tpu_torch.utils.tweak import TweakWatcher, apply_tweaks
+
+    scene = default_scene(6, device=dev)
+    ccfg = dataclasses.replace(cfg, march_mode="compact", compact_budget=COMPACT_BUDGET)
+
+    def by_render(s, c, i):
+        """Frame i rendered apart from fly_frames: render, tonemap, quantize."""
+        cam = flythrough_camera(s, torch.arange(i + 1, dtype=torch.float32)[i] / 30.0)
+        with torch.no_grad():
+            img = tonemap(render(Scene(s.noise, cam, s.materials), c))
+        return (torch.clamp(img, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).cpu().numpy()
+
+    counts = {}
+    frames = {}
+    for label, c, n, expect in (("default", cfg, 8, {"chunked": 16}),
+                                ("compact", ccfg, 4, {phase_name(ccfg, 1): 4,
+                                                      phase_name(ccfg, 2): 4})):
+        reset_counts()
+        frames[label] = list(fly_frames(scene, c, n, batch=4))
+        torch.cuda.synchronize()
+        expect_counts(f"fly_frames {label}", expect)
+        counts[label] = launch_counts()
+        for i, f in frames[label]:
+            if f.shape != (cfg.height, cfg.width, 3) or f.dtype != np.uint8:
+                fail(f"fly frame {i}: {f.shape} {f.dtype}")
+            if not np.array_equal(f, by_render(scene, c, i)):
+                fail(f"fly frame {i} ({label}) differs from render of its camera")
+    # A tweak file written while the first batch is out changes the next one.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "live.json")
+        watcher = TweakWatcher(path)
+        rejected, calls = [], []
+
+        def on_batch(s):
+            calls.append(len(calls))
+            if len(calls) == 2:
+                with open(path, "w") as fh:
+                    json.dump({"noise.height_scale": 7.0, "noise.no_such_leaf": 1.0}, fh)
+            tweaks = watcher.poll()
+            if tweaks is None:
+                return s
+            s, rej = apply_tweaks(s, tweaks)
+            rejected.extend(rej)
+            return s
+
+        tweaked = list(fly_frames(scene, cfg, 8, batch=4, on_batch=on_batch))
+    same = [np.array_equal(a, b) for (_, a), (_, b) in zip(tweaked, frames["default"])]
+    if same != [True] * 4 + [False] * 4 or rejected != ["noise.no_such_leaf"]:
+        fail(f"fly tweaks: frames equal to the untweaked ones {same}, rejected {rejected}")
+    if scene.noise.height_scale.item() != 6.0:
+        fail("fly tweaks changed the caller's scene")
+    # Frames per second, in-process: without writing, and writing PNGs.
+    fps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label in ("without writing", "writing PNGs"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, f in fly_frames(scene, cfg, 8, batch=4):
+                if label == "writing PNGs":
+                    write_png(os.path.join(tmp, f"frame_{i:04d}.png"), f)
+            fps[label] = 8 / (time.perf_counter() - t0)
+    # The command line: a tweak template, then fly with it, then compact rgb.
+    cli_lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tweak = os.path.join(tmp, "t.json")
+        runs = (["tweaks", "-o", tweak],
+                ["fly", "--frames", "8", "--batch", "4", "--tweak", tweak, "-o",
+                 os.path.join(tmp, "png")],
+                ["fly", "--frames", "4", "--batch", "4", "--march-mode", "compact",
+                 "--format", "rgb", "-o", os.path.join(tmp, "rgb")])
+        for args in runs:
+            proc = subprocess.run(
+                [sys.executable, "-m", "gpgpuraytrace_tpu_torch.cli", *args, "--size", "512"],
+                cwd=REPO, capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                fail(f"cli {args[0]} exited {proc.returncode}: {proc.stderr[-2000:]}")
+            cli_lines.append(proc.stdout.strip().splitlines()[-1])
+        pngs = sorted(os.listdir(os.path.join(tmp, "png")))
+        rgbs = sorted(os.listdir(os.path.join(tmp, "rgb")))
+        if len(pngs) != 8 or len(rgbs) != 4 or any(
+                os.path.getsize(os.path.join(tmp, "rgb", f)) != 512 * 512 * 3 for f in rgbs):
+            fail(f"cli fly wrote {pngs} and {rgbs}")
+        with open(tweak) as fh:
+            if json.load(fh)["noise.height_scale"] != 6.0:
+                fail("cli tweaks: the template does not hold the scene's values")
+    same_as_primed = sum(np.array_equal(a, b) for (_, a), (_, b)
+                         in zip(frames["compact"], frames["default"]))
+    return (f"fly_frames 512x512: 8 default frames in batches of 4 "
+            f"({sum(counts['default'].values())} forward launches), 4 compact frames "
+            f"({sum(counts['compact'].values())} launches), each "
+            f"equal to render + tonemap + quantize of its camera bit for bit; compact frames "
+            f"vs the default's primed frames: {same_as_primed} of 4 equal; "
+            f"a tweak file read between batches changed batch 2 only and rejected "
+            f"noise.no_such_leaf; in-process fps (host clock, 8 frames): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in fps.items())
+            + "; cli: " + " | ".join(cli_lines)), counts["compact"]
+
+
+def bf16_bwd_phase(scene, cfg, tag: str) -> dict:
+    """Phase 22 on one terrain: the backward kernel's bf16 instantiation, on
+    the bf16 frame's (t, hit), with the training loss's cotangent (the
+    backward gates) and a seeded normal one (the bf16 backward gates)."""
+    from gpgpuraytrace_tpu_torch import render
+    from gpgpuraytrace_tpu_torch.kernels.trace import (
+        render_kernel_raw, trace_bwd_reference, trace_frame_bwd,
+    )
+    from gpgpuraytrace_tpu_torch.ops import fit as fitmod
+    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+
+    bcfg = dataclasses.replace(cfg, march_bf16=True)
+    f32 = dataclasses.replace(cfg, march_bf16=False)
+    start = fitmod.perturb_scene(scene, torch.Generator().manual_seed(0), rel=0.15)
+    with torch.no_grad():
+        target = render(start, bcfg)
+    s = copy.deepcopy(scene)
+    opt = fitmod.make_optimizer(fitmod.partition_scene(s), 5e-3)
+    reset_counts()
+    fitmod.fit_step(s, bcfg, target, opt)
+    torch.cuda.synchronize()
+    expect_counts(f"{tag}training step under march_bf16", {"chunked+bf16": 2, "bwd+bf16": 1})
+    launches = launch_counts()["bwd+bf16"]
+    img, t, hit = render_kernel_raw(scene, bcfg)
+    packed, seed = pack_scene(scene, cfg.height, cfg.width, 0.0)
+    cotangents = {
+        "loss": ((2.0 / img.numel()) * (img - target)).permute(2, 0, 1).contiguous(),
+        "normal": torch.randn(3, cfg.height, cfg.width,
+                              generator=torch.Generator().manual_seed(0)).to(t.device),
+    }
+    gates = {"loss": (BWD_RTOL, BWD_ATOL_REL), "normal": (BF16_BWD_RTOL, BF16_BWD_ATOL_REL)}
+    parts, errs = [], []
+    for label, g in cotangents.items():
+        args = (packed.detach(), seed, bcfg, cfg.height, t, hit.float(), g)
+        k, k2 = trace_frame_bwd(*args), trace_frame_bwd(*args)
+        ref, plain_ms = once_ms(lambda: trace_bwd_reference(*args))
+        k32 = trace_frame_bwd(packed.detach(), seed, f32, *args[3:])
+        torch.cuda.synchronize()
+        if not torch.isfinite(k).all() or not torch.equal(k, k2):
+            fail(f"{tag}bf16 backward ({label}): not finite or not bitwise repeatable")
+        err, worst = bwd_error(k, ref, *gates[label])
+        if worst > 1.0:
+            fail(f"{tag}bf16 backward vs plain ({label} cotangent): worst entry at "
+                 f"{worst:.3f} of rtol {gates[label][0]} + {gates[label][1]} x max|pbar|")
+        _, worst32 = bwd_error(k32, ref, *gates[label])
+        if not worst32 > 1.0:
+            fail(f"{tag}bf16 backward ({label}): the float32 instantiation is within the "
+                 f"gates of the bf16 plain version too ({worst32:.3f}): the bf16 march "
+                 f"channel did not run")
+        _, worst_f32_gates = bwd_error(k, ref)
+        errs.append(err)
+        parts.append(f"{label} cotangent: max abs err {err:.3e}, worst entry at {worst:.4f} "
+                     f"of rtol {gates[label][0]} + {gates[label][1]} x max|pbar| "
+                     f"({worst_f32_gates:.4f} of phase 8's), the float32 instantiation at "
+                     f"{worst32:.2f}; two launches bitwise equal; plain {plain_ms:.3f} ms")
+    times = {"bf16": [], "f32": []}
+    for _ in range(2):
+        for label, c in (("bf16", bcfg), ("f32", f32)):
+            a = (packed.detach(), seed, c, cfg.height, t, hit.float(), cotangents["loss"])
+            times[label].append(cuda_ms_back_to_back(lambda: trace_frame_bwd(*a), 50))
+    ms, ms32 = min(times["bf16"]), min(times["f32"])
+    bound_ms, bound_by = bwd_bound(bcfg, hit.sum().item(), cfg.height * cfg.width)
+    line = (f"{tag}a training step launched chunked+bf16 twice and bwd+bf16 once; on the "
+            f"bf16 frame's (t, hit): " + "; ".join(parts)
+            + f"; {ms:.4f} ms (float32 {ms32:.4f} ms, best of 2 x 50 back to back, in "
+            f"turns); bound {bound_ms:.4f} ms ({bound_by})")
+    return {"line": line, "launches": launches, "err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def main() -> None:
     # --- 1. host -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1020,10 +1431,11 @@ def main() -> None:
                 fail(f"AD vs FD {label}: ad={ad} fd={fd} (rtol {rtol})")
             fd_lines.append(f"{label} ad {ad:.6e} fd {fd:.6e} rel {rel:.2e}"
                             + ("" if gated else " (not gated)"))
-    if not (trace_frame.launches.total() and trace_frame_bwd.launches):
+    if not (trace_frame.launches.total() and trace_frame_bwd.launches.total()):
         fail("the FD checks did not run through both kernels")
     phase(10, "AD vs FD", "; ".join(fd_lines)
-          + f" ({trace_frame.launches.total()} forward, {trace_frame_bwd.launches} backward launches)")
+          + f" ({trace_frame.launches.total()} forward, "
+            f"{trace_frame_bwd.launches.total()} backward launches)")
 
     # --- 11. volumetric: forward kernel vs plain version ------------------------------
     vcfg = RenderConfig(num_octaves=6, volumetric=True)  # relax 0.9, prime 8, 128 steps
@@ -1106,6 +1518,35 @@ def main() -> None:
     for tag, (scene, c) in scenes.items():
         phase(19, "profiling", profiling_phase(scene, c, tag))
 
+    # --- 20-22. compaction, the flythrough, the bf16 backward --------------------
+    regs = [int(m.group(1)) for ln in ptxas_lines(log)
+            if ln.startswith("trace_fwd_kernel<chunked, bf16=0, debug=0>:")
+            and (m := re.search(r"Used (\d+) registers", ln))]
+    if regs != [DEFAULT_REGISTERS]:
+        fail(f"the default forward instantiation compiled to {regs} registers "
+             f"(ptxas), expected [{DEFAULT_REGISTERS}]")
+    moved = [100 * (ms / before - 1) for ms, before in zip((kern_ms, vkern_ms), DEFAULT_FINE_MS)]
+    if max(moved) > 100 * DEFAULT_FINE_SLACK:
+        fail(f"the default fine pass took {kern_ms:.4f} / {vkern_ms:.4f} ms, "
+             f"{moved[0]:+.2f}% / {moved[1]:+.2f}% against {DEFAULT_FINE_MS[0]} / "
+             f"{DEFAULT_FINE_MS[1]} ms (at most +{100 * DEFAULT_FINE_SLACK:.0f}%)")
+    default_line = (f"the default instantiation (chunked, float32, no counter): "
+                    f"{regs[0]} registers (before: {DEFAULT_REGISTERS}); fine pass "
+                    f"{kern_ms:.4f} / {vkern_ms:.4f} ms (phases 3, 11) against "
+                    f"{DEFAULT_FINE_MS[0]} / {DEFAULT_FINE_MS[1]} ms before ({moved[0]:+.2f}% / "
+                    f"{moved[1]:+.2f}%, at most +{100 * DEFAULT_FINE_SLACK:.0f}%)")
+    phase(20, "compact", f"{default_line} {card}")
+    for tag, (scene, c) in scenes.items():
+        results["compact", tag] = compact_phase(scene, c, tag)
+        phase(20, "compact", f"{results['compact', tag]['line']} {card}")
+    fly_line, fly_compact = fly_phase(cfg, dev)
+    phase(21, "flythrough", f"{fly_line} {card}")
+    for part, k in (("phase1", 1), ("phase2", 2)):  # the flythrough's compact frames
+        results["compact", ""][part]["launches"] += fly_compact[f"compact:phase{k}"]
+    for tag, (scene, c) in scenes.items():
+        results["bwd+bf16", tag] = bf16_bwd_phase(scene, c, tag)
+        phase(22, "bf16 backward", f"{results['bwd+bf16', tag]['line']} {card}")
+
     # Bounds of phases 3, 8, 11 and 13 from phase 15's useful steps and hits.
     n_pix = cfg.height * cfg.width
     fwd_b = {tag: fwd_bound(c, results["counter", tag]["lanes"].sum().item(),
@@ -1114,10 +1555,13 @@ def main() -> None:
     bwd_b = {"": bwd_bound(cfg, bwd["hits"], n_pix),
              "volumetric ": bwd_bound(vcfg, vbwd["hits"], n_pix)}
 
-    def variant_entry(label: str, name: str) -> dict:
+    def variant_entry(label: str, name: str, source: str = FWD_SOURCE,
+                      kernel: str = "trace_fwd", part: str | None = None) -> dict:
         h, v = results[label, ""], results[label, "volumetric "]
+        if part is not None:
+            h, v = h[part], v[part]
         return {
-            "name": f"trace_fwd[{name}]", "route": "cuda", "source": FWD_SOURCE,
+            "name": f"{kernel}[{name}]", "route": "cuda", "source": source,
             "replaces": REPLACES[name], "variants": ["heightfield", "volumetric"],
             "launches": h["launches"] + v["launches"], "max_abs_err": max(h["err"], v["err"]),
             "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
@@ -1174,6 +1618,12 @@ def main() -> None:
         variant_entry("bf16", "chunked+bf16"),
         variant_entry("fixed+bf16", "fixed+bf16"),
         variant_entry("lod+bf16", "lod+bf16"),
+        variant_entry("compact", "compact:phase1", part="phase1"),
+        variant_entry("compact", "compact:phase2", part="phase2",
+                      source="gpgpuraytrace_tpu_torch/kernels/csrc/trace_compact.cu",
+                      kernel="trace_compact"),
+        variant_entry("bwd+bf16", "bwd+bf16", kernel="trace_bwd",
+                      source="gpgpuraytrace_tpu_torch/kernels/csrc/trace_bwd.cu"),
     ]}
     print(json.dumps(record))
     print(smi)

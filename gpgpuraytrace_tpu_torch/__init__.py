@@ -8,10 +8,12 @@ numpy only, never jax or the JAX package.
 Layout:
   models/    Scene (nn.Modules) and RenderConfig
   ops/       plain PyTorch path: noise, camera, field, march, shade, render;
-             the fit loop and the finite-difference gradient check
-  kernels/   the CUDA trace kernels (forward and backward), their build,
-             wrappers and plain versions
-  utils/     scalar packing, scene <-> numpy conversion, image writers
+             the fit loop, the flythrough and the finite-difference
+             gradient check
+  kernels/   the CUDA trace kernels (forward, compaction's two phases,
+             backward), their build, wrappers and plain versions
+  utils/     scalar packing, scene <-> numpy conversion, image writers,
+             march statistics and timers, live tweaks
 """
 
 from gpgpuraytrace_tpu_torch.models.scene import (  # noqa: F401

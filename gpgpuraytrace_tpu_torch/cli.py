@@ -1,18 +1,24 @@
-"""Command line: render one frame, or fit scene parameters to a target.
+"""Command line: render one frame, fit scene parameters to a target, render
+flythrough frames with live tweaks, or write a tweak template.
 
   python -m gpgpuraytrace_tpu_torch.cli render --size 512 --octaves 6 -o frame.png
   python -m gpgpuraytrace_tpu_torch.cli fit --size 512 --steps 100
   python -m gpgpuraytrace_tpu_torch.cli render --volumetric --size 512 -o frame.png
+  python -m gpgpuraytrace_tpu_torch.cli render --march-mode compact -o frame.png
+  python -m gpgpuraytrace_tpu_torch.cli fly --size 512 --frames 60 --tweak live.json -o frames/
+  python -m gpgpuraytrace_tpu_torch.cli tweaks -o live.json
 
 ``--device cuda`` (the default) requires a CUDA GPU and raises without one;
 ``--device cpu`` runs the plain PyTorch versions. ``--kernel`` (the default)
 renders through the trace kernel path, ``--no-kernel`` through the plain
-op-by-op path.
+op-by-op path. ``render`` and ``fly`` take ``--march-mode`` (the march
+variant; RenderConfig's defaults for the rest, compaction's budget too).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -42,6 +48,7 @@ def _cfg_from_args(args):
         prime_ds=args.prime_ds,
         **({"prime_margin": args.prime_margin}
            if args.prime_margin is not None else {}),
+        **({"march_mode": args.march_mode} if "march_mode" in args else {}),
     )
 
 
@@ -132,7 +139,66 @@ def cmd_fit(args):
     print(f"max |amplitude error| = {amp_err:.4f}")
 
 
-def _common(sp):
+def cmd_fly(args):
+    from gpgpuraytrace_tpu_torch.models.scene import default_scene
+    from gpgpuraytrace_tpu_torch.ops.flythrough import fly_frames
+    from gpgpuraytrace_tpu_torch.utils.image import write_png
+    from gpgpuraytrace_tpu_torch.utils.profiling import warn_if_rough
+    from gpgpuraytrace_tpu_torch.utils.tweak import TweakWatcher, apply_tweaks
+
+    device = _device(args.device)
+    cfg = _cfg_from_args(args)
+    scene = default_scene(num_octaves=cfg.num_octaves, volumetric=cfg.volumetric,
+                          device=device)
+    warn_if_rough(scene, cfg)
+    # Live tweaks: the watched JSON file is re-read before each batch.
+    watcher = TweakWatcher(args.tweak) if args.tweak else None
+
+    def on_batch(s):
+        tweaks = None if watcher is None else watcher.poll()
+        if tweaks is None:
+            return s
+        s, rejected = apply_tweaks(s, tweaks)
+        warn_if_rough(s, cfg)  # live edits can push the scene rough
+        applied = [k for k in tweaks if k not in rejected]
+        if applied:
+            print(f"tweaks applied: {', '.join(applied)}")
+        for name in rejected:
+            print(f"tweak rejected (unknown name or bad shape): {name}")
+        return s
+
+    os.makedirs(args.out, exist_ok=True)
+    ext = args.format
+    t0 = time.perf_counter()
+    n = 0
+    for idx, frame in fly_frames(scene, cfg, args.frames, batch=args.batch,
+                                 on_batch=on_batch):
+        write_png(os.path.join(args.out, f"frame_{idx:04d}.{ext}"), frame,
+                  level=args.encode_level)
+        n += 1
+    dt = time.perf_counter() - t0
+    print(
+        f"flythrough: {n} frames {cfg.width}x{cfg.height} in {dt:.2f}s "
+        f"({n / dt:.2f} fps incl. writing, host clock; on the card the first "
+        f"batch includes the kernel build; format={ext}"
+        + (f" zlib={args.encode_level}" if ext == "png" else "")
+        + f", march_mode={cfg.march_mode})"
+    )
+
+
+def cmd_tweaks(args):
+    from gpgpuraytrace_tpu_torch.models.scene import default_scene
+    from gpgpuraytrace_tpu_torch.utils.tweak import write_template
+
+    device = _device(args.device)
+    cfg = _cfg_from_args(args)
+    scene = default_scene(num_octaves=cfg.num_octaves, volumetric=cfg.volumetric,
+                          device=device)
+    write_template(args.out, scene)
+    print(f"wrote tweak template -> {args.out} (edit while `fly --tweak {args.out}` runs)")
+
+
+def _common(sp, march_mode: bool = False):
     sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     sp.add_argument("--size", default="512", help="N or WxH")
     sp.add_argument("--octaves", type=int, default=6)
@@ -143,6 +209,13 @@ def _common(sp):
         "op-by-op PyTorch path",
     )
     sp.add_argument("--supersample", type=int, default=1, help="SSAA factor")
+    if march_mode:
+        sp.add_argument(
+            "--march-mode", choices=["chunked", "fixed", "lod", "compact"],
+            default="chunked",
+            help="the march: chunked (default), fixed (no early exit), lod "
+            "(coarse field first) or compact (two-phase ray compaction)",
+        )
     sp.add_argument(
         "--volumetric", action="store_true",
         help="3D-warped terrain volume (overhangs; step relax 0.9)",
@@ -162,7 +235,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="gpgpuraytrace_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     sp = sub.add_parser("render", help="render one frame")
-    _common(sp)
+    _common(sp, march_mode=True)
     sp.add_argument("-o", "--out", default="frame.png")
     sp.set_defaults(fn=cmd_render)
     sp = sub.add_parser("fit", help="recover params from a target image")
@@ -171,6 +244,27 @@ def main(argv=None):
     sp.add_argument("--lr", type=float, default=5e-3)
     sp.add_argument("--seed", type=int, default=0)
     sp.set_defaults(fn=cmd_fit)
+    sp = sub.add_parser("fly", help="animated flythrough frames")
+    _common(sp, march_mode=True)
+    sp.add_argument("--frames", type=int, default=60)
+    sp.add_argument("--batch", type=int, default=4, help="frames per batch")
+    sp.add_argument(
+        "--tweak", default="",
+        help="watched JSON file of live scene overrides "
+        '(e.g. {"noise.height_scale": 8.0}); re-read whenever it changes',
+    )
+    sp.add_argument("--encode-level", type=int, default=6, metavar="0-9",
+                    help="PNG zlib effort; lower is faster, files larger")
+    sp.add_argument(
+        "--format", choices=["png", "rgb"], default="png",
+        help="rgb = raw rgb24 frame dumps (ffmpeg -f rawvideo -pix_fmt rgb24 -s WxH)",
+    )
+    sp.add_argument("-o", "--out", default="frames")
+    sp.set_defaults(fn=cmd_fly)
+    sp = sub.add_parser("tweaks", help="write an editable tweak-file template of the scene")
+    _common(sp)
+    sp.add_argument("-o", "--out", default="tweaks.json")
+    sp.set_defaults(fn=cmd_tweaks)
     args = p.parse_args(argv)
     args.fn(args)
 

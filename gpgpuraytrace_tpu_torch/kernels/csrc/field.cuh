@@ -202,6 +202,96 @@ __device__ __forceinline__ float noise2_value_bf16(float x, float z, uint32_t se
   return __bfloat162float(blended) * kInvSqrt5;
 }
 
+// The adjoint of noise2_value_bf16 (the march channel of the backward under
+// march_bf16): its value, and the cotangents of x and z for an output
+// cotangent out_bar, derived by hand and rounded to bf16 after every
+// operation in the order torch's autograd rounds ops/noise.py:
+// noise2_value_bf16's (a product's two cotangents in its operands' order, a
+// value used k times summing its k cotangents in the order autograd's engine
+// delivers them: the node made last runs first). The floor and the hash have
+// no cotangent; multiplying by a corner gradient (+-1, +-2) is exact.
+__device__ __forceinline__ void noise2_value_bf16_bwd(float x, float z, uint32_t seed,
+                                                      float out_bar, float& value,
+                                                      float& x_bar, float& z_bar) {
+  const float x0 = floorf(x);
+  const float z0 = floorf(z);
+  const __nv_bfloat16 fx = __float2bfloat16_rn(x - x0);
+  const __nv_bfloat16 fz = __float2bfloat16_rn(z - z0);
+  const uint32_t ix = static_cast<uint32_t>(static_cast<int>(x0));
+  const uint32_t iz = static_cast<uint32_t>(static_cast<int>(z0));
+  const uint32_t base = ix * kKX + iz * kKZ + seed * kKY;
+  const uint32_t off[4] = {0u, kKX, kKZ, kKXZ};
+  __nv_bfloat16 gx[4], gz[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    float fgx, fgz;
+    grad2(mix(base + off[c]), fgx, fgz);
+    gx[c] = __float2bfloat16_rn(fgx);
+    gz[c] = __float2bfloat16_rn(fgz);
+  }
+  const __nv_bfloat16 one = __float2bfloat16_rn(1.f);
+  const __nv_bfloat16 six = __float2bfloat16_rn(6.f);
+  const __nv_bfloat16 fifteen = __float2bfloat16_rn(15.f);
+  const __nv_bfloat16 ten = __float2bfloat16_rn(10.f);
+  const __nv_bfloat16 fx1 = __hsub_rn(fx, one), fz1 = __hsub_rn(fz, one);
+  const __nv_bfloat16 n00 = bf_dot(gx[0], fx, gz[0], fz);
+  const __nv_bfloat16 n10 = bf_dot(gx[1], fx1, gz[1], fz);
+  const __nv_bfloat16 n01 = bf_dot(gx[2], fx, gz[2], fz1);
+  const __nv_bfloat16 n11 = bf_dot(gx[3], fx1, gz[3], fz1);
+  // The fades' intermediates: a = f f, b = a f, d = f 6 - 15, e = f d,
+  // ff = e + 10, fade = b ff.
+  const __nv_bfloat16 ua = __hmul_rn(fx, fx), ub = __hmul_rn(ua, fx);
+  const __nv_bfloat16 ud = __hsub_rn(__hmul_rn(fx, six), fifteen);
+  const __nv_bfloat16 uf = __hadd_rn(__hmul_rn(fx, ud), ten);
+  const __nv_bfloat16 u = __hmul_rn(ub, uf);
+  const __nv_bfloat16 va = __hmul_rn(fz, fz), vb = __hmul_rn(va, fz);
+  const __nv_bfloat16 vd = __hsub_rn(__hmul_rn(fz, six), fifteen);
+  const __nv_bfloat16 vf = __hadd_rn(__hmul_rn(fz, vd), ten);
+  const __nv_bfloat16 v = __hmul_rn(vb, vf);
+  const __nv_bfloat16 k1 = __hsub_rn(n10, n00);
+  const __nv_bfloat16 k2 = __hsub_rn(n01, n00);
+  const __nv_bfloat16 k3 = __hadd_rn(__hsub_rn(__hsub_rn(n00, n10), n01), n11);
+  const __nv_bfloat16 uv = __hmul_rn(u, v);
+  const __nv_bfloat16 blended =
+      __hadd_rn(__hadd_rn(__hadd_rn(n00, __hmul_rn(u, k1)), __hmul_rn(v, k2)),
+                __hmul_rn(uv, k3));
+  value = __bfloat162float(blended) * kInvSqrt5;
+
+  // --- reverse: blended = ((n00 + u k1) + v k2) + uv k3 ------------------
+  const __nv_bfloat16 bb = __float2bfloat16_rn(__fmul_rn(out_bar, kInvSqrt5));
+  const __nv_bfloat16 uvb = __hmul_rn(bb, k3), k3b = __hmul_rn(bb, uv);
+  const __nv_bfloat16 k2b = __hmul_rn(bb, v), k1b = __hmul_rn(bb, u);
+  const __nv_bfloat16 u_bar = __hadd_rn(__hmul_rn(uvb, v), __hmul_rn(bb, k1));
+  const __nv_bfloat16 v_bar = __hadd_rn(__hmul_rn(uvb, u), __hmul_rn(bb, k2));
+  // n00 feeds the blend, k3, k2 and k1, delivered in that order.
+  const __nv_bfloat16 n00b = __hsub_rn(__hsub_rn(__hadd_rn(bb, k3b), k2b), k1b);
+  const __nv_bfloat16 n10b = __hsub_rn(k1b, k3b);
+  const __nv_bfloat16 n01b = __hsub_rn(k2b, k3b);
+  const __nv_bfloat16 n11b = k3b;
+  // A fade's cotangent of f, in delivery order: e's, c's, b's, then a's two.
+  auto fade_bar = [six](__nv_bfloat16 f, __nv_bfloat16 fb, __nv_bfloat16 a,
+                        __nv_bfloat16 b, __nv_bfloat16 d, __nv_bfloat16 ff) {
+    const __nv_bfloat16 b_bar = __hmul_rn(fb, ff), ff_bar = __hmul_rn(fb, b);
+    __nv_bfloat16 acc = __hmul_rn(ff_bar, d);
+    const __nv_bfloat16 d_bar = __hmul_rn(ff_bar, f);
+    acc = __hadd_rn(acc, __hmul_rn(d_bar, six));
+    const __nv_bfloat16 a_bar = __hmul_rn(b_bar, f);
+    acc = __hadd_rn(acc, __hmul_rn(b_bar, a));
+    acc = __hadd_rn(acc, __hmul_rn(a_bar, f));
+    return __hadd_rn(acc, __hmul_rn(a_bar, f));
+  };
+  __nv_bfloat16 fxb = fade_bar(fx, u_bar, ua, ub, ud, uf);
+  __nv_bfloat16 fzb = fade_bar(fz, v_bar, va, vb, vd, vf);
+  const __nv_bfloat16 fx1b = bf_dot(n11b, gx[3], n10b, gx[1]);
+  const __nv_bfloat16 fz1b = bf_dot(n11b, gz[3], n01b, gz[2]);
+  fxb = __hadd_rn(__hadd_rn(__hadd_rn(fxb, __hmul_rn(n01b, gx[2])), __hmul_rn(n00b, gx[0])),
+                  fx1b);
+  fzb = __hadd_rn(__hadd_rn(__hadd_rn(fzb, __hmul_rn(n10b, gz[1])), __hmul_rn(n00b, gz[0])),
+                  fz1b);
+  x_bar = __bfloat162float(fxb);
+  z_bar = __bfloat162float(fzb);
+}
+
 __device__ __forceinline__ void noise2(float x, float z, uint32_t seed,
                                        float& value, float& d_dx, float& d_dz) {
   const Cell k = cell(x, z, seed);

@@ -2,7 +2,8 @@
 // cotangent, one thread per pixel, then a deterministic two-step reduction.
 //
 // Replaces gpgpuraytrace_tpu/kernels/trace.py:_trace_bwd_kernel (launched by
-// _backward_pallas; heightfield and volumetric), which gets its adjoint from
+// _backward_pallas; heightfield and volumetric; its march channel in float32,
+// or through the bf16 march field under march_bf16), which gets its adjoint from
 // jax.vjp inside the kernel and accumulates it in one SMEM block across a
 // sequential TPU grid. Its
 // plain PyTorch version is
@@ -46,6 +47,7 @@ struct TraceBwdConfig {
   int num_octaves;
   int volumetric;  // 1: the field subtracts the 3D fBm warp
   int warp_octaves;
+  int bf16;  // 1: the march channel pulls back through the bf16 value field
 };
 
 namespace {
@@ -55,7 +57,11 @@ __device__ __forceinline__ bool in_unit(float x) {  // clip(x, 0, 1) passes x
 }
 
 // One pixel's cotangents into column ``a`` (entry k at a[k * kBwdThreads]):
-// the packed entries, then one frequency entry per octave.
+// the packed entries, then one frequency entry per octave. kBf16: the march
+// channel's heightfield term pulls back through noise2_value_bf16's adjoint
+// (march_bf16, as JAX's backward differentiates its march field); the shade
+// channel stays float32.
+template <bool kBf16>
 __device__ __forceinline__ void pixel_bwd(const float* sc, const Octaves& oct,
                                           uint32_t seed,
                                           const TraceBwdConfig& cfg, int row,
@@ -254,11 +260,36 @@ __device__ __forceinline__ void pixel_bwd(const float* sc, const Octaves& oct,
     const float denom = fminf(gx * dx + gy * dy + gz * dz, -kDenomMin);
     const float ms = -t_bar / denom;
     hoff_bar -= ms;
-    hscale_bar -= ms * N;
+    if constexpr (!kBf16) hscale_bar -= ms * N;
     const float Nm_bar = -ms * hscale;
-    px_bar += Nm_bar * NX * hs;
-    pz_bar += Nm_bar * NZ * hs;
-    hs_bar += Nm_bar * NX * px + Nm_bar * NZ * pz;
+    if constexpr (kBf16) {
+      // f's heightfield term through the bf16 value field, octave by octave
+      // (ops/noise.py:fbm2_value with bf16): each octave's cotangent
+      // Nm_bar amp_i runs through the rounded adjoint, so the octaves'
+      // amplitude and frequency entries get their march parts here.
+      float Nb = 0.f, xm_bar = 0.f, zm_bar = 0.f;
+      for (int i = 0; i < cfg.num_octaves; ++i) {
+        const float c = oct.c[i], s = oct.s[i], cf = oct.cf[i], sf = oct.sf[i];
+        const float amp = oct.amp[i];
+        float nv, X_bar, Z_bar;
+        noise2_value_bf16_bwd(cf * x - sf * z, sf * x + cf * z,
+                              seed + static_cast<uint32_t>(i), Nm_bar * amp, nv, X_bar,
+                              Z_bar);
+        Nb = Nb + amp * nv;
+        A(kAmps + i) = Nm_bar * nv;
+        xm_bar += cf * X_bar + sf * Z_bar;
+        zm_bar += -sf * X_bar + cf * Z_bar;
+        A(n_params + i) = c * (X_bar * x + Z_bar * z) + s * (-X_bar * z + Z_bar * x);
+      }
+      hscale_bar -= ms * Nb;
+      px_bar += xm_bar * hs;
+      pz_bar += zm_bar * hs;
+      hs_bar += xm_bar * px + zm_bar * pz;
+    } else {
+      px_bar += Nm_bar * NX * hs;
+      pz_bar += Nm_bar * NZ * hs;
+      hs_bar += Nm_bar * NX * px + Nm_bar * NZ * pz;
+    }
     py_bar += ms;
     if (cfg.volumetric) {  // f -= wa F(q): F_bar = -ms wa
       wa_bar -= ms * F;
@@ -280,7 +311,7 @@ __device__ __forceinline__ void pixel_bwd(const float* sc, const Octaves& oct,
     A(kHeightOffset) = hoff_bar;
     A(kHeightScale) = hscale_bar;
     A(kHorizontalScale) = hs_bar;
-    N_bar += Nm_bar;
+    if constexpr (!kBf16) N_bar += Nm_bar;
 
     // --- per octave: amplitude and frequency cotangents ------------------
     for (int i = 0; i < cfg.num_octaves; ++i) {
@@ -290,14 +321,21 @@ __device__ __forceinline__ void pixel_bwd(const float* sc, const Octaves& oct,
       noise2_hess(cf * x - sf * z, sf * x + cf * z, seed + static_cast<uint32_t>(i),
                   n, nx, nz, hxx, hxz, hzz);
       const float af_bar = NX_bar * (c * nx + s * nz) + NZ_bar * (-s * nx + c * nz);
-      A(kAmps + i) = N_bar * n + af_bar * oct.freq[i];
+      const float amp_bar = N_bar * n + af_bar * oct.freq[i];
       const float n_bar = N_bar * amp;
       const float nx_bar = af * (c * NX_bar - s * NZ_bar);
       const float nz_bar = af * (s * NX_bar + c * NZ_bar);
       const float X_bar = n_bar * nx + nx_bar * hxx + nz_bar * hxz;
       const float Z_bar = n_bar * nz + nx_bar * hxz + nz_bar * hzz;
       const float cf_bar = X_bar * x + Z_bar * z, sf_bar = -X_bar * z + Z_bar * x;
-      A(n_params + i) = af_bar * amp + c * cf_bar + s * sf_bar;
+      const float freq_bar = af_bar * amp + c * cf_bar + s * sf_bar;
+      if constexpr (kBf16) {
+        A(kAmps + i) += amp_bar;
+        A(n_params + i) += freq_bar;
+      } else {
+        A(kAmps + i) = amp_bar;
+        A(n_params + i) = freq_bar;
+      }
     }
   }
 
@@ -322,6 +360,7 @@ __device__ __forceinline__ void pixel_bwd(const float* sc, const Octaves& oct,
   A(kRow0) = sy_bar * sc[kTanFov] * -static_cast<float>(2.0 / cfg.height);
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kBwdThreads)
 trace_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_ptr,
                  const float* __restrict__ t_in, const float* __restrict__ hit_in,
@@ -346,7 +385,7 @@ trace_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_
     const int row = idx / cfg.width;
     const int col = idx - row * cfg.width;
     const float G[3] = {g[idx], g[n_pix + idx], g[2 * n_pix + idx]};
-    pixel_bwd(sc, oct, static_cast<uint32_t>(*seed_ptr), cfg, row, col, t_in[idx],
+    pixel_bwd<kBf16>(sc, oct, static_cast<uint32_t>(*seed_ptr), cfg, row, col, t_in[idx],
               hit_in[idx] > 0.5f, G, a);
   }
   __syncthreads();
@@ -425,8 +464,13 @@ int trace_bwd_launch(const float* packed, const int* seed, const float* t,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = bwd_blocks(cfg);
   const size_t smem = static_cast<size_t>(bwd_cols(cfg)) * kBwdThreads * sizeof(float);
-  trace_bwd_kernel<<<blocks, kBwdThreads, smem, s>>>(packed, seed, t, hit, g, partial,
-                                                     cfg);
+  if (cfg.bf16) {
+    trace_bwd_kernel<true><<<blocks, kBwdThreads, smem, s>>>(packed, seed, t, hit, g,
+                                                             partial, cfg);
+  } else {
+    trace_bwd_kernel<false><<<blocks, kBwdThreads, smem, s>>>(packed, seed, t, hit, g,
+                                                              partial, cfg);
+  }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   trace_bwd_reduce<<<1, kReduceThreads, 0, s>>>(partial, blocks, cfg.num_octaves,

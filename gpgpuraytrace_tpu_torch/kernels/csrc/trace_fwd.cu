@@ -4,15 +4,20 @@
 // Replaces gpgpuraytrace_tpu/kernels/trace.py:_trace_kernel (heightfield or
 // volumetric, optionally primed) with every variant of its march: chunked,
 // fixed (no early exit), lod (a certified coarse-field phase, then the fine
-// march), the bf16 march field, and the debug_steps executed-step counter.
-// The TPU kernel computes the same per pixel over (16, 128) tiles of a
-// sequential TPU grid. Its plain PyTorch version is
-// gpgpuraytrace_tpu_torch/kernels/trace.py:trace_frame_reference, line for
-// line the same arithmetic.
+// march), the bf16 march field, and the debug_steps executed-step counter;
+// and _trace_phase1_kernel, compaction's first phase: the unprimed chunked
+// march stopped after cfg.budget steps, with each ray's still-marching flag
+// and last advancing sample as two more outputs, and the pixel ids of the
+// rays still marching appended to a list whose length n_alive stays on the
+// device (trace_compact.cu resumes those rays). The TPU kernels compute the same per pixel over (16, 128)
+// tiles of a sequential TPU grid. The plain PyTorch versions are
+// gpgpuraytrace_tpu_torch/kernels/trace.py:trace_frame_reference and
+// trace_phase1_reference, line for line the same arithmetic.
 //
 // The variants are template parameters (mode, bf16, debug), dispatched by
 // trace_fwd_launch, so each instantiation carries only its own march and the
-// default (chunked, float, no counter) compiles as it did alone.
+// default (chunked, float, no counter) compiles as it did alone. The march,
+// the polish and the shade are trace_march.cuh's, which phase 2 shares.
 //
 // What bounds it on the H100: INT32 and FP32 issue. Each march step
 // evaluates the value-only fBm, about 77 FP32 and 49 INT32 operations per
@@ -25,36 +30,15 @@
 // marching as soon as its own ray is done; the TPU kernel instead checks for
 // a whole-tile exit every march_chunk steps, which gives the same result
 // because a finished lane never changes state, and RenderConfig makes the
-// chunk divide max_steps.
+// chunk divide max_steps (and compact_budget).
 
-#include "field.cuh"
+#include <cooperative_groups.h>
+
+#include "trace_march.cuh"
 
 namespace {
 constexpr int kThreads = 256;
-// Must match kernels/trace.py:MARCH_MODES.
-enum MarchMode : int { kChunked = 0, kFixed = 1, kLod = 2 };
 }  // namespace
-
-// Must match kernels/trace.py:TraceConfig field for field.
-struct TraceConfig {
-  int height;  // full image height (NDC scale)
-  int width;
-  int local_h;  // rows rendered by this launch
-  int max_steps;
-  int num_octaves;
-  int newton_iters;
-  float t_min;
-  float t_max;
-  float hit_eps;
-  float march_eps_scale;
-  float step_relax;
-  float step_floor_t;
-  int primed;  // 1: prime holds a (local_h, width) march-start map
-  int volumetric;  // 1: the field subtracts the 3D fBm warp
-  int warp_octaves;
-  int march_mode;  // MarchMode
-  int bf16;  // 1: bf16 blend math in the march's value-only field
-};
 
 namespace {
 
@@ -82,7 +66,9 @@ __global__ void __launch_bounds__(kThreads)
 trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_ptr,
                  const float* __restrict__ prime, float* __restrict__ color,
                  float* __restrict__ t_out, float* __restrict__ hit_out,
-                 int* __restrict__ steps_out, TraceConfig cfg) {
+                 int* __restrict__ steps_out, float* __restrict__ alive_out,
+                 float* __restrict__ prev_out, int* __restrict__ ids_out,
+                 int* __restrict__ n_alive, TraceConfig cfg) {
   __shared__ float sc[kAmps + kMaxOctaves];
   __shared__ Octaves oct;
   __shared__ float margin;  // lod only
@@ -108,18 +94,14 @@ trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_
 
   // --- raygen (kernels/trace.py:_raygen_rc) ------------------------------
   const CameraRay cr = camera_ray(sc, cfg.height, cfg.width, row, col);
-  const float dx = cr.dx, dy = cr.dy, dz = cr.dz;
-  const Ray ray{sc[kPos + 0], sc[kPos + 1], sc[kPos + 2], dx, dy, dz};
+  const float dy = cr.dy;
+  const Ray ray{sc[kPos + 0], sc[kPos + 1], sc[kPos + 2], cr.dx, dy, cr.dz};
   const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
   const Field field{sc, &oct, cfg.num_octaves, seed, cfg.volumetric != 0,
                     cfg.warp_octaves};
 
   // --- sky-envelope entry (_envelope, _envelope_entry) -------------------
-  float amps_abs = 0.f;
-  for (int k = 0; k < cfg.num_octaves; ++k) amps_abs += fabsf(sc[kAmps + k]);
-  float env = sc[kHeightOffset] + fabsf(sc[kHeightScale]) * amps_abs;
-  if (cfg.volumetric) env = env + fabsf(sc[kWarpAmp]) * warp_tail(cfg.warp_octaves);
-  env = env + cfg.hit_eps;  // the entry below and the escape test in the march
+  const float env = envelope(sc, cfg);  // the entry below and the march's escape test
   const float oy = ray.oy;
   float t = cfg.t_min;
   if (oy > env) {
@@ -155,154 +137,63 @@ trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_
     prev_t = t;
   }
 
-  // --- march (_tile_trace march_step) --------------------------------------
-  const float eps_m = cfg.hit_eps * cfg.march_eps_scale;
-  bool hit = false;
-  int executed = 0;  // iterations run while active (the debug_steps count)
-  if constexpr (kMode == kFixed) {
-    // No early exit: every thread runs all max_steps iterations and
-    // evaluates f in each; a finished lane's updates are masked, so it
-    // changes no state and the result equals the chunked march's.
-    for (int s = 0; s < cfg.max_steps; ++s) {
-      const float f = field.value<kBf16>(ray, t);
-      const bool is_hit = active & (f < eps_m * t);
-      const bool escape = active & !is_hit & (oy + t * dy > env) & (dy >= 0.f);
-      const bool advance = active & !is_hit & !escape;
-      float step = fmaxf(cfg.step_relax * f, cfg.hit_eps);
-      if (cfg.step_floor_t > 0.f) step = fmaxf(step, cfg.step_floor_t * t);
-      const float t_new = escape ? cfg.t_max : (advance ? fminf(t + step, cfg.t_max) : t);
-      prev_t = advance ? t : prev_t;
-      hit = hit | is_hit;
-      active = advance & (t_new < cfg.t_max);
-      t = t_new;
-    }
-    executed = cfg.max_steps;
-  } else {
-    // Per-thread exit: a finished lane never changes state, so stopping it
-    // early gives what the TPU kernel's whole-tile chunked exit gives.
-    for (int s = 0; s < cfg.max_steps && active; ++s) {
-      if constexpr (kDebug) ++executed;
-      const float f = field.value<kBf16>(ray, t);
-      if (f < eps_m * t) {
-        hit = true;
-        break;
-      }
-      if (oy + t * dy > env && dy >= 0.f) {  // envelope escape: certain miss
-        t = cfg.t_max;
-        break;
-      }
-      float step = fmaxf(cfg.step_relax * f, cfg.hit_eps);
-      if (cfg.step_floor_t > 0.f) step = fmaxf(step, cfg.step_floor_t * t);
-      const float t_new = fminf(t + step, cfg.t_max);
-      prev_t = t;
-      t = t_new;
-      active = t_new < cfg.t_max;
-    }
-  }
+  // --- march (_tile_trace march_step): max_steps, or compaction phase 1's
+  // budget -------------------------------------------------------------------
+  March m{t, prev_t, active, false};
+  const int n_steps = kMode == kCompact ? cfg.budget : cfg.max_steps;
+  const int executed = march<kMode == kFixed, kBf16, kDebug>(field, ray, env, cfg, n_steps, m);
   if constexpr (kDebug) steps_out[idx] = executed;
-
-  float gx = 0.f, gy = 1.f, gz = 0.f, h = 0.f;
-  if (hit) {
-    // --- bracketed safeguarded-Newton polish --------------------------
-    float f0;
-    field.value_grad(ray, t, f0, gx, gy, gz, h);
-    const float denom0 = gx * dx + gy * dy + gz * dz;
-    const float down0 = fmaxf(-denom0, kDenomMin);
-    float hi = t + fmaxf(f0, 0.f) / down0 * 1.25f + cfg.hit_eps;
-    float lo = prev_t;
-    const bool safe0 = fabsf(denom0) > kDenomEps;
-    const float newton0 = t - (safe0 ? f0 / denom0 : 0.f);
-    if (f0 > 0.f) lo = t;
-    if (f0 <= 0.f) hi = t;
-    float x = safe0 ? fmaxf(clip(newton0, lo, fminf(hi, cfg.t_max)), cfg.t_min) : t;
-    for (int k = 1; k < cfg.newton_iters; ++k) {
-      float f;
-      field.value_grad(ray, x, f, gx, gy, gz, h);
-      const float denom = gx * dx + gy * dy + gz * dz;
-      const bool safe = fabsf(denom) > kDenomEps;
-      const float newton = x - (safe ? f / denom : 0.f);
-      if (f > 0.f) lo = x;
-      if (f <= 0.f) hi = x;
-      if (safe) x = fmaxf(clip(newton, lo, fminf(hi, cfg.t_max)), cfg.t_min);
-    }
-    t = x;
-    // --- final evaluation: shading normal and residual verdict --------
-    float f_fin;
-    field.value_grad(ray, t, f_fin, gx, gy, gz, h);
-    if (cfg.march_eps_scale != 1.f) {
-      hit = f_fin < kResidualSlack * cfg.hit_eps * t;
+  if constexpr (kMode == kCompact) {
+    // Still marching after the budget: polished and shaded as a miss here,
+    // resumed by phase 2 (trace_compact.cu), which overwrites its outputs.
+    alive_out[idx] = m.active ? 1.f : 0.f;
+    prev_out[idx] = m.prev_t;
+    if (m.active) {
+      // Append the pixel id to the survivors' list: one atomic per group of
+      // converged threads, ids in lane order within it. A survivor's result
+      // does not depend on its slot, so the order across warps (whichever
+      // warp gets there first) changes no output bit.
+      const cooperative_groups::coalesced_group g = cooperative_groups::coalesced_threads();
+      int base = 0;
+      if (g.thread_rank() == 0) base = atomicAdd(n_alive, static_cast<int>(g.size()));
+      ids_out[g.shfl(base, 0) + static_cast<int>(g.thread_rank())] = idx;
     }
   }
-
-  // --- shade (_shade_from_grads) ----------------------------------------
-  const float lx = sc[kSunDir + 0], ly = sc[kSunDir + 1], lz = sc[kSunDir + 2];
-  const float up_amount = clip(dy, 0.f, 1.f);
-  const float cos_sun = clip(dx * lx + dy * ly + dz * lz, 0.f, 1.f);
-  const float c2 = cos_sun * cos_sun;
-  const float c4 = c2 * c2;
-  const float c8 = c4 * c4;
-  const float c16 = c8 * c8;
-  const float c64 = c16 * c16 * c16 * c16;
-  const float c512 = c64 * c64 * c64 * c64 * c64 * c64 * c64 * c64;
-  const float sun_term = 0.25f * c64 + 1.5f * c512;
-
-  float steep = 0.f, snow = 0.f, diffuse = 0.f, sky_fill = 0.f, fog = 0.f;
-  if (hit) {
-    const float ninv = rsqrtf(gx * gx + gy * gy + gz * gz + 1e-12f);
-    const float nx = gx * ninv, ny = gy * ninv, nz = gz * ninv;
-    steep = smoothstep(0.85f, static_cast<float>(0.55 - 0.85), ny);
-    const float snow_h = sc[kSnowHeight];
-    snow = smoothstep(snow_h, (snow_h + 1.f) - snow_h, h) * (1.f - steep);
-    diffuse = clip(nx * lx + ny * ly + nz * lz, 0.f, 1.f);
-    sky_fill = 0.5f + 0.5f * ny;
-    fog = 1.f - expf(-sc[kFogDensity] * t);
-  }
-  const int n = n_pix;
-  for (int ch = 0; ch < 3; ++ch) {
-    const float horizon = sc[kSkyHorizon + ch];
-    const float sky = horizon + (sc[kSkyZenith + ch] - horizon) * up_amount +
-                      sun_term * sc[kSunColor + ch];
-    float out = sky;
-    if (hit) {
-      const float low = sc[kAlbedoLow + ch];
-      float albedo = low + (sc[kAlbedoHigh + ch] - low) * steep;
-      albedo = albedo + (sc[kSnowColor + ch] - albedo) * snow;
-      const float light =
-          sc[kSunColor + ch] * diffuse + sc[kAmbient + ch] * sky_fill;
-      float surf = albedo * light;
-      const float fog_tint = 0.5f * (sc[kFogColor + ch] + sky);
-      surf = surf + (fog_tint - surf) * fog;
-      out = surf;
-    }
-    color[ch * n + idx] = out;
-  }
-  t_out[idx] = t;
-  hit_out[idx] = hit ? 1.f : 0.f;
+  polish_and_shade(field, ray, sc, cfg, m.t, m.prev_t, m.hit, idx, n_pix, color, t_out,
+                   hit_out);
 }
 
+// The pointers of one launch: device buffers, null where unused.
+struct FwdArgs {
+  const float* packed;
+  const int* seed;
+  const float* prime;
+  float *color, *t, *hit;
+  int* steps;
+  float *alive, *prev;
+  int *ids, *n_alive;
+};
+
 template <int kMode, bool kBf16, bool kDebug>
-void launch_variant(const float* packed, const int* seed, const float* prime, float* color,
-                    float* t, float* hit, int* steps, const TraceConfig& cfg,
-                    cudaStream_t stream) {
+void launch_variant(const FwdArgs& a, const TraceConfig& cfg, cudaStream_t stream) {
   const int n_pix = cfg.local_h * cfg.width;
   const int blocks = (n_pix + kThreads - 1) / kThreads;
   trace_fwd_kernel<kMode, kBf16, kDebug><<<blocks, kThreads, 0, stream>>>(
-      packed, seed, prime, color, t, hit, steps, cfg);
+      a.packed, a.seed, a.prime, a.color, a.t, a.hit, a.steps, a.alive, a.prev, a.ids,
+      a.n_alive, cfg);
 }
 
 template <int kMode>
-void launch_mode(const float* packed, const int* seed, const float* prime, float* color,
-                 float* t, float* hit, int* steps, const TraceConfig& cfg,
-                 cudaStream_t stream) {
-  const bool bf16 = cfg.bf16 != 0, debug = steps != nullptr;
+void launch_mode(const FwdArgs& a, const TraceConfig& cfg, cudaStream_t stream) {
+  const bool bf16 = cfg.bf16 != 0, debug = a.steps != nullptr;
   if (bf16 && debug) {
-    launch_variant<kMode, true, true>(packed, seed, prime, color, t, hit, steps, cfg, stream);
+    launch_variant<kMode, true, true>(a, cfg, stream);
   } else if (bf16) {
-    launch_variant<kMode, true, false>(packed, seed, prime, color, t, hit, steps, cfg, stream);
+    launch_variant<kMode, true, false>(a, cfg, stream);
   } else if (debug) {
-    launch_variant<kMode, false, true>(packed, seed, prime, color, t, hit, steps, cfg, stream);
+    launch_variant<kMode, false, true>(a, cfg, stream);
   } else {
-    launch_variant<kMode, false, false>(packed, seed, prime, color, t, hit, steps, cfg, stream);
+    launch_variant<kMode, false, false>(a, cfg, stream);
   }
 }
 
@@ -314,20 +205,40 @@ extern "C" {
 // ``steps`` select on ``stream`` and returns cudaGetLastError() (0 on
 // success). Pointers are device pointers; ``prime`` is null unless
 // cfg.primed, ``steps`` (an int32 per pixel) null unless the counter is
-// wanted. The caller validates shapes, dtypes and contiguity.
+// wanted, ``alive`` and ``prev`` (a float per pixel), ``ids`` (an int32 per
+// pixel) and ``n_alive`` (one int32) null unless cfg.march_mode is kCompact,
+// which launches compaction's phase 1 (cfg.phase 1, no counter, unprimed):
+// it sets n_alive to 0 on the stream, then the kernel writes the survivors'
+// pixel ids to ids[0, n_alive). The caller validates shapes, dtypes and
+// contiguity.
 int trace_fwd_launch(const float* packed, const int* seed, const float* prime,
-                     float* color, float* t, float* hit, int* steps, TraceConfig cfg,
-                     void* stream) {
+                     float* color, float* t, float* hit, int* steps, float* alive,
+                     float* prev, int* ids, int* n_alive, TraceConfig cfg, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const FwdArgs a{packed, seed, prime, color, t, hit, steps, alive, prev, ids, n_alive};
   switch (cfg.march_mode) {
     case kChunked:
-      launch_mode<kChunked>(packed, seed, prime, color, t, hit, steps, cfg, s);
+      launch_mode<kChunked>(a, cfg, s);
       break;
     case kFixed:
-      launch_mode<kFixed>(packed, seed, prime, color, t, hit, steps, cfg, s);
+      launch_mode<kFixed>(a, cfg, s);
       break;
     case kLod:
-      launch_mode<kLod>(packed, seed, prime, color, t, hit, steps, cfg, s);
+      launch_mode<kLod>(a, cfg, s);
+      break;
+    case kCompact:
+      if (cfg.phase != 1 || steps != nullptr || prime != nullptr || alive == nullptr ||
+          prev == nullptr || ids == nullptr || n_alive == nullptr) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      if (const cudaError_t err = cudaMemsetAsync(n_alive, 0, sizeof(int), s)) {
+        return static_cast<int>(err);
+      }
+      if (cfg.bf16) {
+        launch_variant<kCompact, true, false>(a, cfg, s);
+      } else {
+        launch_variant<kCompact, false, false>(a, cfg, s);
+      }
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,34 +1,44 @@
 """The trace kernels: the forward (raygen -> primed sphere-trace march ->
-Newton polish -> shade) and the backward (output cotangent -> packed
-scene-parameter cotangent), each for a full frame or a row band.
+Newton polish -> shade), compaction's two phases, and the backward (output
+cotangent -> packed scene-parameter cotangent), each for a full frame or a
+row band.
 
 Counterparts of ``gpgpuraytrace_tpu/kernels/trace.py``: ``_trace_kernel``
-with its launcher ``_render_pallas_raw``, and ``_trace_bwd_kernel`` with
-``_backward_pallas`` and the custom VJP ``render_pallas_cfg``. The forward
-runs every variant of ``_trace_kernel``: ``march_mode`` "chunked" (primed or
-not), "fixed" (no early exit) and "lod" (a certified coarse-field phase
-before the fine march), each with or without ``march_bf16`` (bf16 blend math
-in the march field), the ``march_eps_scale`` residual verdict and the
-``debug_steps`` executed-step counter, on the heightfield and on the
-volumetric terrain (the 3D fBm warp). The variants change only where the
-march stops, so one backward serves them all. ``march_mode="compact"`` (two
-more TPU kernels) raises ``NotImplementedError`` (ROADMAP.md A6). The
-pieces:
+with its launcher ``_render_pallas_raw``; ``_trace_phase1_kernel`` and
+``_trace_phase2_kernel`` with their glue ``_render_compact_raw``; and
+``_trace_bwd_kernel`` with ``_backward_pallas`` and the custom VJP
+``render_pallas_cfg``. The forward runs every variant of ``_trace_kernel``:
+``march_mode`` "chunked" (primed or not), "fixed" (no early exit) and "lod"
+(a certified coarse-field phase before the fine march), each with or without
+``march_bf16`` (bf16 blend math in the march field), the ``march_eps_scale``
+residual verdict and the ``debug_steps`` executed-step counter, on the
+heightfield and on the volumetric terrain (the 3D fBm warp).
+``march_mode="compact"`` runs two kernels: phase 1 marches every ray for
+``compact_budget`` steps and lists the pixel ids of the rays still marching
+in its first ``n_alive`` slots (``n_alive`` stays on the device: no host
+sync); phase 2 resumes those rays, one thread per slot, and writes each
+result in place. The variants change only where the
+march stops, so one backward serves them all; under ``march_bf16`` its march
+channel pulls back through the bf16 field, as JAX's does. The pieces:
 
-* ``trace_frame`` and ``trace_frame_bwd`` are the wrappers. Each validates
-  its inputs, launches its hand-written CUDA kernel (``csrc/trace_fwd.cu``,
-  ``csrc/trace_bwd.cu``) on CUDA tensors, and runs its plain version on CPU
-  tensors. ``.launches`` counts kernel launches (``trace_frame``'s, a
-  ``Counter`` by instantiation). A CUDA input never falls back to the plain
-  version: a failed build or launch raises.
-* ``trace_frame_reference`` and ``trace_bwd_reference`` are the plain
+* ``trace_frame``, ``trace_phase1``, ``trace_phase2`` and
+  ``trace_frame_bwd`` are the wrappers. Each validates its inputs, launches
+  its hand-written CUDA kernel (``csrc/trace_fwd.cu``,
+  ``csrc/trace_compact.cu``, ``csrc/trace_bwd.cu``) on CUDA tensors, and
+  runs its plain version on CPU tensors. ``.launches`` counts kernel
+  launches (``trace_frame``'s, a ``Counter`` by instantiation, the two
+  phases included). A CUDA input never falls back to the plain version: a
+  failed build or launch raises.
+* ``trace_frame_reference``, ``trace_phase1_reference``,
+  ``trace_phase2_reference`` and ``trace_bwd_reference`` are the plain
   PyTorch versions of exactly what the kernels compute, written against the
   same packed scalar vector.
 * ``render_kernel_raw`` renders a frame through ``trace_frame`` (coarse
-  depth-prime pass, prime map, full pass) and returns its (t, hit) too, and
-  the per-lane step counts with ``debug_steps``; it builds no autograd
-  graph. ``tile_steps`` and ``warp_steps`` reduce those counts to what a
-  (tile_h, 128) TPU tile and a 32-thread warp execute.
+  depth-prime pass, prime map, full pass; or compaction's two phases) and
+  returns its (t, hit) too, and the per-lane step counts with
+  ``debug_steps``; it builds no autograd graph. ``tile_steps`` and
+  ``warp_steps`` reduce those counts to what a (tile_h, 128) TPU tile and a
+  32-thread warp execute.
 * ``render_kernel`` is the differentiable render of the kernel path: its
   backward is ``trace_frame_bwd`` (``cfg.kernel_bwd``) or autograd through
   the plain re-shade at the saved (t, hit).
@@ -58,14 +68,16 @@ from gpgpuraytrace_tpu_torch.utils.convert import LEAF_NAMES
 
 MAX_OCTAVES = 16  # keep in sync with csrc/field.cuh
 MAX_WARP_OCTAVES = 8  # the kernels loop over warp octaves; octave 8 weighs 0.5^7
-# The forward kernel's march modes (csrc/trace_fwd.cu:MarchMode).
-MARCH_MODES = {"chunked": 0, "fixed": 1, "lod": 2}
+# The forward kernels' march modes (csrc/trace_march.cuh:MarchMode).
+MARCH_MODES = {"chunked": 0, "fixed": 1, "lod": 2, "compact": 3}
 TILE_W = 128  # the TPU kernel's tile width (lanes)
 WARP = 32  # threads of a warp: 32 consecutive pixels of a row-major frame
 
 
 class TraceConfig(ctypes.Structure):
-    """The kernel's config, passed by value (csrc/trace_fwd.cu:TraceConfig)."""
+    """The forward kernels' config, passed by value
+    (csrc/trace_march.cuh:TraceConfig); ``budget`` and ``phase`` are
+    compaction's (the phase's march steps; 1 or 2, else 0)."""
 
     _fields_ = [
         ("height", ctypes.c_int),
@@ -85,6 +97,8 @@ class TraceConfig(ctypes.Structure):
         ("warp_octaves", ctypes.c_int),
         ("march_mode", ctypes.c_int),
         ("bf16", ctypes.c_int),
+        ("budget", ctypes.c_int),
+        ("phase", ctypes.c_int),
     ]
 
 
@@ -98,20 +112,14 @@ class TraceBwdConfig(ctypes.Structure):
         ("num_octaves", ctypes.c_int),
         ("volumetric", ctypes.c_int),
         ("warp_octaves", ctypes.c_int),
+        ("bf16", ctypes.c_int),  # 1: the march channel pulls back through the bf16 field
     ]
 
 
 def _check_supported(cfg: RenderConfig) -> None:
-    if cfg.march_mode == "compact":
-        raise NotImplementedError(
-            "march_mode='compact' is not ported to the trace kernels yet "
-            "(ROADMAP.md A6: the two compaction kernels); use 'chunked', "
-            "'fixed' or 'lod'"
-        )
     if cfg.march_mode not in MARCH_MODES:
         raise ValueError(
-            f"march_mode={cfg.march_mode!r} must be one of {sorted(MARCH_MODES)} "
-            f"or 'compact'"
+            f"march_mode={cfg.march_mode!r} must be one of {sorted(MARCH_MODES)}"
         )
     if not 1 <= cfg.num_octaves <= MAX_OCTAVES:
         raise ValueError(
@@ -186,8 +194,9 @@ def trace_frame(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
     hit (h, w) float 0/1), and with ``debug_steps`` a fourth result: the
     int32 (h, w) count of march iterations each lane executed while active,
     the one that detects a hit or an escape included (fixed mode: every lane
-    ``max_steps``; lod: the fine phase only). CUDA inputs launch the CUDA
-    kernel; CPU inputs run ``trace_frame_reference``.
+    ``max_steps``; lod: the fine phase only). ``march_mode="compact"`` runs
+    ``trace_phase1`` and ``trace_phase2``. CUDA inputs
+    launch the CUDA kernels; CPU inputs run ``trace_frame_reference``.
     """
     _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps)
     if packed.device.type == "cpu":
@@ -195,11 +204,14 @@ def trace_frame(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
                                      debug_steps)
     if packed.device.type != "cuda":
         raise RuntimeError(f"trace_frame: unsupported device {packed.device}")
+    if cfg.march_mode == "compact":
+        return _compact(trace_phase1, trace_phase2, packed, seed, cfg, local_height)
     return _launch(packed, seed, cfg, local_height, t0_prime, debug_steps)
 
 
-# Launches of the CUDA kernel by instantiation (``variant_name``); the
-# total is ``trace_frame.launches.total()``.
+# Launches of the CUDA kernels by instantiation (``variant_name``, and
+# ``phase_name`` for compaction's two); the total is
+# ``trace_frame.launches.total()``.
 trace_frame.launches = collections.Counter()
 
 
@@ -210,14 +222,45 @@ def variant_name(cfg: RenderConfig, debug_steps: bool = False) -> str:
             + ("+debug_steps" if debug_steps else ""))
 
 
+def phase_name(cfg: RenderConfig, phase: int) -> str:
+    """The launch count's key of compaction's phase 1 or 2:
+    "compact:phase1", "compact+bf16:phase2", ..."""
+    return f"{variant_name(cfg)}:phase{phase}"
+
+
+def _compact(phase1, phase2, packed, seed, cfg, local_height):
+    """Compaction's frame: phase 1, then phase 2 in place on its outputs."""
+    color, t, hit, _, prev, ids, n_alive = phase1(packed, seed, cfg, local_height)
+    phase2(packed, seed, cfg, local_height, n_alive, ids, prev, color, t, hit)
+    return color, t, hit
+
+
+def _kernel_config(cfg: RenderConfig, local_height: int, primed: bool = False,
+                   budget: int = 0, phase: int = 0) -> TraceConfig:
+    return TraceConfig(
+        height=cfg.height, width=cfg.width, local_h=local_height,
+        max_steps=cfg.max_steps, num_octaves=cfg.num_octaves,
+        newton_iters=cfg.newton_iters, t_min=cfg.t_min, t_max=cfg.t_max,
+        hit_eps=cfg.hit_eps, march_eps_scale=cfg.march_eps_scale,
+        step_relax=cfg.step_relax, step_floor_t=cfg.step_floor_t, primed=int(primed),
+        volumetric=int(cfg.volumetric), warp_octaves=cfg.warp_octaves,
+        march_mode=MARCH_MODES[cfg.march_mode], bf16=int(cfg.march_bf16),
+        budget=budget, phase=phase,
+    )
+
+
 def _library() -> ctypes.CDLL:
     from gpgpuraytrace_tpu_torch.kernels.build import load_library
 
     lib = load_library()
-    lib.trace_fwd_launch.argtypes = [ctypes.c_void_p] * 7 + [
+    lib.trace_fwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
         TraceConfig, ctypes.c_void_p,
     ]
     lib.trace_fwd_launch.restype = ctypes.c_int
+    lib.trace_compact_launch.argtypes = [ctypes.c_void_p] * 8 + [
+        TraceConfig, ctypes.c_void_p,
+    ]
+    lib.trace_compact_launch.restype = ctypes.c_int
     lib.trace_bwd_scratch_floats.argtypes = [TraceBwdConfig]
     lib.trace_bwd_scratch_floats.restype = ctypes.c_int
     lib.trace_bwd_launch.argtypes = [ctypes.c_void_p] * 7 + [
@@ -237,6 +280,10 @@ def _raise_on(lib, err: int, what: str) -> None:
         )
 
 
+def _ptr(x: torch.Tensor | None):
+    return None if x is None else x.data_ptr()
+
+
 def _launch(packed, seed, cfg, local_height, t0_prime, debug_steps):
     lib = _library()
     dev = packed.device
@@ -245,26 +292,107 @@ def _launch(packed, seed, cfg, local_height, t0_prime, debug_steps):
     t = torch.empty((h, w), dtype=torch.float32, device=dev)
     hit = torch.empty((h, w), dtype=torch.float32, device=dev)
     steps = torch.empty((h, w), dtype=torch.int32, device=dev) if debug_steps else None
-    kcfg = TraceConfig(
-        height=cfg.height, width=w, local_h=h, max_steps=cfg.max_steps,
-        num_octaves=cfg.num_octaves, newton_iters=cfg.newton_iters,
-        t_min=cfg.t_min, t_max=cfg.t_max, hit_eps=cfg.hit_eps,
-        march_eps_scale=cfg.march_eps_scale, step_relax=cfg.step_relax,
-        step_floor_t=cfg.step_floor_t, primed=int(t0_prime is not None),
-        volumetric=int(cfg.volumetric), warp_octaves=cfg.warp_octaves,
-        march_mode=MARCH_MODES[cfg.march_mode], bf16=int(cfg.march_bf16),
-    )
+    kcfg = _kernel_config(cfg, h, primed=t0_prime is not None)
     with torch.cuda.device(dev):
         err = lib.trace_fwd_launch(
-            packed.data_ptr(), seed.data_ptr(),
-            None if t0_prime is None else t0_prime.data_ptr(),
-            color.data_ptr(), t.data_ptr(), hit.data_ptr(),
-            None if steps is None else steps.data_ptr(), kcfg,
+            packed.data_ptr(), seed.data_ptr(), _ptr(t0_prime), color.data_ptr(),
+            t.data_ptr(), hit.data_ptr(), _ptr(steps), None, None, None, None, kcfg,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(lib, err, "trace_fwd")
     trace_frame.launches[variant_name(cfg, debug_steps)] += 1
     return (color, t, hit) if steps is None else (color, t, hit, steps)
+
+
+def _check_compact(packed, seed, cfg, local_height, named) -> None:
+    if cfg.march_mode != "compact":
+        raise ValueError(f"march_mode={cfg.march_mode!r}: the compaction phases "
+                         f"run only under march_mode='compact'")
+    _check_tensors(packed, seed, cfg, local_height, named)
+
+
+def trace_phase1(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
+                 local_height: int):
+    """Compaction's phase 1 (``cfg.march_mode == "compact"``): the unprimed
+    chunked march of every ray for ``cfg.compact_budget`` steps, then polish
+    and shade. Returns (color (3, h, w), t, hit, alive, prev, ids, n_alive):
+    (h, w) float32 planes, ``alive`` 1 where the ray is still marching
+    (polished and shaded as a miss here; ``trace_phase2`` resumes it),
+    ``prev`` its last advancing sample (the polish's bracket); ``ids``
+    (h·w,) int32 lists the pixel ids of the rays still marching in its first
+    ``n_alive`` slots ((1,) int32, on the device), the rest unset. CUDA
+    inputs launch the kernel (``csrc/trace_fwd.cu``, mode compact), which
+    lists the survivors in the order its warps reach the list; CPU inputs run
+    ``trace_phase1_reference``, which lists them in pixel order."""
+    _check_compact(packed, seed, cfg, local_height, {})
+    if packed.device.type == "cpu":
+        return trace_phase1_reference(packed, seed, cfg, local_height)
+    if packed.device.type != "cuda":
+        raise RuntimeError(f"trace_phase1: unsupported device {packed.device}")
+    lib = _library()
+    dev = packed.device
+    hw = (local_height, cfg.width)
+    color = torch.empty((3, *hw), dtype=torch.float32, device=dev)
+    t, hit, alive, prev = (torch.empty(hw, dtype=torch.float32, device=dev)
+                           for _ in range(4))
+    ids = torch.empty(local_height * cfg.width, dtype=torch.int32, device=dev)
+    n_alive = torch.empty(1, dtype=torch.int32, device=dev)  # zeroed by the launch
+    kcfg = _kernel_config(cfg, local_height, budget=cfg.compact_budget, phase=1)
+    with torch.cuda.device(dev):
+        err = lib.trace_fwd_launch(
+            packed.data_ptr(), seed.data_ptr(), None, color.data_ptr(), t.data_ptr(),
+            hit.data_ptr(), None, alive.data_ptr(), prev.data_ptr(), ids.data_ptr(),
+            n_alive.data_ptr(), kcfg, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(lib, err, "trace_fwd (compact phase 1)")
+    trace_frame.launches[phase_name(cfg, 1)] += 1
+    return color, t, hit, alive, prev, ids, n_alive
+
+
+def _check_phase2(packed, seed, cfg, local_height, n_alive, ids, prev, color, t,
+                  hit) -> None:
+    hw = (local_height, cfg.width)
+    _check_compact(packed, seed, cfg, local_height, {
+        "prev": (prev, hw), "color": (color, (3, *hw)), "t": (t, hw), "hit": (hit, hw)})
+    for name, x, shape in (("n_alive", n_alive, (1,)),
+                           ("ids", ids, (local_height * cfg.width,))):
+        if x.dtype != torch.int32 or x.shape != shape:
+            raise ValueError(f"{name} must be int32 {shape}, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+        if x.device != packed.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {packed.device}")
+
+
+def trace_phase2(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
+                 local_height: int, n_alive: torch.Tensor, ids: torch.Tensor,
+                 prev: torch.Tensor, color: torch.Tensor, t: torch.Tensor,
+                 hit: torch.Tensor) -> None:
+    """Compaction's phase 2: resume, for ``cfg.max_steps -
+    cfg.compact_budget`` more steps, the march of the pixel in each of the
+    first ``n_alive`` slots of ``ids`` (``trace_phase1``'s list of the rays
+    still marching) from phase 1's ``t`` and ``prev``, polish and shade it,
+    and write its colour, t and hit in place into phase 1's ``color``, ``t``
+    and ``hit``. The slots' order changes no output. CUDA inputs launch the
+    kernel (``csrc/trace_compact.cu``; ``n_alive`` stays on the device); CPU
+    inputs run ``trace_phase2_reference``."""
+    args = (n_alive, ids, prev, color, t, hit)
+    _check_phase2(packed, seed, cfg, local_height, *args)
+    if packed.device.type == "cpu":
+        trace_phase2_reference(packed, seed, cfg, local_height, *args)
+        return
+    if packed.device.type != "cuda":
+        raise RuntimeError(f"trace_phase2: unsupported device {packed.device}")
+    lib = _library()
+    dev = packed.device
+    kcfg = _kernel_config(cfg, local_height, budget=cfg.max_steps - cfg.compact_budget,
+                          phase=2)
+    with torch.cuda.device(dev):
+        err = lib.trace_compact_launch(
+            packed.data_ptr(), seed.data_ptr(), *(x.data_ptr() for x in args), kcfg,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(lib, err, "trace_compact (compact phase 2)")
+    trace_frame.launches[phase_name(cfg, 2)] += 1
 
 
 def _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g) -> None:
@@ -293,7 +421,9 @@ def trace_frame_bwd(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
     return _launch_bwd(packed.detach(), seed, cfg, local_height, t, hit, g)
 
 
-trace_frame_bwd.launches = 0
+# Launches of the CUDA backward kernel by instantiation: "bwd", and
+# "bwd+bf16" (the march channel through the bf16 field) under march_bf16.
+trace_frame_bwd.launches = collections.Counter()
 
 
 def _launch_bwd(packed, seed, cfg, local_height, t, hit, g):
@@ -301,7 +431,7 @@ def _launch_bwd(packed, seed, cfg, local_height, t, hit, g):
     dev = packed.device
     kcfg = TraceBwdConfig(height=cfg.height, width=cfg.width, local_h=local_height,
                           num_octaves=cfg.num_octaves, volumetric=int(cfg.volumetric),
-                          warp_octaves=cfg.warp_octaves)
+                          warp_octaves=cfg.warp_octaves, bf16=int(cfg.march_bf16))
     partial = torch.empty(lib.trace_bwd_scratch_floats(kcfg), dtype=torch.float32,
                           device=dev)
     pbar = torch.empty((1, pk.AMPS + cfg.num_octaves), dtype=torch.float32, device=dev)
@@ -312,7 +442,7 @@ def _launch_bwd(packed, seed, cfg, local_height, t, hit, g):
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(lib, err, "trace_bwd")
-    trace_frame_bwd.launches += 1
+    trace_frame_bwd.launches["bwd+bf16" if cfg.march_bf16 else "bwd"] += 1
     return pbar
 
 
@@ -487,20 +617,24 @@ def _lod_park(field_coarse_at, margin, cfg: RenderConfig, t, active, oy, dy, env
     return t
 
 
-def _march(field_at, cfg: RenderConfig, t, prev_t, active, oy, dy, env):
-    """The fine march (``_tile_trace``'s march_step): (t, prev_t, hit,
-    steps), ``steps`` the int32 count of iterations each lane ran while
-    active. The chunked and lod modes stop when no lane is active at a
-    chunk boundary, where the CUDA kernel stops per thread; fixed runs all
-    ``max_steps`` and counts them for every lane. A finished lane never
-    changes state, so all three give the same t and hit."""
+def _march(field_at, cfg: RenderConfig, t, prev_t, active, oy, dy, env,
+           n_steps: int | None = None):
+    """The fine march (``_tile_trace``'s march_step) for ``n_steps`` steps
+    (``cfg.max_steps`` by default): (t, prev_t, hit, active, steps),
+    ``active`` the lanes still marching after the last step, ``steps`` the
+    int32 count of iterations each lane ran while active. The chunked, lod
+    and compact modes stop when no lane is active at a chunk boundary, where
+    the CUDA kernel stops per thread; fixed runs all the steps and counts
+    them for every lane. A finished lane never changes state, so all give the
+    same t and hit."""
+    n_steps = cfg.max_steps if n_steps is None else n_steps
     t_max = torch.full_like(t, cfg.t_max)
     hit = torch.zeros_like(active)
     steps = torch.zeros(t.shape, dtype=torch.int32, device=t.device)
     eps_m = cfg.hit_eps * cfg.march_eps_scale
     fixed = cfg.march_mode == "fixed"
     chunk = cfg.march_chunk or MARCH_CHUNK_DEFAULT
-    for s in range(cfg.max_steps):
+    for s in range(n_steps):
         if not fixed and s % chunk == 0 and not bool(active.any()):
             break
         steps += active
@@ -519,44 +653,17 @@ def _march(field_at, cfg: RenderConfig, t, prev_t, active, oy, dy, env):
         active = advance & (t_new < cfg.t_max)
         t = t_new
     if fixed:
-        steps.fill_(cfg.max_steps)
-    return t, prev_t, hit, steps
+        steps.fill_(n_steps)
+    return t, prev_t, hit, active, steps
 
 
-@torch.no_grad()
-def trace_frame_reference(packed: torch.Tensor, seed: torch.Tensor,
-                          cfg: RenderConfig, local_height: int,
-                          t0_prime: torch.Tensor | None = None,
-                          debug_steps: bool = False):
-    """Plain PyTorch version of the trace kernel, on any device; same
-    arguments and results as ``trace_frame``.
-
-    Vectorized over pixels, with the TPU kernel's whole-frame chunked exit
-    (every ``march_chunk`` steps) where the CUDA kernel exits per thread:
-    finished lanes never change state, so both give the same result."""
-    _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps)
-
-    def sc(k):
-        return packed[0, k]
-
-    o, d = _raygen_rc(sc, cfg, *_pixel_grid(local_height, cfg.width, packed.device))
+def _polish_and_shade(sc, cfg: RenderConfig, field_grad_at, d, t, prev_t, hit):
+    """The bracketed safeguarded-Newton polish of the hits from their march
+    bracket [prev_t, t] (the first iteration also sets the bracket's upper
+    bound from the local descent rate, +25% margin), the final field
+    evaluation with the residual verdict, and the shade: (color (3, h, w),
+    t, hit float 0/1)."""
     dx, dy, dz = d
-    oy = sc(pk.POS + 1)
-    t, active, env = _envelope_entry(sc, cfg, dy)
-    prev_t = t
-    if t0_prime is not None:
-        t = torch.maximum(t, t0_prime)
-        active = active & (t < cfg.t_max)
-        prev_t = torch.clamp(t * _PRIME_PREV_PULLBACK, min=cfg.t_min)
-    s0 = seed[0, 0]
-    field_grad_at, field_at = _field_fns(sc, packed, s0, cfg, o, d, cfg.march_bf16)
-    if cfg.march_mode == "lod":
-        t = _lod_park(*_coarse_field(sc, packed, s0, cfg, o, d), cfg, t, active, oy, dy, env)
-        active, prev_t = t < cfg.t_max, t
-    t, prev_t, hit, steps = _march(field_at, cfg, t, prev_t, active, oy, dy, env)
-
-    # Bracketed safeguarded-Newton polish; the first iteration also sets the
-    # bracket's upper bound from the local descent rate (+25% margin).
     one = torch.ones_like(t)
 
     def refine(x, lo, hi, f, gx, gy, gz):
@@ -581,8 +688,101 @@ def trace_frame_reference(packed: torch.Tensor, seed: torch.Tensor,
     if cfg.march_eps_scale != 1.0:
         hit = hit & (f_fin < _RESIDUAL_SLACK * cfg.hit_eps * t)
     colors = _shade_from_grads(sc, t, hit, d, (gx, gy, gz, hgt))
-    out = (torch.stack(colors), t, hit.to(torch.float32))
+    return torch.stack(colors), t, hit.to(torch.float32)
+
+
+def _frame_rays(packed, seed, cfg: RenderConfig, local_height: int):
+    """The frame's rays and march setup: (sc, o, d, env, t0, active0,
+    field_grad_at, field_at), unprimed (the sky-envelope entry)."""
+
+    def sc(k):
+        return packed[0, k]
+
+    o, d = _raygen_rc(sc, cfg, *_pixel_grid(local_height, cfg.width, packed.device))
+    t, active, env = _envelope_entry(sc, cfg, d[1])
+    field_grad_at, field_at = _field_fns(sc, packed, seed[0, 0], cfg, o, d, cfg.march_bf16)
+    return sc, o, d, env, t, active, field_grad_at, field_at
+
+
+@torch.no_grad()
+def trace_frame_reference(packed: torch.Tensor, seed: torch.Tensor,
+                          cfg: RenderConfig, local_height: int,
+                          t0_prime: torch.Tensor | None = None,
+                          debug_steps: bool = False):
+    """Plain PyTorch version of the trace kernel, on any device; same
+    arguments and results as ``trace_frame``.
+
+    Vectorized over pixels, with the TPU kernel's whole-frame chunked exit
+    (every ``march_chunk`` steps) where the CUDA kernel exits per thread:
+    finished lanes never change state, so both give the same result.
+    ``march_mode="compact"`` runs the two phases' plain versions."""
+    _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps)
+    if cfg.march_mode == "compact":
+        return _compact(trace_phase1_reference, trace_phase2_reference, packed, seed,
+                        cfg, local_height)
+    sc, o, d, env, t, active, field_grad_at, field_at = _frame_rays(
+        packed, seed, cfg, local_height)
+    oy = o[1]
+    prev_t = t
+    if t0_prime is not None:
+        t = torch.maximum(t, t0_prime)
+        active = active & (t < cfg.t_max)
+        prev_t = torch.clamp(t * _PRIME_PREV_PULLBACK, min=cfg.t_min)
+    if cfg.march_mode == "lod":
+        coarse = _coarse_field(sc, packed, seed[0, 0], cfg, o, d)
+        t = _lod_park(*coarse, cfg, t, active, oy, d[1], env)
+        active, prev_t = t < cfg.t_max, t
+    t, prev_t, hit, _, steps = _march(field_at, cfg, t, prev_t, active, oy, d[1], env)
+    out = _polish_and_shade(sc, cfg, field_grad_at, d, t, prev_t, hit)
     return out + (steps,) if debug_steps else out
+
+
+@torch.no_grad()
+def trace_phase1_reference(packed: torch.Tensor, seed: torch.Tensor,
+                           cfg: RenderConfig, local_height: int):
+    """Plain PyTorch version of compaction's phase 1, on any device; same
+    arguments and results as ``trace_phase1``: the one-pass march for
+    ``compact_budget`` steps, polished and shaded (rays still marching have
+    no hit yet, so they shade as sky), and the rays still marching listed in
+    pixel order (the slots past them hold 0)."""
+    _check_compact(packed, seed, cfg, local_height, {})
+    sc, o, d, env, t, active, field_grad_at, field_at = _frame_rays(
+        packed, seed, cfg, local_height)
+    t, prev_t, hit, alive, _ = _march(field_at, cfg, t, t, active, o[1], d[1], env,
+                                      cfg.compact_budget)
+    color, t, hit_f = _polish_and_shade(sc, cfg, field_grad_at, d, t, prev_t, hit)
+    listed = alive.reshape(-1).nonzero()[:, 0].to(torch.int32)
+    ids = torch.zeros(alive.numel(), dtype=torch.int32, device=alive.device)
+    ids[:listed.numel()] = listed
+    n_alive = torch.tensor([listed.numel()], dtype=torch.int32, device=alive.device)
+    return color, t, hit_f, alive.to(torch.float32), prev_t, ids, n_alive
+
+
+@torch.no_grad()
+def trace_phase2_reference(packed: torch.Tensor, seed: torch.Tensor,
+                           cfg: RenderConfig, local_height: int, n_alive: torch.Tensor,
+                           ids: torch.Tensor, prev: torch.Tensor, color: torch.Tensor,
+                           t: torch.Tensor, hit: torch.Tensor) -> None:
+    """Plain PyTorch version of compaction's phase 2, on any device; same
+    arguments and in-place results as ``trace_phase2``.
+
+    It resumes the march over the whole frame with the listed pixels as the
+    resume mask (the others never move) and then writes the listed pixels
+    only. So each pixel is computed at its own place in frame-shaped tensors,
+    as ``trace_frame_reference`` computes it, and a resumed ray gets exactly
+    the one-pass march's result whatever its slot."""
+    _check_phase2(packed, seed, cfg, local_height, n_alive, ids, prev, color, t, hit)
+    sc, o, d, env, _, _, field_grad_at, field_at = _frame_rays(
+        packed, seed, cfg, local_height)
+    sel = ids[:int(n_alive.item())].long()
+    resume = torch.zeros(t.numel(), dtype=torch.bool, device=t.device)
+    resume[sel] = True
+    t2, prev2, hit2, _, _ = _march(field_at, cfg, t.clone(), prev, resume.view(t.shape),
+                                   o[1], d[1], env, cfg.max_steps - cfg.compact_budget)
+    color2, t2, hit2 = _polish_and_shade(sc, cfg, field_grad_at, d, t2, prev2, hit2)
+    color.view(3, -1)[:, sel] = color2.reshape(3, -1)[:, sel]
+    for out, new in ((t, t2), (hit, hit2)):
+        out.view(-1)[sel] = new.reshape(-1)[sel]
 
 
 def tile_steps(steps: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
@@ -635,7 +835,11 @@ def trace_bwd_reference(packed: torch.Tensor, seed: torch.Tensor,
             return th[0, k]
 
         o, d = _raygen_rc(sc, cfg, *grid)
-        field_grad_at, field_at = _field_fns(sc, th, seed[0, 0], cfg, o, d)
+        field_grad_at, _ = _field_fns(sc, th, seed[0, 0], cfg, o, d)
+        # The march channel pulls back through the march's own field: bf16
+        # under march_bf16 (autograd rounds each bf16 cotangent), as JAX's
+        # _trace_bwd_kernel does; the shade channel stays float32.
+        _, field_at = _field_fns(sc, th, seed[0, 0], cfg, o, d, cfg.march_bf16)
         _, gx, gy, gz, hgt = field_grad_at(t_)
         colors = _shade_from_grads(sc, t_, hitb, d, (gx, gy, gz, hgt))
         th_bar, t_bar = torch.autograd.grad(colors, (th, t_), grad_outputs=tuple(g),

@@ -126,13 +126,14 @@ class RenderConfig:
     the fused backward kernel, False autograd through the plain re-shade at
     the saved hit distances), and ``interpret`` does not exist.
 
-    The kernel path runs ``march_mode`` "chunked", "fixed" and "lod", each
-    with or without ``march_bf16``, on the heightfield and on the volumetric
-    terrain (``warp_octaves`` in 1..8); "compact" is still to be ported
-    (ROADMAP.md A6) and raises there. The plain op-by-op path
+    The kernel path runs ``march_mode`` "chunked", "fixed", "lod" and
+    "compact" (two-phase ray compaction, phase 1 marching
+    ``compact_budget`` steps), each with or without ``march_bf16``, on the
+    heightfield and on the volumetric terrain (``warp_octaves`` in 1..8).
+    The plain op-by-op path
     (``use_kernel=False``) marches chunked in float32 whatever these say, as
-    the JAX package's XLA path does. ``fixed`` and ``lod`` frames are
-    unprimed (one launch, no coarse pass): ``prime_ds`` resolves to 0 for
+    the JAX package's XLA path does. ``fixed``, ``lod`` and ``compact``
+    frames are unprimed (no coarse pass): ``prime_ds`` resolves to 0 for
     them. ``tile_h`` is the TPU kernel's tile height, kept so configs carry
     across and for ``kernels/trace.py:tile_steps``; the CUDA kernel runs one
     thread per pixel.

@@ -79,14 +79,14 @@ def test_trace_frame_bwd_matches_backward_pallas(saved):
     ))
     scene = port_scene()
     packed, seed = pack_scene(scene, H, W)
-    launches = ktrace.trace_frame_bwd.launches
+    launches = ktrace.trace_frame_bwd.launches.total()
     pbar = ktrace.trace_frame_bwd(
         packed.detach(), seed, CFG, H, torch.from_numpy(t),
         torch.from_numpy(hit.astype(np.float32)),
         torch.from_numpy(np.ascontiguousarray(np.moveaxis(g, -1, 0))),
     )
     # The plain version ran: a CPU tensor never launches the CUDA kernel.
-    assert ktrace.trace_frame_bwd.launches == launches == 0
+    assert ktrace.trace_frame_bwd.launches.total() == launches == 0
     assert tuple(pbar.shape) == (1, packed.shape[1]) and not pbar.requires_grad
     packed.backward(pbar)
     got = leaf_grads(scene)

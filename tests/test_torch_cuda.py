@@ -142,12 +142,12 @@ def test_cuda_bwd_kernel_matches_plain_version(cuda, kw):
     packed, hit = packed.detach(), hit.float()
     g = torch.randn(3, cfg.height, cfg.width, generator=torch.Generator().manual_seed(0))
     g = g.to(cuda)
-    before = ktrace.trace_frame_bwd.launches
+    before = ktrace.trace_frame_bwd.launches["bwd"]
     a = ktrace.trace_frame_bwd(packed, seed, cfg, cfg.height, t, hit, g)
     b = ktrace.trace_frame_bwd(packed, seed, cfg, cfg.height, t, hit, g)
     ref = ktrace.trace_bwd_reference(packed, seed, cfg, cfg.height, t, hit, g)
     torch.cuda.synchronize()
-    assert ktrace.trace_frame_bwd.launches == before + 2
+    assert ktrace.trace_frame_bwd.launches["bwd"] == before + 2
     assert torch.equal(a, b)  # no atomics: bitwise repeatable
     assert torch.isfinite(a).all() and within_bwd_tolerance(a, ref)
     if cfg.volumetric:  # the warp amplitude and frequency get gradients
@@ -200,3 +200,74 @@ def test_cuda_noise_arithmetic_matches_torch(cuda, probe_lib, bf16):
         assert torch.equal(got, ref)
     else:
         assert (got - ref).abs().max().item() < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("volumetric", [False, True], ids=["heightfield", "volumetric"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_cuda_compact_phases_match_plain_versions(cuda, bf16, volumetric):
+    """Compaction's two kernels: phase 1 against its plain version (its alive
+    flags and its list of survivors exactly, the list in any order), phase 2
+    in place from the same phase-1 outputs against its plain version on the
+    survivors' pixels (the only ones it writes), one launch each and no host
+    sync inside the compact trace; the compact frame against the unprimed
+    chunked kernel's with JAX's exactness contract (no hit flip, every colour
+    value within 1e-4)."""
+    cfg = dataclasses.replace(CFG, march_mode="compact", compact_budget=16, march_bf16=bf16,
+                              volumetric=volumetric, step_relax=None)
+    scene = default_scene(3, volumetric=volumetric, device=cuda)
+    packed, seed = pack_scene(scene, cfg.height, cfg.width)
+    packed, h = packed.detach(), cfg.height
+    with torch.no_grad():
+        p1 = ktrace.trace_phase1(packed, seed, cfg, h)
+        r1 = ktrace.trace_phase1_reference(packed, seed, cfg, h)
+        assert_matches_plain(p1[:3], r1[:3])
+        assert torch.equal(p1[3], r1[3])
+        prev, ids, n_alive = p1[4:]
+        n = int(n_alive)
+        assert n == int(r1[6]) and torch.equal(ids[:n].sort().values, r1[5][:n])
+        k2 = [x.clone() for x in p1[:3]]
+        ktrace.trace_phase2(packed, seed, cfg, h, n_alive, ids, prev, *k2)
+        r2 = [x.clone() for x in p1[:3]]
+        ktrace.trace_phase2_reference(packed, seed, cfg, h, n_alive, ids, prev, *r2)
+        sel = ids[:n].long()
+        assert_matches_plain(*([c.view(3, -1)[:, sel], t.view(-1)[sel], hit.view(-1)[sel]]
+                               for c, t, hit in (k2, r2)))
+        ktrace.trace_frame.launches.clear()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            frame = ktrace.trace_frame(packed, seed, cfg, h)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        chunked = ktrace.trace_frame(packed, seed, dataclasses.replace(
+            cfg, march_mode="chunked", prime_ds=0), h)
+    torch.cuda.synchronize()
+    assert ktrace.trace_frame.launches[ktrace.phase_name(cfg, 1)] == 1
+    assert ktrace.trace_frame.launches[ktrace.phase_name(cfg, 2)] == 1
+    assert n > 0
+    assert torch.equal(frame[2], chunked[2])
+    assert (frame[0] - chunked[0]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("volumetric", [False, True], ids=["heightfield", "volumetric"])
+def test_cuda_bf16_bwd_kernel_matches_plain_version(cuda, volumetric):
+    """The backward kernel's bf16 instantiation (its march channel through
+    noise2_value_bf16's adjoint) against its plain version on the bf16
+    frame's (t, hit): within the backward gates, bitwise repeatable, and apart
+    from the float32 instantiation on the same inputs."""
+    cfg = dataclasses.replace(CFG, march_bf16=True, volumetric=volumetric, step_relax=None)
+    scene = default_scene(3, volumetric=volumetric, device=cuda)
+    _, t, hit = ktrace.render_kernel_raw(scene, cfg)
+    packed, seed = pack_scene(scene, cfg.height, cfg.width)
+    packed, hit = packed.detach(), hit.float()
+    g = torch.randn(3, cfg.height, cfg.width, generator=torch.Generator().manual_seed(0))
+    args = (packed, seed, cfg, cfg.height, t, hit, g.to(cuda))
+    a, b = ktrace.trace_frame_bwd(*args), ktrace.trace_frame_bwd(*args)
+    ref = ktrace.trace_bwd_reference(*args)
+    f32_args = (packed, seed, dataclasses.replace(cfg, march_bf16=False), *args[3:])
+    f32 = ktrace.trace_frame_bwd(*f32_args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.isfinite(a).all() and within_bwd_tolerance(a, ref)
+    assert not within_bwd_tolerance(f32, ref)

@@ -141,21 +141,25 @@ def test_trace_frame_bwd_rejects_bad_inputs(scene, case):
         ktrace.trace_frame_bwd(packed, seed, CFG, CFG.height, t, hit, g)
 
 
-@pytest.mark.parametrize(
-    "debug_steps, error, match",
-    [(False, NotImplementedError, "ROADMAP.md A6"), (True, ValueError, "debug_steps")],
-    ids=["compact", "compact_debug_steps"],
-)
-def test_unported_variants_raise(scene, debug_steps, error, match):
-    """Compaction (two more TPU kernels) is not ported; its step counter is
-    refused as the JAX package refuses it."""
+@pytest.mark.parametrize("debug_steps", [False, True], ids=["compact", "compact_debug_steps"])
+def test_unported_variants_raise(scene, debug_steps):
+    """Compaction runs through both wrappers (its frame equals the unprimed
+    chunked frame, tests/test_torch_compact.py); its step counter is refused
+    as the JAX package refuses it."""
     cfg = dataclasses.replace(CFG, march_mode="compact")
     packed, seed, _ = _inputs(scene)
-    with pytest.raises(error, match=match):
-        ktrace.trace_frame(packed, seed, cfg, CFG.height, debug_steps=debug_steps)
-    with pytest.raises(error, match=match):
-        ktrace.trace_frame_reference(packed, seed, cfg, CFG.height,
-                                     debug_steps=debug_steps)
+    if debug_steps:
+        with pytest.raises(ValueError, match="debug_steps"):
+            ktrace.trace_frame(packed, seed, cfg, CFG.height, debug_steps=True)
+        with pytest.raises(ValueError, match="debug_steps"):
+            ktrace.trace_frame_reference(packed, seed, cfg, CFG.height, debug_steps=True)
+        return
+    color, t, hit = ktrace.trace_frame(packed, seed, cfg, CFG.height)
+    ref = ktrace.trace_frame_reference(packed, seed, cfg, CFG.height)
+    assert color.shape == (3, CFG.height, CFG.width) and torch.isfinite(color).all()
+    for a, b in zip((color, t, hit), ref):
+        assert torch.equal(a, b)
+    assert 0.3 < hit.mean().item() < 1.0
 
 
 @pytest.mark.parametrize("warp_octaves", [0, ktrace.MAX_WARP_OCTAVES + 1])
@@ -194,7 +198,8 @@ def test_editing_a_header_changes_the_build_directory(monkeypatch, tmp_path):
     for src in build.CSRC.iterdir():
         (csrc / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC", csrc)
-    assert [p.name for p in build._sources()] == ["trace_bwd.cu", "trace_fwd.cu"]
+    assert [p.name for p in build._sources()] == [
+        "trace_bwd.cu", "trace_compact.cu", "trace_fwd.cu"]
     before = build.build_dir()
     assert build.build_dir() == before  # stable for the same sources
     header = csrc / "field.cuh"
