@@ -11,9 +11,13 @@ each prints one line and any failure exits non-zero:
 
 1. host: CUDA present; card name and power limit; CUDA and nvcc versions;
 2. build: the kernels from gpgpuraytrace_tpu_torch/kernels/csrc, one nvcc
-   per source, in parallel, beside the test-only noise probe;
+   per source, in parallel, beside the test-only noise probe; no kernel
+   spills (ptxas);
 3. the forward kernel against its plain PyTorch version on the card, at the
-   main path's shapes (coarse prime pass 66x64, then the 512x512 pass);
+   main path's shapes (coarse prime pass 66x64, then the 512x512 pass), and
+   on frames that are not whole warp tiles (a 37x100 band at row 5, one
+   512-pixel row), each bit for bit its whole frame's pixels; the fine
+   pass's time, and the coarse pass's, back to back and as a CUDA graph;
 4. the serving path: 3 frames at 3 camera yaws, 2 forward launches each;
 5. the frozen golden image (tests/golden/config1_128.npy) through the kernel;
 6. the command line renders a PNG, heightfield and volumetric;
@@ -24,8 +28,7 @@ each prints one line and any failure exits non-zero:
    each, falling loss; kernel_bwd True vs False gradients; step times;
 10. AD against finite differences through the kernel path at 512x512, on
     tests/test_grad.py's 2-octave scene (the 6-octave scene reported only);
-11. volumetric: the forward kernel against its plain version (coarse and fine
-    pass, phase 3's gates) and its time;
+11. volumetric: phase 3 on the volumetric terrain;
 12. volumetric serving: 3 frames at 3 yaws, 2 forward launches each; frame
     times, kernel path vs plain path; the device's busy share;
 13. volumetric: the backward kernel against its plain version on the forward
@@ -71,7 +74,16 @@ each prints one line and any failure exits non-zero:
     it; against its plain version on the bf16 frame's (t, hit), with phase
     8's gates on the training loss's cotangent and the bf16 backward gates on
     a seeded normal one, bitwise repeatable, and apart from the float32
-    instantiation on the same inputs; its time.
+    instantiation on the same inputs; its time;
+23. bit for bit: a SHA-256 digest of every output of every forward
+    instantiation (coarse and fine pass, both terrains, compaction's two
+    phases, the ragged frames) and of the backward, equal to the digests
+    recorded before the forward kernel's warp tiles (``EXPECTED_DIGESTS``);
+24. march quality: tests/test_torch_quality.py's harness through the
+    forward kernel against a dense plain oracle: both terrains within the
+    reference's bounds, and the over-relaxed march outside them; and at the
+    main path's 6 octaves (its unrolled instantiation) too, each config
+    within the harness's margins of the plain path's own counts.
 
 Phases 15-18 and 20-22 each drive their variants through the entry point a
 user calls (``render``, ``render_kernel_raw`` for the counter, ``fly_frames``,
@@ -88,6 +100,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -200,11 +213,17 @@ OPS = {
 # 1e-4, t within atol 5e-3 plus rtol 1e-4 where both hit.
 COMPACT_BUDGET = 32
 COMPACT_COLOR_ATOL, COMPACT_T_ATOL, COMPACT_T_RTOL = 1e-4, 5e-3, 1e-4
-# The default instantiation's register count and fine-pass times before the
-# compaction phases shared its march (PERF.md run 13: heightfield,
-# volumetric), which phase 20 holds it to: the same registers, and a fine
-# pass at most DEFAULT_FINE_SLACK slower.
-DEFAULT_REGISTERS, DEFAULT_FINE_MS, DEFAULT_FINE_SLACK = 76, (0.1342, 0.2494), 0.03
+# The main path's instantiation (chunked, float32, no counter, its 6 octaves
+# unrolled), with the register count and the fine pass's device time (a CUDA
+# graph of 50 launches; heightfield, volumetric) that phase 20 holds it to:
+# the same registers, and a fine pass at most DEFAULT_FINE_SLACK slower.
+# Recorded with the 4x8 warp tiles and persistent warps (PERF.md, section 6): the
+# unrolled octaves keep their coefficients in registers, so the count rose
+# from 76, and 2 blocks per SM (no register cap below 128) timed fastest. The
+# device time, not 50 launches back to back: the wrapper's host time per
+# launch (about 0.1 ms) now comes close to the fine pass's.
+DEFAULT_KERNEL = "trace_fwd_kernel<chunked, bf16=0, debug=0, octaves=6>"
+DEFAULT_REGISTERS, DEFAULT_FINE_MS, DEFAULT_FINE_SLACK = 107, (0.1181, 0.2247), 0.03
 # The TPU kernel's lines each forward instantiation replaces
 # (gpgpuraytrace_tpu/kernels/trace.py).
 FWD_SOURCE = "gpgpuraytrace_tpu_torch/kernels/csrc/trace_fwd.cu"
@@ -219,6 +238,66 @@ REPLACES = {
     "compact:phase1": "gpgpuraytrace_tpu/kernels/trace.py:610",
     "compact:phase2": "gpgpuraytrace_tpu/kernels/trace.py:650",
     "bwd+bf16": "gpgpuraytrace_tpu/kernels/trace.py:796",
+}
+# The first 16 hex digits of the SHA-256 of every output's bytes
+# (output_digests), read from the forward kernel's design before its 4x8 warp
+# tiles and persistent warps (PERF.md, section 6: scripts/torch_fwd_ab.py
+# on an H100 80GB HBM3 at 700 W). The redesign moved which warp traces a
+# pixel, not a pixel's arithmetic, so every output is held to them bit for
+# bit.
+EXPECTED_DIGESTS = {
+    "heightfield/coarse 66x64": "b5d11c80c0b83bb3",
+    "heightfield/chunked primed": "3763758695493f14",
+    "heightfield/fixed": "753b1408933dbce8",
+    "heightfield/lod": "4031ad09526fe768",
+    "heightfield/chunked primed+debug_steps": "daa20374404fb2e0",
+    "heightfield/coarse 66x64+debug_steps": "46dff1f72991dc76",
+    "heightfield/fixed+debug_steps": "b2a9330be09a3b17",
+    "heightfield/lod+debug_steps": "25c9b2536df3ad73",
+    "heightfield/chunked unprimed": "753b1408933dbce8",
+    "heightfield/compact phase 1": "3137d0f7b26d0e75",
+    "heightfield/compact phase 2": "753b1408933dbce8",
+    "heightfield/bwd": "9ae609c79a10488a",
+    "heightfield/bf16/coarse 66x64": "e5b14111cb773d8a",
+    "heightfield/bf16/chunked primed": "bebda83874ca3059",
+    "heightfield/bf16/fixed": "5d8d8aa44e0f1f5a",
+    "heightfield/bf16/lod": "cc8c4d74aaa7dc36",
+    "heightfield/bf16/chunked primed+debug_steps": "5cb7220fba9d969f",
+    "heightfield/bf16/coarse 66x64+debug_steps": "cd733bbc5c0c2e89",
+    "heightfield/bf16/fixed+debug_steps": "96301db539ff29fb",
+    "heightfield/bf16/lod+debug_steps": "91cbcb90934346a8",
+    "heightfield/bf16/chunked unprimed": "5d8d8aa44e0f1f5a",
+    "heightfield/bf16/compact phase 1": "77aa467364f9b70f",
+    "heightfield/bf16/compact phase 2": "5d8d8aa44e0f1f5a",
+    "heightfield/bf16/bwd": "da801a85fced9298",
+    "heightfield/band 37x100 at row 5": "efe6ddbf81d2d613",
+    "heightfield/row 1x512 at row 300": "fe80f733cf865663",
+    "volumetric/coarse 66x64": "6caffd0acc2bb169",
+    "volumetric/chunked primed": "28c58f9320428d84",
+    "volumetric/fixed": "1b85338681d357b9",
+    "volumetric/lod": "1a5698243ebaddc5",
+    "volumetric/chunked primed+debug_steps": "65df4bbee4545d22",
+    "volumetric/coarse 66x64+debug_steps": "3ab8c28e9e7df717",
+    "volumetric/fixed+debug_steps": "4d1b456c1a732e81",
+    "volumetric/lod+debug_steps": "fcd913abfc1ba19b",
+    "volumetric/chunked unprimed": "1b85338681d357b9",
+    "volumetric/compact phase 1": "9f2f44db4c377149",
+    "volumetric/compact phase 2": "1b85338681d357b9",
+    "volumetric/bwd": "c5627fe6125d91dc",
+    "volumetric/bf16/coarse 66x64": "4f915d4c2fcc6102",
+    "volumetric/bf16/chunked primed": "05bd1809572a942b",
+    "volumetric/bf16/fixed": "aa0c37e627b9e343",
+    "volumetric/bf16/lod": "13f0b0b9d6474659",
+    "volumetric/bf16/chunked primed+debug_steps": "4ee18052b2bfa20b",
+    "volumetric/bf16/coarse 66x64+debug_steps": "de5ff5751e6f3f6e",
+    "volumetric/bf16/fixed+debug_steps": "22ca006114bae1eb",
+    "volumetric/bf16/lod+debug_steps": "e444541b96e6fdf2",
+    "volumetric/bf16/chunked unprimed": "aa0c37e627b9e343",
+    "volumetric/bf16/compact phase 1": "469e8f99485dde40",
+    "volumetric/bf16/compact phase 2": "aa0c37e627b9e343",
+    "volumetric/bf16/bwd": "d89c6e21e3394a06",
+    "volumetric/band 37x100 at row 5": "f372e28c79a0b3f8",
+    "volumetric/row 1x512 at row 300": "346c4bc10cd187a5",
 }
 # AD vs FD checks of tests/test_grad.py: (leaf, component, eps, rtol, t_cap).
 FD_CHECKS = (
@@ -302,20 +381,24 @@ def reset_counts() -> None:
 
 def ptxas_lines(log: str) -> list[str]:
     """ptxas's register and spill lines, each with the kernel it reports on
-    (the forward kernel as trace_fwd_kernel<mode, bf16, debug>, phase 2 and
-    the backward kernel as <bf16>)."""
+    (the forward kernel as trace_fwd_kernel<mode, bf16, debug, octaves>,
+    octaves 0 for the loop over a runtime count, and without octaves for a
+    build before the unrolled twins; phase 2 and the backward kernel as
+    <bf16>)."""
     modes = ("chunked", "fixed", "lod", "compact")
     name, out = "", []
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            m = re.search(r"\d(trace_\w+?)(?:ILi(\d)ELb(\d)ELb(\d)E|ILb(\d)E)?E",
+            m = re.search(r"\d(trace_\w+?)(?:ILi(\d)ELb(\d)ELb(\d)E(?:Li(\d+)E)?|ILb(\d)E)?E",
                           entry.group(1))
             name = m.group(1) if m else entry.group(1)
             if m and m.group(2):
-                name += f"<{modes[int(m.group(2))]}, bf16={m.group(3)}, debug={m.group(4)}>"
-            elif m and m.group(5):
-                name += f"<bf16={m.group(5)}>"
+                octaves = f", octaves={m.group(5)}" if m.group(5) else ""
+                name += (f"<{modes[int(m.group(2))]}, bf16={m.group(3)}, debug={m.group(4)}"
+                         f"{octaves}>")
+            elif m and m.group(6):
+                name += f"<bf16={m.group(6)}>"
         elif line.startswith("---"):
             out.append(line.strip())
         elif "registers" in line or "spill" in line:
@@ -405,6 +488,124 @@ def cuda_ms_back_to_back(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time (ms) per call of ``fn``: ``reps`` calls captured in one
+    CUDA graph, replayed once between CUDA events after a warm-up replay. No
+    host work runs between the launches, so a kernel shorter than its
+    launch's host time reads its own time."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def digest(tensors) -> str:
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def output_digests(k, dev) -> dict[str, str]:
+    """``digest`` of every output of every forward instantiation, and of the
+    backward, on both terrains at 512x512 with 6 octaves under the default
+    config (its bf16 twin too): the coarse prime pass (66x64), the primed
+    chunked fine pass from it, fixed and lod (each with and without the step
+    counter), the unprimed chunked pass, compaction's phase 1 (its survivors
+    as a sorted set) and phase 2, the backward on the primed frame's (t, hit)
+    with a seeded cotangent; and ragged frames: a 37x100 band at row 5 of a
+    128x100 frame and one 512-pixel row at row 300, unprimed, counted. ``k``
+    launches the kernels: ``k.fwd(packed, seed, cfg, h, prime=None,
+    debug=False)`` and ``k.phase1``, ``k.phase2``, ``k.bwd`` with the
+    arguments of trace_phase1, trace_phase2 and trace_frame_bwd."""
+    from gpgpuraytrace_tpu_torch import RenderConfig, default_scene
+    from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
+    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+
+    out = {}
+    with torch.no_grad():
+        for terrain, vol in (("heightfield", False), ("volumetric", True)):
+            scene = default_scene(6, volumetric=vol, device=dev)
+            base = RenderConfig(num_octaves=6, volumetric=vol)
+            packed, seed = (x.detach() for x in pack_scene(scene, 512, 512, 0.0))
+            for bf16 in (False, True):
+                cfg = dataclasses.replace(base, march_bf16=bf16)
+                tag = f"{terrain}/{'bf16/' if bf16 else ''}"
+                ccfg = coarse_prime_cfg(cfg)
+                cp, cs = (x.detach() for x in pack_scene(scene, ccfg.height, ccfg.width, -1.0))
+                ch = cfg.height // cfg.prime_ds + 2
+                coarse = k.fwd(cp, cs, ccfg, ch)
+                out[tag + "coarse 66x64"] = digest(coarse)
+                prime = prime_from_coarse(coarse[1], cfg)
+                for debug in (False, True):
+                    d = "+debug_steps" if debug else ""
+                    out[tag + "chunked primed" + d] = digest(
+                        k.fwd(packed, seed, cfg, 512, prime, debug=debug))
+                    if debug:
+                        out[tag + "coarse 66x64" + d] = digest(k.fwd(cp, cs, ccfg, ch, debug=True))
+                    for mode in ("fixed", "lod"):
+                        mcfg = dataclasses.replace(cfg, march_mode=mode)
+                        out[tag + mode + d] = digest(k.fwd(packed, seed, mcfg, 512, debug=debug))
+                ucfg = dataclasses.replace(cfg, prime_ds=0)
+                out[tag + "chunked unprimed"] = digest(k.fwd(packed, seed, ucfg, 512))
+                ccmp = dataclasses.replace(cfg, march_mode="compact")
+                color, t, hit, alive, prev, ids, n_alive = k.phase1(packed, seed, ccmp, 512)
+                n = int(n_alive.item())
+                out[tag + "compact phase 1"] = digest(
+                    (color, t, hit, alive, prev, ids[:n].sort().values, n_alive))
+                k.phase2(packed, seed, ccmp, 512, n_alive, ids, prev, color, t, hit)
+                out[tag + "compact phase 2"] = digest((color, t, hit))
+                _, t_f, hit_f = k.fwd(packed, seed, cfg, 512, prime)
+                g = torch.randn(3, 512, 512, generator=torch.Generator().manual_seed(0)).to(dev)
+                out[tag + "bwd"] = digest([k.bwd(packed, seed, cfg, 512, t_f, hit_f, g)])
+            for label, h, w, row0 in (("band 37x100 at row 5", 37, 100, 5.0),
+                                      ("row 1x512 at row 300", 1, 512, 300.0)):
+                cfg = RenderConfig(height=128 if h == 37 else 512, width=w, num_octaves=6,
+                                   volumetric=vol, prime_ds=0)
+                p, s = (x.detach() for x in pack_scene(scene, cfg.height, w, row0))
+                out[f"{terrain}/{label}"] = digest(k.fwd(p, s, cfg, h, debug=True))
+    torch.cuda.synchronize()
+    return out
+
+
+class PackageKernels:
+    """output_digests' launcher: the package's wrappers."""
+
+    @staticmethod
+    def fwd(packed, seed, cfg, h, prime=None, debug=False):
+        from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame
+
+        return trace_frame(packed, seed, cfg, h, prime, debug)
+
+    @staticmethod
+    def phase1(*args):
+        from gpgpuraytrace_tpu_torch.kernels.trace import trace_phase1
+
+        return trace_phase1(*args)
+
+    @staticmethod
+    def phase2(*args):
+        from gpgpuraytrace_tpu_torch.kernels.trace import trace_phase2
+
+        return trace_phase2(*args)
+
+    @staticmethod
+    def bwd(*args):
+        from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame_bwd
+
+        return trace_frame_bwd(*args)
+
+
 def profile_frames(fn, frame_ms: float, frames: int = 5) -> str:
     """Device time by kernel over ``frames`` calls (torch.profiler), and the
     device's busy share of the frame time measured with CUDA events."""
@@ -433,12 +634,15 @@ def profile_frames(fn, frame_ms: float, frames: int = 5) -> str:
             f"top: {top}")
 
 
-def forward_vs_plain(scene, cfg, tag: str) -> tuple[float, str, float, float]:
+def forward_vs_plain(scene, cfg, tag: str) -> tuple[float, str, float, float, dict]:
     """The forward kernel against its plain version at the main path's shapes
     (the coarse prime pass, then the fine pass from the kernel's prime map)
     with phase 3's gates (the bf16 gates, and apart from the float32 kernel,
-    for ``cfg.march_bf16``), and the fine pass's time: (max abs colour
-    error, report, kernel ms, plain ms)."""
+    for ``cfg.march_bf16``), and the passes' times: (max abs colour error,
+    report, fine-pass ms, plain ms, {"coarse", "coarse_graph", "fine_graph"}
+    ms), the fine pass 50 launches back to back, the coarse pass that way and
+    as a CUDA graph of 50 launches (its device time: the host's launch time
+    exceeds it), the fine pass as a graph too."""
     from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_reference
     from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
     from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
@@ -465,12 +669,57 @@ def forward_vs_plain(scene, cfg, tag: str) -> tuple[float, str, float, float]:
                                           trace_frame(packed_c, seed_c, c32, ch))
             line_f += "; " + bf16_differs("fine", fine_k,
                                           trace_frame(packed, seed, f32, cfg.height, prime))
-        kern_ms = cuda_ms_back_to_back(
-            lambda: trace_frame(packed, seed, cfg, cfg.height, prime), 50)
+
+        def coarse():
+            return trace_frame(packed_c, seed_c, ccfg, ch)
+
+        def fine():
+            return trace_frame(packed, seed, cfg, cfg.height, prime)
+
+        kern_ms = cuda_ms_back_to_back(fine, 50)
         plain_ms = cuda_ms_back_to_back(
             lambda: trace_frame_reference(packed, seed, cfg, cfg.height, prime), 3)
+        times = {"coarse": cuda_ms_back_to_back(coarse, 50), "coarse_graph": graph_ms(coarse, 50),
+                 "fine_graph": graph_ms(fine, 50)}
     return err, (f"{line_c} | {line_f} | fine pass {kern_ms:.4f} ms kernel (50 back to "
-                 f"back), {plain_ms:.3f} ms plain (3)"), kern_ms, plain_ms
+                 f"back; {times['fine_graph']:.4f} ms as a CUDA graph of 50), "
+                 f"{plain_ms:.3f} ms plain (3); coarse pass {times['coarse']:.4f} ms (50 back "
+                 f"to back), {times['coarse_graph']:.4f} ms as a CUDA graph of 50"
+                 ), kern_ms, plain_ms, times
+
+
+def ragged_vs_plain(scene, cfg, tag: str) -> str:
+    """The forward kernel on frames that are not whole warp tiles: a 37x100
+    band at row 5 of a 128x100 frame and one 512-pixel row at row 300,
+    unprimed. Each equals the same pixels of the kernel's whole frame bit
+    for bit (a pixel's arithmetic does not depend on the launch), and the
+    two together hold phase 3's gates against the plain version."""
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_reference
+    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+
+    kern, ref = [], []
+    with torch.no_grad():
+        for h, w, row0, height in ((37, 100, 5, 128), (1, 512, 300, 512)):
+            c = dataclasses.replace(cfg, height=height, width=w, prime_ds=0)
+            packed, seed = pack_scene(scene, height, w, float(row0))
+            band = trace_frame(packed, seed, c, h)
+            full_packed, _ = pack_scene(scene, height, w, 0.0)
+            full = trace_frame(full_packed, seed, c, height)
+            for a, b, what in zip(band, full, ("colour", "t", "hit")):
+                if not torch.equal(a, b[..., row0:row0 + h, :]):
+                    fail(f"{tag}{h}x{w} band at row {row0}: {what} differs from the whole "
+                         f"frame's rows")
+            kern.append(band)
+            ref.append(trace_frame_reference(packed, seed, c, h))
+    torch.cuda.synchronize()
+
+    def flat(outs):
+        return (torch.cat([o[0].reshape(3, -1) for o in outs], dim=1),
+                *(torch.cat([o[i].reshape(-1) for o in outs]) for i in (1, 2)))
+
+    _, line = compare_trace(f"{tag}ragged frames", flat(kern), flat(ref))
+    return (f"37x100 band at row 5 and 1x512 row at row 300: each bit for bit the whole "
+            f"frame's pixels; {line}")
 
 
 def serve_frames(scene, cfg, yaws) -> tuple[int, str]:
@@ -656,7 +905,7 @@ def counter_phase(scene, cfg, tag: str) -> dict:
     outputs against the uncounted frame bit for bit, JAX's per-tile bounds
     against the plain stats march from the same prime map, and the taxes."""
     from gpgpuraytrace_tpu_torch.kernels.trace import (
-        render_kernel_raw, tile_steps, trace_frame, trace_frame_reference, warp_steps,
+        WARP_TILE, render_kernel_raw, tile_steps, trace_frame, trace_frame_reference, warp_steps,
     )
     from gpgpuraytrace_tpu_torch.ops.camera import generate_rays
     from gpgpuraytrace_tpu_torch.ops.march import march_with_stats
@@ -702,7 +951,9 @@ def counter_phase(scene, cfg, tag: str) -> dict:
     line = (f"{tag}{cfg.height}x{cfg.width}: launches {launches}; outputs bitwise equal with and without it; "
             f"useful steps per ray {useful:.4f} (march_stats {stats['steps_mean']:.4f}, "
             f"p99 {stats['steps_p99']:.1f}), executed per lane "
-            f"{steps.float().mean().item():.4f}, per warp {warps.float().mean().item():.4f}, "
+            f"{steps.float().mean().item():.4f}, per warp (the lane counts reduced over "
+            f"the kernel's {WARP_TILE[0]}x{WARP_TILE[1]} tile map) "
+            f"{warps.float().mean().item():.4f}, "
             f"per TPU tile {tiles.float().mean().item():.4f}; warp tax "
             f"{warps.float().mean().item() / useful:.4f}x, tile tax "
             f"{tiles.float().mean().item() / useful:.4f}x; exhausted lanes "
@@ -845,7 +1096,7 @@ def bf16_phase(scene, cfg, tag: str, lanes, hits, probe_lib) -> dict:
     bcfg = dataclasses.replace(cfg, march_bf16=True)
     launches, _ = drive(lambda: render(scene, bcfg), "chunked+bf16", 2)  # coarse + fine
     probe = noise_probe(probe_lib, scene.noise.amplitudes.device)
-    err, line, ms, plain_ms = forward_vs_plain(scene, bcfg, f"{tag}bf16 ")
+    err, line, ms, plain_ms, _ = forward_vs_plain(scene, bcfg, f"{tag}bf16 ")
     with torch.no_grad():
         c16, _, h16 = render_kernel_raw(scene, bcfg)
         c32, _, h32 = render_kernel_raw(scene, cfg)
@@ -938,6 +1189,52 @@ def profiling_phase(scene, cfg, tag: str) -> str:
             f"{stats['exhausted_lanes']}, histogram [{hist}]; roughness proxy {proxy:.4f} "
             f"(quiet), rough copy {rough_proxy:.4f} (warned); Timer: a frame in "
             f"{1e3 * frame_s:.4f} ms (best of 5); trace(): {size} bytes of trace.json")
+
+
+def quality_phase(dev) -> str:
+    """Phase 24: tests/test_torch_quality.py's harness through the forward
+    kernel against the plain dense oracle: the default config (primed: two
+    launches) at the reference's configs within its holes and t bounds, the
+    over-relaxed march out of them; and at every config, the main path's 6
+    octaves (its unrolled instantiation) too, within the harness's margins of
+    the plain path's own counts."""
+    import test_torch_quality as harness
+
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame
+
+    parts = []
+    for vol, octaves in ((False, None), (True, None), (False, harness.MAIN_OCTAVES)):
+        p = harness.VOL if vol else harness.HF
+        truth = harness.oracle(vol, device=dev, octaves=octaves)
+        tag = (f"{'volumetric' if vol else 'heightfield'} {p['size']}^2, {truth.octaves} "
+               f"octaves")
+        reset_counts()
+        holes, t_off = harness.quality(truth, kernel=True)
+        torch.cuda.synchronize()
+        launches = trace_frame.launches.total()
+        plain = harness.quality(truth)
+        margin = harness.t_off_margin(truth)
+        if (launches != 2 or abs(holes - plain[0]) > harness.HOLES_MARGIN
+                or abs(t_off - plain[1]) > margin):
+            fail(f"march quality ({tag}): {launches} launches; kernel {holes} holes, {t_off} "
+                 f"off, plain path {plain[0]} and {plain[1]} (margins "
+                 f"{harness.HOLES_MARGIN} and {margin})")
+        line = (f"{tag}: kernel {holes} holes, {t_off} off by more than {harness.T_ERR}, "
+                f"plain path {plain[0]} and {plain[1]} (margins {harness.HOLES_MARGIN} and "
+                f"{margin})")
+        if octaves is None:
+            if holes > p["holes_max"] or t_off > p["t_off_max"]:
+                fail(f"march quality ({tag}): kernel {holes} holes (at most "
+                     f"{p['holes_max']}), {t_off} off (at most {p['t_off_max']})")
+            relax = 1.5 if vol else 1.6
+            _, t_off_bad = harness.quality(truth, kernel=True, step_relax=relax)
+            if not t_off_bad > p["t_off_max"]:
+                fail(f"march quality: relax {relax} through the kernel scored {t_off_bad} <= "
+                     f"{p['t_off_max']}: the harness cannot fail")
+            line += (f", within the reference's bounds ({p['holes_max']}, {p['t_off_max']}); "
+                     f"relax {relax} through the kernel {t_off_bad} off")
+        parts.append(line)
+    return "; ".join(parts)
 
 
 def launch_counts() -> dict:
@@ -1108,7 +1405,8 @@ def compact_phase(scene, cfg, tag: str) -> dict:
             + f"; training step: 1 + 1 launches and 1 backward, gradients "
             f"{'bitwise equal to' if grads_equal else 'within the backward gates of'} "
             f"unprimed chunked's (worst {worst_grad:.4f} of tolerance)")
-    return {"line": line, "phase1": {"launches": launches[names[0]], "err": err1, "ms": ms1,
+    return {"line": line, "coarse_and_fine_ms": best["primed chunked with its coarse pass"],
+            "phase1": {"launches": launches[names[0]], "err": err1, "ms": ms1,
                                      "plain_ms": plain1_ms, "bound_ms": b1[0],
                                      "bound_by": b1[1]},
             "phase2": {"launches": launches[names[1]], "err": err2, "ms": ms2,
@@ -1333,11 +1631,17 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     for line in ptxas_lines(log):
         print(f"    ptxas: {line}")
-    phase(2, "build", f"{lib_path.relative_to(REPO)} in {build_s:.2f} s")
+    kernels = [ln for ln in ptxas_lines(log) if "registers" in ln]
+    spills = [ln for ln in ptxas_lines(log) if re.search(r"\b[1-9]\d* bytes spill", ln)]
+    if spills:
+        fail("ptxas reports spills: " + "; ".join(spills))
+    phase(2, "build", f"{lib_path.relative_to(REPO)} in {build_s:.2f} s; {len(kernels)} "
+          f"kernels, no spills (ptxas)")
 
     # --- 3. kernel vs plain version at the main path's shapes --------------
     cfg = RenderConfig(num_octaves=6)  # 512x512, the default march
-    err, line, kern_ms, plain_ms = forward_vs_plain(default_scene(6, device=dev), cfg, "")
+    err, line, kern_ms, plain_ms, times = forward_vs_plain(default_scene(6, device=dev), cfg, "")
+    line += "; " + ragged_vs_plain(default_scene(6, device=dev), cfg, "")
     phase(3, "kernel vs plain", f"{line} {card}")
 
     # --- 4. the main path ----------------------------------------------------
@@ -1441,8 +1745,10 @@ def main() -> None:
     vcfg = RenderConfig(num_octaves=6, volumetric=True)  # relax 0.9, prime 8, 128 steps
     vcfg_line = (f"512x512 6 octaves, warp_octaves {vcfg.warp_octaves}, relax "
                  f"{vcfg.step_relax}, prime_ds {vcfg.prime_ds}")
-    verr, line, vkern_ms, vplain_ms = forward_vs_plain(
+    verr, line, vkern_ms, vplain_ms, vtimes = forward_vs_plain(
         default_scene(6, volumetric=True, device=dev), vcfg, "volumetric ")
+    line += "; " + ragged_vs_plain(default_scene(6, volumetric=True, device=dev), vcfg,
+                                   "volumetric ")
     phase(11, "volumetric kernel vs plain", f"{vcfg_line}: {line} {card}")
 
     # --- 12. volumetric serving --------------------------------------------------------
@@ -1520,20 +1826,21 @@ def main() -> None:
 
     # --- 20-22. compaction, the flythrough, the bf16 backward --------------------
     regs = [int(m.group(1)) for ln in ptxas_lines(log)
-            if ln.startswith("trace_fwd_kernel<chunked, bf16=0, debug=0>:")
+            if ln.startswith(f"{DEFAULT_KERNEL}:")
             and (m := re.search(r"Used (\d+) registers", ln))]
     if regs != [DEFAULT_REGISTERS]:
         fail(f"the default forward instantiation compiled to {regs} registers "
              f"(ptxas), expected [{DEFAULT_REGISTERS}]")
-    moved = [100 * (ms / before - 1) for ms, before in zip((kern_ms, vkern_ms), DEFAULT_FINE_MS)]
+    fine = (times["fine_graph"], vtimes["fine_graph"])
+    moved = [100 * (ms / before - 1) for ms, before in zip(fine, DEFAULT_FINE_MS)]
     if max(moved) > 100 * DEFAULT_FINE_SLACK:
-        fail(f"the default fine pass took {kern_ms:.4f} / {vkern_ms:.4f} ms, "
+        fail(f"the default fine pass took {fine[0]:.4f} / {fine[1]:.4f} ms, "
              f"{moved[0]:+.2f}% / {moved[1]:+.2f}% against {DEFAULT_FINE_MS[0]} / "
              f"{DEFAULT_FINE_MS[1]} ms (at most +{100 * DEFAULT_FINE_SLACK:.0f}%)")
-    default_line = (f"the default instantiation (chunked, float32, no counter): "
-                    f"{regs[0]} registers (before: {DEFAULT_REGISTERS}); fine pass "
-                    f"{kern_ms:.4f} / {vkern_ms:.4f} ms (phases 3, 11) against "
-                    f"{DEFAULT_FINE_MS[0]} / {DEFAULT_FINE_MS[1]} ms before ({moved[0]:+.2f}% / "
+    default_line = (f"the default instantiation ({DEFAULT_KERNEL}): "
+                    f"{regs[0]} registers (recorded: {DEFAULT_REGISTERS}); fine pass "
+                    f"{fine[0]:.4f} / {fine[1]:.4f} ms as a CUDA graph (phases 3, 11) against "
+                    f"{DEFAULT_FINE_MS[0]} / {DEFAULT_FINE_MS[1]} ms recorded ({moved[0]:+.2f}% / "
                     f"{moved[1]:+.2f}%, at most +{100 * DEFAULT_FINE_SLACK:.0f}%)")
     phase(20, "compact", f"{default_line} {card}")
     for tag, (scene, c) in scenes.items():
@@ -1546,6 +1853,18 @@ def main() -> None:
     for tag, (scene, c) in scenes.items():
         results["bwd+bf16", tag] = bf16_bwd_phase(scene, c, tag)
         phase(22, "bf16 backward", f"{results['bwd+bf16', tag]['line']} {card}")
+
+    # --- 23. bit for bit: every output against its recorded digest ------------
+    got = output_digests(PackageKernels, dev)
+    moved = sorted(k for k in EXPECTED_DIGESTS if got.get(k) != EXPECTED_DIGESTS[k])
+    if moved or set(got) != set(EXPECTED_DIGESTS):
+        fail(f"outputs differ from their recorded digests: {moved}")
+    phase(23, "digests", f"{len(got)} outputs (every forward instantiation on both terrains, "
+          f"coarse and fine pass, compaction's two phases, the backward, the ragged "
+          f"frames) equal to their recorded SHA-256 digests bit for bit")
+
+    # --- 24. march quality through the kernel --------------------------------------
+    phase(24, "march quality", quality_phase(dev))
 
     # Bounds of phases 3, 8, 11 and 13 from phase 15's useful steps and hits.
     n_pix = cfg.height * cfg.width
@@ -1590,9 +1909,22 @@ def main() -> None:
             "bound_ms": fwd_b[""][0],
             "bound_by": fwd_b[""][1],
             "library_ms": None,
+            # The fine pass's device time (a CUDA graph of 50 launches); the
+            # coarse prime pass alone (66x64) the same way and back to back;
+            # and the primed frame's trace, coarse pass, prime map and fine
+            # pass (phase 20).
+            "graph_ms": times["fine_graph"],
+            "coarse_ms": times["coarse_graph"],
+            "coarse_back_to_back_ms": times["coarse"],
+            "coarse_and_fine_ms": results["compact", ""]["coarse_and_fine_ms"],
             "volumetric": {"max_abs_err": verr, "ms": vkern_ms, "plain_ms": vplain_ms,
                            "bound_ms": fwd_b["volumetric "][0],
-                           "bound_by": fwd_b["volumetric "][1]},
+                           "bound_by": fwd_b["volumetric "][1],
+                           "graph_ms": vtimes["fine_graph"],
+                           "coarse_ms": vtimes["coarse_graph"],
+                           "coarse_back_to_back_ms": vtimes["coarse"],
+                           "coarse_and_fine_ms":
+                               results["compact", "volumetric "]["coarse_and_fine_ms"]},
         },
         {
             "name": "trace_bwd",

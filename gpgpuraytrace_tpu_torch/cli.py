@@ -115,13 +115,11 @@ def cmd_fit(args):
     from gpgpuraytrace_tpu_torch.models.scene import default_scene
     from gpgpuraytrace_tpu_torch.ops.fit import fit, perturb_scene
     from gpgpuraytrace_tpu_torch.ops.render import render
-    from gpgpuraytrace_tpu_torch.utils.profiling import warn_if_rough
 
     device = _device(args.device)
     cfg = _cfg_from_args(args)
     target_scene = default_scene(num_octaves=cfg.num_octaves, volumetric=cfg.volumetric,
                                  device=device)
-    warn_if_rough(target_scene, cfg)
     with torch.no_grad():
         target = render(target_scene, cfg)
     scene0 = perturb_scene(target_scene, torch.Generator().manual_seed(args.seed), rel=0.15)

@@ -543,9 +543,24 @@ struct Field {
   bool volumetric;
   int warp_octaves;
 
+  // Octave i of the heightfield's fBm at (x, z), before its amplitude.
+  template <bool kBf16>
+  __device__ __forceinline__ float octave(float x, float z, int i) const {
+    const float xi = oct->cf[i] * x - oct->sf[i] * z;
+    const float zi = oct->sf[i] * x + oct->cf[i] * z;
+    const uint32_t si = seed + static_cast<uint32_t>(i);
+    if constexpr (kBf16) {
+      return noise2_value_bf16(xi, zi, si);
+    } else {
+      return noise2_value(xi, zi, si);
+    }
+  }
+
   // Value-only field: the march's fast path; kBf16 blends each octave of
-  // the heightfield in bf16 (the warp stays float).
-  template <bool kBf16 = false>
+  // the heightfield in bf16 (the warp stays float). kOctaves > 0 unrolls
+  // the octaves (it must equal num_octaves), so their independent noise
+  // chains interleave; the sum keeps its order, octave 0 first, either way.
+  template <bool kBf16 = false, int kOctaves = 0>
   __device__ __forceinline__ float value(const Ray& r, float t) const {
     const float px = r.ox + t * r.dx;
     const float py = r.oy + t * r.dy;
@@ -553,17 +568,11 @@ struct Field {
     const float hs = sc[kHorizontalScale];
     const float x = px * hs, z = pz * hs;
     float n = 0.f;
-    for (int i = 0; i < num_octaves; ++i) {
-      const float xi = oct->cf[i] * x - oct->sf[i] * z;
-      const float zi = oct->sf[i] * x + oct->cf[i] * z;
-      const uint32_t si = seed + static_cast<uint32_t>(i);
-      float ni;
-      if constexpr (kBf16) {
-        ni = noise2_value_bf16(xi, zi, si);
-      } else {
-        ni = noise2_value(xi, zi, si);
-      }
-      n = n + oct->amp[i] * ni;
+    if constexpr (kOctaves > 0) {
+#pragma unroll
+      for (int i = 0; i < kOctaves; ++i) n = n + oct->amp[i] * octave<kBf16>(x, z, i);
+    } else {
+      for (int i = 0; i < num_octaves; ++i) n = n + oct->amp[i] * octave<kBf16>(x, z, i);
     }
     float f = py - (sc[kHeightOffset] + sc[kHeightScale] * n);
     if (volumetric) {

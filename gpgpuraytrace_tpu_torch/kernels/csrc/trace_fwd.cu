@@ -1,5 +1,6 @@
 // Forward trace kernel: raygen -> primed, envelope-skipping sphere-trace
-// march -> bracketed Newton polish -> shade, one thread per pixel.
+// march -> bracketed Newton polish -> shade, one thread per pixel, each warp
+// a 4x8 tile of pixels, persistent warps fetching tiles until none is left.
 //
 // Replaces gpgpuraytrace_tpu/kernels/trace.py:_trace_kernel (heightfield or
 // volumetric, optionally primed) with every variant of its march: chunked,
@@ -9,14 +10,16 @@
 // march stopped after cfg.budget steps, with each ray's still-marching flag
 // and last advancing sample as two more outputs, and the pixel ids of the
 // rays still marching appended to a list whose length n_alive stays on the
-// device (trace_compact.cu resumes those rays). The TPU kernels compute the same per pixel over (16, 128)
-// tiles of a sequential TPU grid. The plain PyTorch versions are
-// gpgpuraytrace_tpu_torch/kernels/trace.py:trace_frame_reference and
-// trace_phase1_reference, line for line the same arithmetic.
+// device (trace_compact.cu resumes those rays). The TPU kernels compute the
+// same per pixel over (16, 128) tiles of a sequential TPU grid. The plain
+// PyTorch versions are gpgpuraytrace_tpu_torch/kernels/trace.py:
+// trace_frame_reference and trace_phase1_reference, line for line the same
+// arithmetic.
 //
 // The variants are template parameters (mode, bf16, debug), dispatched by
-// trace_fwd_launch, so each instantiation carries only its own march and the
-// default (chunked, float, no counter) compiles as it did alone. The march,
+// trace_fwd_launch, so each instantiation carries only its own march; the
+// main path's (chunked, no counter, float32 or bf16) has a twin with its 6
+// octaves unrolled (kOctaves), which a frame of 6 octaves runs. The march,
 // the polish and the shade are trace_march.cuh's, which phase 2 shares.
 //
 // What bounds it on the H100: INT32 and FP32 issue. Each march step
@@ -24,23 +27,52 @@
 // octave (the lattice hash is integer work; plus about 150 and 125 per warp
 // octave of the volumetric 3D noise; chip_smoke.py:OPS counts them), and a
 // pixel marches a few to tens of steps, while it reads one prime value and
-// writes five floats (about 20 bytes). So the design keeps all per-ray state in
-// registers and uses shared memory only for the packed scene scalars and the
-// per-octave coefficients every thread of the block reads. Each thread stops
-// marching as soon as its own ray is done; the TPU kernel instead checks for
-// a whole-tile exit every march_chunk steps, which gives the same result
-// because a finished lane never changes state, and RenderConfig makes the
-// chunk divide max_steps (and compact_budget).
+// writes five floats (about 20 bytes). So all per-ray state stays in
+// registers and shared memory holds only the packed scene scalars and the
+// per-octave coefficients. A warp runs until its longest ray is done, so the
+// schedule is built around that:
+// - A warp takes a 4x8 tile (kernels/trace.py:WARP_TILE) rather than 32
+//   pixels of a row: neighbours in both directions march alike, and a warp
+//   executes 14-16% fewer steps (PERF.md, section 3). Ragged edges (band
+//   heights, the 66-row coarse frame, widths not a multiple of 8) mask their
+//   lanes.
+// - The grid is what fits on the card at once (occupancy x SMs, capped by
+//   the tiles), and lane 0 of each warp takes the next tile from a counter
+//   in the wrapper's scratch buffer: a warp that finishes early takes more
+//   work instead of idling until its block's slowest warp ends. The last
+//   warp to finish sets the counter back to 0 for the next launch on the
+//   stream, so a launch needs no memset. The tile order changes no output
+//   bit.
+// - A frame with few tiles (the 66x64 coarse prime pass: 136) launches
+//   blocks of fewer warps, so its tiles spread over all SMs, one or two
+//   warps each, where the march's serial chain of steps sets the time.
+// - The 6 octaves' noise chains are independent, so the main path's field
+//   unrolls them (Field::value<kBf16, 6>) and they overlap; the sum keeps
+//   its order. Only the main path's chunked march was timed with it (the
+//   coarse pass 15-22% faster, PERF.md section 6), so only it has the twin.
+// Each thread stops marching as soon as its own ray is done; the TPU kernel
+// instead checks for a whole-tile exit every march_chunk steps, which gives
+// the same result because a finished lane never changes state, and
+// RenderConfig makes the chunk divide max_steps (and compact_budget).
+
+#include <algorithm>
 
 #include <cooperative_groups.h>
 
 #include "trace_march.cuh"
 
 namespace {
-constexpr int kThreads = 256;
-}  // namespace
 
-namespace {
+// A warp's tile: kTileRows x kTileCols pixels (kernels/trace.py:WARP_TILE).
+constexpr int kTileRows = 4, kTileCols = 8;
+constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = 32 * kWarpsPerBlock;
+// __launch_bounds__' blocks per SM, chosen by timing 2-5 (PERF.md, section 6).
+constexpr int kMinBlocks = 2;
+// The main path's octave count, unrolled in Field::value by the chunked,
+// uncounted instantiations.
+constexpr int kUnrolledOctaves = 6;
+constexpr int kMaxDevices = 64;
 
 // The lod march's certified margin (kernels/trace.py:_coarse_field): what
 // the octaves past the first k, and the warp octaves past the first wo, can
@@ -61,47 +93,44 @@ __device__ __forceinline__ float lod_margin(const float* sc, int num_octaves, in
   return margin;
 }
 
-template <int kMode, bool kBf16, bool kDebug>
-__global__ void __launch_bounds__(kThreads)
-trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_ptr,
-                 const float* __restrict__ prime, float* __restrict__ color,
-                 float* __restrict__ t_out, float* __restrict__ hit_out,
-                 int* __restrict__ steps_out, float* __restrict__ alive_out,
-                 float* __restrict__ prev_out, int* __restrict__ ids_out,
-                 int* __restrict__ n_alive, TraceConfig cfg) {
-  __shared__ float sc[kAmps + kMaxOctaves];
-  __shared__ Octaves oct;
-  __shared__ float margin;  // lod only
-  const int n_params = kAmps + cfg.num_octaves;
-  const int k_coarse = max(1, (cfg.num_octaves + 1) / 2);
-  const int wo_coarse = max(1, cfg.warp_octaves - 1);
-  for (int k = threadIdx.x; k < n_params; k += blockDim.x) sc[k] = packed[k];
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    load_octaves(sc, cfg.num_octaves, oct);
-    if constexpr (kMode == kLod) {
-      margin = lod_margin(sc, cfg.num_octaves, k_coarse, cfg.volumetric != 0,
-                          cfg.warp_octaves, wo_coarse);
-    }
-  }
-  __syncthreads();
+// The pointers of one launch: device buffers, null where unused.
+struct FwdArgs {
+  const float* packed;
+  const int* seed;
+  const float* prime;
+  float *color, *t, *hit;
+  int* steps;
+  float *alive, *prev;
+  int *ids, *n_alive;
+  int* tile_scratch;
+};
 
+// What every pixel of a launch shares: the scalars in shared memory, the
+// field, the envelope and the lod margin.
+struct Frame {
+  const float* sc;
+  Field field;
+  float env;
+  float margin;  // lod only
+  int k_coarse, wo_coarse;
+};
+
+// One pixel (row, col of the band): raygen, the march of kMode, polish and
+// shade, its outputs at idx = row * width + col.
+template <int kMode, bool kBf16, bool kDebug, int kOctaves>
+__device__ __forceinline__ void trace_pixel(const Frame& fr, const FwdArgs& a,
+                                            const TraceConfig& cfg, int row, int col) {
+  const float* sc = fr.sc;
   const int n_pix = cfg.local_h * cfg.width;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n_pix) return;
-  const int row = idx / cfg.width;
-  const int col = idx - row * cfg.width;
+  const int idx = row * cfg.width + col;
 
   // --- raygen (kernels/trace.py:_raygen_rc) ------------------------------
   const CameraRay cr = camera_ray(sc, cfg.height, cfg.width, row, col);
   const float dy = cr.dy;
   const Ray ray{sc[kPos + 0], sc[kPos + 1], sc[kPos + 2], cr.dx, dy, cr.dz};
-  const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
-  const Field field{sc, &oct, cfg.num_octaves, seed, cfg.volumetric != 0,
-                    cfg.warp_octaves};
 
   // --- sky-envelope entry (_envelope, _envelope_entry) -------------------
-  const float env = envelope(sc, cfg);  // the entry below and the march's escape test
+  const float env = fr.env;  // the entry below and the march's escape test
   const float oy = ray.oy;
   float t = cfg.t_min;
   if (oy > env) {
@@ -110,7 +139,7 @@ trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_
   bool active = t < cfg.t_max;
   float prev_t = t;
   if (cfg.primed) {
-    t = fmaxf(t, prime[idx]);
+    t = fmaxf(t, a.prime[idx]);
     active = active && t < cfg.t_max;
     prev_t = fmaxf(t * kPrimePullback, cfg.t_min);
   }
@@ -120,7 +149,10 @@ trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_
     // Step on f_coarse - margin <= f while it exceeds max(margin/2,
     // hit_eps t): no step can pass a surface of the full field. A parked
     // lane never changes state again, so the per-thread exit is exact.
-    const Field coarse{sc, &oct, k_coarse, seed, cfg.volumetric != 0, wo_coarse};
+    Field coarse = fr.field;
+    coarse.num_octaves = fr.k_coarse;
+    coarse.warp_octaves = fr.wo_coarse;
+    const float margin = fr.margin;
     const float park_eps = 0.5f * margin;
     for (int s = 0; s < cfg.max_steps && active; ++s) {
       const float fl = coarse.value(ray, t) - margin;
@@ -141,13 +173,14 @@ trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_
   // budget -------------------------------------------------------------------
   March m{t, prev_t, active, false};
   const int n_steps = kMode == kCompact ? cfg.budget : cfg.max_steps;
-  const int executed = march<kMode == kFixed, kBf16, kDebug>(field, ray, env, cfg, n_steps, m);
-  if constexpr (kDebug) steps_out[idx] = executed;
+  const int executed =
+      march<kMode == kFixed, kBf16, kDebug, kOctaves>(fr.field, ray, env, cfg, n_steps, m);
+  if constexpr (kDebug) a.steps[idx] = executed;
   if constexpr (kMode == kCompact) {
     // Still marching after the budget: polished and shaded as a miss here,
     // resumed by phase 2 (trace_compact.cu), which overwrites its outputs.
-    alive_out[idx] = m.active ? 1.f : 0.f;
-    prev_out[idx] = m.prev_t;
+    a.alive[idx] = m.active ? 1.f : 0.f;
+    a.prev[idx] = m.prev_t;
     if (m.active) {
       // Append the pixel id to the survivors' list: one atomic per group of
       // converged threads, ids in lane order within it. A survivor's result
@@ -155,46 +188,140 @@ trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_
       // warp gets there first) changes no output bit.
       const cooperative_groups::coalesced_group g = cooperative_groups::coalesced_threads();
       int base = 0;
-      if (g.thread_rank() == 0) base = atomicAdd(n_alive, static_cast<int>(g.size()));
-      ids_out[g.shfl(base, 0) + static_cast<int>(g.thread_rank())] = idx;
+      if (g.thread_rank() == 0) base = atomicAdd(a.n_alive, static_cast<int>(g.size()));
+      a.ids[g.shfl(base, 0) + static_cast<int>(g.thread_rank())] = idx;
     }
   }
-  polish_and_shade(field, ray, sc, cfg, m.t, m.prev_t, m.hit, idx, n_pix, color, t_out,
-                   hit_out);
+  polish_and_shade(fr.field, ray, sc, cfg, m.t, m.prev_t, m.hit, idx, n_pix, a.color, a.t,
+                   a.hit);
 }
 
-// The pointers of one launch: device buffers, null where unused.
-struct FwdArgs {
-  const float* packed;
-  const int* seed;
-  const float* prime;
-  float *color, *t, *hit;
-  int* steps;
-  float *alive, *prev;
-  int *ids, *n_alive;
+template <int kMode, bool kBf16, bool kDebug, int kOctaves>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed,
+                 const float* __restrict__ prime, float* __restrict__ color,
+                 float* __restrict__ t_out, float* __restrict__ hit_out,
+                 int* __restrict__ steps_out, float* __restrict__ alive_out,
+                 float* __restrict__ prev_out, int* __restrict__ ids_out,
+                 int* __restrict__ n_alive, int* __restrict__ tile_scratch, TraceConfig cfg) {
+  const FwdArgs a{packed,    seed,     prime,   color,  t_out,   hit_out,
+                  steps_out, alive_out, prev_out, ids_out, n_alive, tile_scratch};
+  __shared__ float sc[kAmps + kMaxOctaves];
+  __shared__ Octaves oct;
+  __shared__ float margin;  // lod only
+  const int n_params = kAmps + cfg.num_octaves;
+  const int k_coarse = max(1, (cfg.num_octaves + 1) / 2);
+  const int wo_coarse = max(1, cfg.warp_octaves - 1);
+  for (int k = threadIdx.x; k < n_params; k += blockDim.x) sc[k] = packed[k];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    load_octaves(sc, cfg.num_octaves, oct);
+    if constexpr (kMode == kLod) {
+      margin = lod_margin(sc, cfg.num_octaves, k_coarse, cfg.volumetric != 0,
+                          cfg.warp_octaves, wo_coarse);
+    }
+  }
+  __syncthreads();
+  const Frame fr{sc,
+                 Field{sc, &oct, cfg.num_octaves, static_cast<uint32_t>(*seed),
+                       cfg.volumetric != 0, cfg.warp_octaves},
+                 envelope(sc, cfg), kMode == kLod ? margin : 0.f, k_coarse, wo_coarse};
+
+  // --- the tiles: lane 0 takes the next one from tile_scratch[0], the warp
+  // traces its pixels ---------------------------------------------------------
+  const int tiles_x = (cfg.width + kTileCols - 1) / kTileCols;
+  const int n_tiles = tiles_x * ((cfg.local_h + kTileRows - 1) / kTileRows);
+  const int lane = threadIdx.x % 32;
+  const int tile_row = lane / kTileCols, tile_col = lane % kTileCols;
+  for (;;) {
+    int tile = 0;
+    if (lane == 0) tile = atomicAdd(tile_scratch, 1);
+    tile = __shfl_sync(0xffffffffu, tile, 0);
+    if (tile >= n_tiles) break;
+    const int ty = tile / tiles_x;
+    const int row = ty * kTileRows + tile_row;
+    const int col = (tile - ty * tiles_x) * kTileCols + tile_col;
+    if (row < cfg.local_h && col < cfg.width) {
+      trace_pixel<kMode, kBf16, kDebug, kOctaves>(fr, a, cfg, row, col);
+    }
+  }
+  // Every warp's last fetch is done before it counts itself out in
+  // tile_scratch[1]; the last one out sets both back to 0.
+  if (lane == 0) {
+    __threadfence();
+    const int warps = static_cast<int>(gridDim.x * (blockDim.x / 32));
+    if (atomicAdd(tile_scratch + 1, 1) == warps - 1) {
+      atomicExch(tile_scratch, 0);
+      atomicExch(tile_scratch + 1, 0);
+    }
+  }
+}
+
+// The grid of a launch over n_tiles tiles: warps per block and blocks.
+struct Grid {
+  int warps, blocks;
 };
 
-template <int kMode, bool kBf16, bool kDebug>
-void launch_variant(const FwdArgs& a, const TraceConfig& cfg, cudaStream_t stream) {
-  const int n_pix = cfg.local_h * cfg.width;
-  const int blocks = (n_pix + kThreads - 1) / kThreads;
-  trace_fwd_kernel<kMode, kBf16, kDebug><<<blocks, kThreads, 0, stream>>>(
+// A frame that fills the card runs kWarpsPerBlock-warp blocks, as many as
+// are resident at once (the occupancy query, once per device and
+// instantiation); a smaller frame runs blocks of n_tiles / SMs warps (at
+// least 1), about one block per SM, so that its tiles spread over them all.
+template <int kMode, bool kBf16, bool kDebug, int kOctaves>
+cudaError_t grid_for(int n_tiles, Grid& g) {
+  static int sms[kMaxDevices], resident[kMaxDevices];
+  int dev = 0;
+  if (const cudaError_t err = cudaGetDevice(&dev)) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    if (const cudaError_t err =
+            cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev)) {
+      return err;
+    }
+    int per_sm = 0;
+    if (const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, trace_fwd_kernel<kMode, kBf16, kDebug, kOctaves>, kThreads, 0)) {
+      return err;
+    }
+    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+    resident[dev] = per_sm * sms[dev];
+  }
+  g.warps = std::max(1, std::min(kWarpsPerBlock, n_tiles / sms[dev]));
+  const int blocks = (n_tiles + g.warps - 1) / g.warps;
+  g.blocks = g.warps == kWarpsPerBlock ? std::min(blocks, resident[dev]) : blocks;
+  return cudaSuccess;
+}
+
+template <int kMode, bool kBf16, bool kDebug, int kOctaves>
+cudaError_t launch_octaves(const FwdArgs& a, const TraceConfig& cfg, cudaStream_t stream) {
+  const int n_tiles = ((cfg.width + kTileCols - 1) / kTileCols) *
+                      ((cfg.local_h + kTileRows - 1) / kTileRows);
+  Grid g{};
+  if (const cudaError_t err = grid_for<kMode, kBf16, kDebug, kOctaves>(n_tiles, g)) {
+    return err;
+  }
+  trace_fwd_kernel<kMode, kBf16, kDebug, kOctaves><<<g.blocks, 32 * g.warps, 0, stream>>>(
       a.packed, a.seed, a.prime, a.color, a.t, a.hit, a.steps, a.alive, a.prev, a.ids,
-      a.n_alive, cfg);
+      a.n_alive, a.tile_scratch, cfg);
+  return cudaGetLastError();
+}
+
+template <int kMode, bool kBf16, bool kDebug>
+cudaError_t launch_variant(const FwdArgs& a, const TraceConfig& cfg, cudaStream_t stream) {
+  if constexpr (kMode == kChunked && !kDebug) {
+    if (cfg.num_octaves == kUnrolledOctaves) {
+      return launch_octaves<kMode, kBf16, kDebug, kUnrolledOctaves>(a, cfg, stream);
+    }
+  }
+  return launch_octaves<kMode, kBf16, kDebug, 0>(a, cfg, stream);
 }
 
 template <int kMode>
-void launch_mode(const FwdArgs& a, const TraceConfig& cfg, cudaStream_t stream) {
+cudaError_t launch_mode(const FwdArgs& a, const TraceConfig& cfg, cudaStream_t stream) {
   const bool bf16 = cfg.bf16 != 0, debug = a.steps != nullptr;
-  if (bf16 && debug) {
-    launch_variant<kMode, true, true>(a, cfg, stream);
-  } else if (bf16) {
-    launch_variant<kMode, true, false>(a, cfg, stream);
-  } else if (debug) {
-    launch_variant<kMode, false, true>(a, cfg, stream);
-  } else {
-    launch_variant<kMode, false, false>(a, cfg, stream);
-  }
+  if (bf16 && debug) return launch_variant<kMode, true, true>(a, cfg, stream);
+  if (bf16) return launch_variant<kMode, true, false>(a, cfg, stream);
+  if (debug) return launch_variant<kMode, false, true>(a, cfg, stream);
+  return launch_variant<kMode, false, false>(a, cfg, stream);
 }
 
 }  // namespace
@@ -202,30 +329,32 @@ void launch_mode(const FwdArgs& a, const TraceConfig& cfg, cudaStream_t stream) 
 extern "C" {
 
 // Launches the kernel instantiation that cfg.march_mode, cfg.bf16 and
-// ``steps`` select on ``stream`` and returns cudaGetLastError() (0 on
-// success). Pointers are device pointers; ``prime`` is null unless
-// cfg.primed, ``steps`` (an int32 per pixel) null unless the counter is
-// wanted, ``alive`` and ``prev`` (a float per pixel), ``ids`` (an int32 per
-// pixel) and ``n_alive`` (one int32) null unless cfg.march_mode is kCompact,
-// which launches compaction's phase 1 (cfg.phase 1, no counter, unprimed):
-// it sets n_alive to 0 on the stream, then the kernel writes the survivors'
-// pixel ids to ids[0, n_alive). The caller validates shapes, dtypes and
-// contiguity.
+// ``steps`` select on ``stream`` and returns its CUDA error (0 on success).
+// Pointers are device pointers; ``prime`` is null unless cfg.primed,
+// ``steps`` (an int32 per pixel) null unless the counter is wanted,
+// ``alive`` and ``prev`` (a float per pixel), ``ids`` (an int32 per pixel)
+// and ``n_alive`` (one int32) null unless cfg.march_mode is kCompact, which
+// launches compaction's phase 1 (cfg.phase 1, no counter, unprimed): it sets
+// n_alive to 0 on the stream, then the kernel writes the survivors' pixel
+// ids to ids[0, n_alive). ``tile_scratch`` is two int32 of scratch, which
+// must be 0 when the kernel starts and which it leaves at 0; launches that
+// may overlap (on different streams) need their own. The caller validates
+// shapes, dtypes and contiguity.
 int trace_fwd_launch(const float* packed, const int* seed, const float* prime,
                      float* color, float* t, float* hit, int* steps, float* alive,
-                     float* prev, int* ids, int* n_alive, TraceConfig cfg, void* stream) {
+                     float* prev, int* ids, int* n_alive, int* tile_scratch, TraceConfig cfg,
+                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const FwdArgs a{packed, seed, prime, color, t, hit, steps, alive, prev, ids, n_alive};
+  const FwdArgs a{packed, seed, prime, color, t, hit, steps, alive, prev, ids, n_alive,
+                  tile_scratch};
+  if (tile_scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   switch (cfg.march_mode) {
     case kChunked:
-      launch_mode<kChunked>(a, cfg, s);
-      break;
+      return static_cast<int>(launch_mode<kChunked>(a, cfg, s));
     case kFixed:
-      launch_mode<kFixed>(a, cfg, s);
-      break;
+      return static_cast<int>(launch_mode<kFixed>(a, cfg, s));
     case kLod:
-      launch_mode<kLod>(a, cfg, s);
-      break;
+      return static_cast<int>(launch_mode<kLod>(a, cfg, s));
     case kCompact:
       if (cfg.phase != 1 || steps != nullptr || prime != nullptr || alive == nullptr ||
           prev == nullptr || ids == nullptr || n_alive == nullptr) {
@@ -234,16 +363,11 @@ int trace_fwd_launch(const float* packed, const int* seed, const float* prime,
       if (const cudaError_t err = cudaMemsetAsync(n_alive, 0, sizeof(int), s)) {
         return static_cast<int>(err);
       }
-      if (cfg.bf16) {
-        launch_variant<kCompact, true, false>(a, cfg, s);
-      } else {
-        launch_variant<kCompact, false, false>(a, cfg, s);
-      }
-      break;
+      return static_cast<int>(cfg.bf16 ? launch_variant<kCompact, true, false>(a, cfg, s)
+                                       : launch_variant<kCompact, false, false>(a, cfg, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* trace_error_string(int err) {

@@ -63,7 +63,8 @@ struct March {
 // steps. A hit or an envelope escape ends the march with active false, so
 // after the loop active means "still marching" (compaction's alive flag).
 // Fixed: no exit; every iteration evaluates f and masks its updates.
-template <bool kFixedLoop, bool kBf16, bool kDebug>
+// kOctaves: Field::value's unrolled octave count (0: num_octaves' loop).
+template <bool kFixedLoop, bool kBf16, bool kDebug, int kOctaves = 0>
 __device__ __forceinline__ int march(const Field& field, const Ray& ray, float env,
                                      const TraceConfig& cfg, int n_steps, March& m) {
   const float eps_m = cfg.hit_eps * cfg.march_eps_scale;
@@ -71,7 +72,7 @@ __device__ __forceinline__ int march(const Field& field, const Ray& ray, float e
   int executed = 0;
   if constexpr (kFixedLoop) {
     for (int s = 0; s < n_steps; ++s) {
-      const float f = field.value<kBf16>(ray, m.t);
+      const float f = field.value<kBf16, kOctaves>(ray, m.t);
       const bool is_hit = m.active & (f < eps_m * m.t);
       const bool escape = m.active & !is_hit & (oy + m.t * dy > env) & (dy >= 0.f);
       const bool advance = m.active & !is_hit & !escape;
@@ -88,7 +89,7 @@ __device__ __forceinline__ int march(const Field& field, const Ray& ray, float e
   } else {
     for (int s = 0; s < n_steps && m.active; ++s) {
       if constexpr (kDebug) ++executed;
-      const float f = field.value<kBf16>(ray, m.t);
+      const float f = field.value<kBf16, kOctaves>(ray, m.t);
       if (f < eps_m * m.t) {
         m.hit = true;
         m.active = false;

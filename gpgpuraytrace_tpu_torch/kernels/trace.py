@@ -29,6 +29,13 @@ channel pulls back through the bf16 field, as JAX's does. The pieces:
   launches (``trace_frame``'s, a ``Counter`` by instantiation, the two
   phases included). A CUDA input never falls back to the plain version: a
   failed build or launch raises.
+* The forward kernel (and phase 1) runs one thread per pixel, a warp per
+  ``WARP_TILE`` (4x8) tile of pixels, on persistent warps: the grid is what
+  fits on the card at once, and each warp takes its next tile from a counter
+  in a two-int32 scratch buffer the wrapper keeps per device and stream (the
+  last warp to finish sets it back to 0); a frame of few tiles (the 66x64 coarse prime pass) runs
+  1-warp blocks, spread over all SMs. ``warp_tile_pixels`` is its tile ->
+  pixel map. Which warp runs a pixel changes no output bit.
 * ``trace_frame_reference``, ``trace_phase1_reference``,
   ``trace_phase2_reference`` and ``trace_bwd_reference`` are the plain
   PyTorch versions of exactly what the kernels compute, written against the
@@ -38,7 +45,8 @@ channel pulls back through the bf16 field, as JAX's does. The pieces:
   returns its (t, hit) too, and the per-lane step counts with
   ``debug_steps``; it builds no autograd graph. ``tile_steps`` and
   ``warp_steps`` reduce those counts to what a (tile_h, 128) TPU tile and a
-  32-thread warp execute.
+  warp of the CUDA kernel execute; ``warp_tile_pixels`` is the kernel's
+  map from a warp's tile to its pixels.
 * ``render_kernel`` is the differentiable render of the kernel path: its
   backward is ``trace_frame_bwd`` (``cfg.kernel_bwd``) or autograd through
   the plain re-shade at the saved (t, hit).
@@ -71,7 +79,10 @@ MAX_WARP_OCTAVES = 8  # the kernels loop over warp octaves; octave 8 weighs 0.5^
 # The forward kernels' march modes (csrc/trace_march.cuh:MarchMode).
 MARCH_MODES = {"chunked": 0, "fixed": 1, "lod": 2, "compact": 3}
 TILE_W = 128  # the TPU kernel's tile width (lanes)
-WARP = 32  # threads of a warp: 32 consecutive pixels of a row-major frame
+WARP = 32  # threads of a warp
+# The pixels a warp of the forward kernel traces: a (rows, cols) tile
+# (csrc/trace_fwd.cu:kTileRows, kTileCols; ``warp_tile_pixels`` maps them).
+WARP_TILE = (4, 8)
 
 
 class TraceConfig(ctypes.Structure):
@@ -253,7 +264,7 @@ def _library() -> ctypes.CDLL:
     from gpgpuraytrace_tpu_torch.kernels.build import load_library
 
     lib = load_library()
-    lib.trace_fwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
+    lib.trace_fwd_launch.argtypes = [ctypes.c_void_p] * 12 + [
         TraceConfig, ctypes.c_void_p,
     ]
     lib.trace_fwd_launch.restype = ctypes.c_int
@@ -284,6 +295,26 @@ def _ptr(x: torch.Tensor | None):
     return None if x is None else x.data_ptr()
 
 
+# The forward kernel's tile scratch by (device index, stream).
+_TILE_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _tile_scratch(dev, stream: int) -> torch.Tensor:
+    """The forward kernel's scratch for a launch on ``stream`` (``dev``'s
+    current stream, as a handle): two int32, the counter from which its warps
+    take their tiles and the count of warps done, 0 when a launch starts and
+    left at 0 by it. Made once per device and stream (launches on one stream
+    never overlap) and kept; inside a CUDA graph's capture a new one, zeroed
+    by the graph."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(2, dtype=torch.int32, device=dev)
+    key = (dev.index, stream)
+    scratch = _TILE_SCRATCH.get(key)
+    if scratch is None:
+        scratch = _TILE_SCRATCH[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return scratch
+
+
 def _launch(packed, seed, cfg, local_height, t0_prime, debug_steps):
     lib = _library()
     dev = packed.device
@@ -294,10 +325,11 @@ def _launch(packed, seed, cfg, local_height, t0_prime, debug_steps):
     steps = torch.empty((h, w), dtype=torch.int32, device=dev) if debug_steps else None
     kcfg = _kernel_config(cfg, h, primed=t0_prime is not None)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.trace_fwd_launch(
             packed.data_ptr(), seed.data_ptr(), _ptr(t0_prime), color.data_ptr(),
-            t.data_ptr(), hit.data_ptr(), _ptr(steps), None, None, None, None, kcfg,
-            torch.cuda.current_stream(dev).cuda_stream,
+            t.data_ptr(), hit.data_ptr(), _ptr(steps), None, None, None, None,
+            _tile_scratch(dev, stream).data_ptr(), kcfg, stream,
         )
     _raise_on(lib, err, "trace_fwd")
     trace_frame.launches[variant_name(cfg, debug_steps)] += 1
@@ -339,10 +371,11 @@ def trace_phase1(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
     n_alive = torch.empty(1, dtype=torch.int32, device=dev)  # zeroed by the launch
     kcfg = _kernel_config(cfg, local_height, budget=cfg.compact_budget, phase=1)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.trace_fwd_launch(
             packed.data_ptr(), seed.data_ptr(), None, color.data_ptr(), t.data_ptr(),
             hit.data_ptr(), None, alive.data_ptr(), prev.data_ptr(), ids.data_ptr(),
-            n_alive.data_ptr(), kcfg, torch.cuda.current_stream(dev).cuda_stream,
+            n_alive.data_ptr(), _tile_scratch(dev, stream).data_ptr(), kcfg, stream,
         )
     _raise_on(lib, err, "trace_fwd (compact phase 1)")
     trace_frame.launches[phase_name(cfg, 1)] += 1
@@ -803,14 +836,30 @@ def tile_steps(steps: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     return (tile_max + chunk - 1) // chunk * chunk
 
 
+def warp_tile_pixels(local_height: int, width: int) -> torch.Tensor:
+    """The forward kernel's tile -> pixel map (csrc/trace_fwd.cu): an int64
+    (n_tiles, 32) array whose row k holds, lane by lane, the band-local
+    pixel id (row * width + col) that a warp traces when it takes tile k,
+    or -1 where the lane falls past the band's last row or column. Tiles
+    are WARP_TILE (rows, cols), numbered row-major over the band; lane l
+    takes row l // cols and column l % cols of its tile."""
+    rows, cols = WARP_TILE
+    tiles_x, tiles_y = -(-width // cols), -(-local_height // rows)
+    tile = torch.arange(tiles_x * tiles_y)[:, None]
+    lane = torch.arange(WARP)[None, :]
+    row = (tile // tiles_x) * rows + lane // cols
+    col = (tile % tiles_x) * cols + lane % cols
+    return torch.where((row < local_height) & (col < width), row * width + col, -1)
+
+
 def warp_steps(steps: torch.Tensor) -> torch.Tensor:
-    """The march steps each warp of the CUDA kernel executes, from per-lane
-    counts (h, w): the maximum over each 32 consecutive pixels in row-major
-    order (one thread per pixel), flat, int32."""
-    flat = steps.reshape(-1)
-    padded = flat.new_zeros(-(-flat.numel() // WARP) * WARP)
-    padded[:flat.numel()] = flat
-    return padded.reshape(-1, WARP).amax(dim=1)
+    """The march steps each warp of the CUDA kernel executes per tile it
+    takes, from per-lane counts (h, w): the maximum over each tile of
+    ``warp_tile_pixels`` (masked lanes count 0), flat, int32, in tile
+    order."""
+    flat = torch.cat([steps.reshape(-1), steps.new_zeros(1)])  # id -1: the 0
+    ids = warp_tile_pixels(*steps.shape).to(steps.device)
+    return flat[ids].amax(dim=1)
 
 
 def trace_bwd_reference(packed: torch.Tensor, seed: torch.Tensor,

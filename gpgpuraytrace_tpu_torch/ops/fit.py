@@ -19,6 +19,7 @@ import torch
 
 from gpgpuraytrace_tpu_torch.models.scene import RenderConfig, Scene
 from gpgpuraytrace_tpu_torch.ops.render import render
+from gpgpuraytrace_tpu_torch.utils.profiling import warn_if_rough
 
 DEFAULT_TRAINABLE = ("noise.amplitudes", "camera.")
 
@@ -75,7 +76,10 @@ def fit(scene: Scene, cfg: RenderConfig, target: torch.Tensor, steps: int = 200,
     ``trainable`` filters dotted parameter names (default: the fBm
     amplitudes and the camera pose). Losses stay on the device between log
     points: fetching one is a host sync, which would stall the queue of
-    launches every step."""
+    launches every step. Warns first (``utils/profiling.py:warn_if_rough``)
+    when the starting scene is rough enough for the march to skip ridges:
+    a fit toward a target rendered there would be quietly wrong."""
+    warn_if_rough(scene, cfg)
     opt = make_optimizer(partition_scene(scene, trainable or default_trainable),
                          learning_rate)
     losses: list[float] = []

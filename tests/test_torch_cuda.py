@@ -116,6 +116,70 @@ def test_cuda_variant_matches_plain_version(cuda, mode, bf16, volumetric):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("volumetric", [False, True], ids=["heightfield", "volumetric"])
+@pytest.mark.parametrize("h, w, row0", [(37, 100, 5), (1, 128, 40), (66, 64, 0), (3, 5, 60)])
+def test_cuda_ragged_frames(cuda, h, w, row0, volumetric):
+    """Bands that are not whole 4x8 warp tiles: the band equals the same
+    rows of the whole frame bit for bit (a pixel's arithmetic does not depend
+    on the launch), its counted steps reduce per tile as the kernel's warps
+    run them, and the band matches the plain version."""
+    cfg = dataclasses.replace(CFG, height=128, width=w, volumetric=volumetric,
+                              step_relax=None, prime_ds=0)
+    scene = default_scene(3, volumetric=volumetric, device=cuda)
+    packed, seed = (x.detach() for x in pack_scene(scene, cfg.height, w, float(row0)))
+    full_packed = pack_scene(scene, cfg.height, w)[0].detach()
+    with torch.no_grad():
+        *band, steps = ktrace.trace_frame(packed, seed, cfg, h, debug_steps=True)
+        full = ktrace.trace_frame(full_packed, seed, cfg, cfg.height)
+        ref = ktrace.trace_frame_reference(packed, seed, cfg, h)
+    torch.cuda.synchronize()
+    for a, b in zip(band, full):
+        assert torch.equal(a, b[..., row0:row0 + h, :])
+    ids = ktrace.warp_tile_pixels(h, w).to(cuda)
+    assert torch.equal(ktrace.warp_steps(steps),
+                       torch.where(ids >= 0, steps.reshape(-1)[ids.clamp(min=0)], 0).amax(dim=1))
+    (kc, t, hit), (rc, rt, rhit) = band, ref
+    assert torch.isfinite(kc).all() and (hit == rhit).float().mean().item() > 0.99
+    assert frac_within(kc, rc, 2e-3) >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("octaves", [3, 6])
+def test_cuda_tile_scratch_across_streams_and_graphs(cuda, octaves):
+    """The tile scratch is left at 0 by every launch: launches back to back
+    on the default stream, on a second stream, and replayed from a CUDA graph
+    (the main path's 6 octaves too) give the first launch's frame bit for
+    bit, and every kept scratch reads 0 afterwards."""
+    cfg = dataclasses.replace(CFG, num_octaves=octaves, prime_ds=0)
+    scene = default_scene(octaves, device=cuda)
+    packed, seed = (x.detach() for x in pack_scene(scene, cfg.height, cfg.width))
+
+    def trace():
+        return ktrace.trace_frame(packed, seed, cfg, cfg.height)
+
+    with torch.no_grad():
+        first = trace()
+        runs = [trace() for _ in range(3)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            runs += [trace() for _ in range(2)]
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = trace()
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            runs.append(tuple(x.clone() for x in captured))
+    torch.cuda.synchronize()
+    for out in runs:
+        for a, b in zip(out, first):
+            assert torch.equal(a, b)
+    assert all(int(s.abs().sum()) == 0 for s in ktrace._TILE_SCRATCH.values())
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_rejects_cpu_mix(cuda):
     scene = default_scene(3, device=cuda)
     packed, seed = pack_scene(scene, CFG.height, CFG.width)

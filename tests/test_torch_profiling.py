@@ -110,8 +110,10 @@ def test_counter_bounds_against_march_with_stats(setup):
     assert (tiles <= tile_max + 2 * CHUNK).all()
     # Per lane: the kernel counts the useful steps plus the one that ends it.
     assert (steps >= lanes).float().mean().item() >= 0.999
+    # A warp traces a 4x8 tile (H and W are whole tiles), tiles row-major.
     warps = ktrace.warp_steps(steps)
-    assert (warps.numpy() == steps.numpy().reshape(-1, 32).max(axis=1)).all()
+    by_tile = steps.numpy().reshape(H // 4, 4, W // 8, 8).max(axis=(1, 3))
+    assert (warps.numpy() == by_tile.reshape(-1)).all()
     assert steps.float().mean() <= warps.float().mean() <= tiles.mean()
 
 
@@ -135,15 +137,18 @@ def test_lod_counts_the_fine_phase(setup):
 
 
 def test_tile_and_warp_steps_on_ragged_frames():
-    """A frame that is not a whole number of tiles or warps pads with zeros."""
+    """A frame that is not a whole number of tiles pads with zeros: a TPU
+    tile of 16x128, a warp's tile of 4x8 (the last row and column of tiles
+    masked)."""
     cfg = RenderConfig(height=20, width=130, max_steps=64, prime_ds=0)
     steps = torch.zeros((20, 130), dtype=torch.int32)
-    steps[3, 5] = 9  # tile (0, 0)
-    steps[17, 129] = 17  # tile (1, 1)
+    steps[3, 5] = 9  # TPU tile (0, 0), warp tile (0, 0)
+    steps[17, 129] = 17  # TPU tile (1, 1), warp tile (4, 16): the ragged corner
     np.testing.assert_array_equal(ktrace.tile_steps(steps, cfg).numpy(), [[16, 0], [0, 24]])
     warps = ktrace.warp_steps(steps)
-    assert tuple(warps.shape) == (-(-20 * 130 // 32),)
-    assert warps[(3 * 130 + 5) // 32] == 9 and warps[(17 * 130 + 129) // 32] == 17
+    tiles_x = -(-130 // 8)
+    assert tuple(warps.shape) == (5 * tiles_x,)
+    assert warps[0] == 9 and warps[4 * tiles_x + 16] == 17
     assert warps.sum() == 26
 
 
@@ -217,6 +222,24 @@ def test_roughness_proxy_and_warning(rough):
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             assert tprof.warn_if_rough(scene, cfg) < tprof.ROUGHNESS_WARN_THRESHOLD
+
+
+def test_fit_warns_on_rough_scene():
+    """The warning is wired into the library fit loop, not just the CLI
+    (tests/test_observability.py's config: 2 octaves keep the render cheap;
+    height_scale 24 puts the proxy at about 2.8, past the threshold)."""
+    from gpgpuraytrace_tpu_torch.ops.fit import fit
+    from gpgpuraytrace_tpu_torch.ops.render import render
+
+    cfg = RenderConfig(height=32, width=32, max_steps=32, num_octaves=2, use_kernel=False)
+    named = _rough(jax_scene_dict(jax_default_scene(2)))
+    named["noise.height_scale"] = np.float32(24.0)
+    scene = scene_from_numpy(named, device="cpu")
+    assert tprof.roughness_proxy(scene.noise, 2) > tprof.ROUGHNESS_WARN_THRESHOLD
+    with torch.no_grad():
+        target = render(scene, cfg)
+    with pytest.warns(UserWarning, match="roughness proxy"):
+        fit(scene, cfg, target, steps=1, log_fn=lambda *_: None)
 
 
 def test_timer_and_trace_on_cpu(tmp_path):

@@ -211,3 +211,39 @@ def test_cli_render_on_cuda_raises_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["render", "--device", "cuda", "--size", "64",
                   "-o", str(tmp_path / "f.png")])
+
+
+@pytest.mark.parametrize("local_height, width", [(512, 512), (66, 64), (37, 100), (1, 512),
+                                                 (3, 5)])
+def test_warp_tiles_cover_every_pixel_once(local_height, width):
+    """The forward kernel's tile -> pixel map (kernels/trace.py mirrors
+    csrc/trace_fwd.cu): every pixel of the band in exactly one lane of one
+    tile, each tile a WARP_TILE block of the band, the lanes past its edge
+    masked."""
+    ids = ktrace.warp_tile_pixels(local_height, width)
+    rows, cols = ktrace.WARP_TILE
+    assert ids.shape == (-(-local_height // rows) * -(-width // cols), ktrace.WARP)
+    listed = ids[ids >= 0]
+    assert torch.equal(listed.sort().values, torch.arange(local_height * width))
+    for tile in ids:
+        r, c = tile[tile >= 0] // width, tile[tile >= 0] % width
+        assert r.max() - r.min() < rows and c.max() - c.min() < cols
+
+
+def test_warp_tiles_of_row_bands_make_the_frame(scene):
+    """Row bands (row0, local_height), as trace_frame takes them for sharding:
+    each band's tiles cover its own rows once, the bands together the frame,
+    and the counter's warp reduction runs per band."""
+    cfg = dataclasses.replace(CFG, prime_ds=0)
+    covered = torch.zeros(cfg.height * cfg.width, dtype=torch.int32)
+    for row0, h in ((0, 13), (13, 37), (50, 14)):
+        ids = ktrace.warp_tile_pixels(h, cfg.width)
+        covered[ids[ids >= 0] + row0 * cfg.width] += 1
+        packed, seed = pack_scene(scene, cfg.height, cfg.width, float(row0))
+        *_, steps = ktrace.trace_frame(packed.detach(), seed, cfg, h, debug_steps=True)
+        warps = ktrace.warp_steps(steps)
+        assert warps.shape == (ids.shape[0],)
+        assert (warps == torch.where(ids >= 0, steps.reshape(-1)[ids.clamp(min=0)], 0)
+                .amax(dim=1)).all()
+    assert (covered == 1).all()
+
