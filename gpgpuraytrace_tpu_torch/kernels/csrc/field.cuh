@@ -63,25 +63,38 @@ struct Octaves {
   float freq[kMaxOctaves];  // freq_i = lacunarity^i
 };
 
-// Fills ``oct`` from the packed scalars ``sc`` (one thread): freq_i as a
-// float32 running product, and the octave's static lattice rotation, rounded
-// to float as the JAX package does.
+// Fills octave i of ``oct`` from the packed scalars ``sc``, given its
+// frequency ``freq`` (lacunarity^i as a float32 running product): the
+// octave's static lattice rotation, rounded to float as the JAX package does.
+__device__ __forceinline__ void fill_octave(const float* sc, int i, float freq, Octaves& oct) {
+  double s, c;
+  sincos(kOctaveRot * i, &s, &c);
+  const float cf = static_cast<float>(c), sf = static_cast<float>(s);
+  oct.c[i] = cf;
+  oct.s[i] = sf;
+  oct.cf[i] = cf * freq;
+  oct.sf[i] = sf * freq;
+  oct.amp[i] = sc[kAmps + i];
+  oct.af[i] = sc[kAmps + i] * freq;
+  oct.freq[i] = freq;
+}
+
+// Fills ``oct`` (one thread).
 __device__ __forceinline__ void load_octaves(const float* sc, int num_octaves,
                                              Octaves& oct) {
   float freq = 1.f;
   for (int i = 0; i < num_octaves; ++i) {
-    double s, c;
-    sincos(kOctaveRot * i, &s, &c);
-    const float cf = static_cast<float>(c), sf = static_cast<float>(s);
-    oct.c[i] = cf;
-    oct.s[i] = sf;
-    oct.cf[i] = cf * freq;
-    oct.sf[i] = sf * freq;
-    oct.amp[i] = sc[kAmps + i];
-    oct.af[i] = sc[kAmps + i] * freq;
-    oct.freq[i] = freq;
+    fill_octave(sc, i, freq, oct);
     freq = freq * sc[kLacunarity];
   }
+}
+
+// Fills octave i of ``oct`` alone (the same freq_i): octaves are
+// independent, so threads may fill them in parallel.
+__device__ __forceinline__ void load_octave(const float* sc, int i, Octaves& oct) {
+  float freq = 1.f;
+  for (int j = 0; j < i; ++j) freq = freq * sc[kLacunarity];
+  fill_octave(sc, i, freq, oct);
 }
 
 __device__ __forceinline__ uint32_t mix(uint32_t h) {

@@ -36,6 +36,15 @@ channel pulls back through the bf16 field, as JAX's does. The pieces:
   last warp to finish sets it back to 0); a frame of few tiles (the 66x64 coarse prime pass) runs
   1-warp blocks, spread over all SMs. ``warp_tile_pixels`` is its tile ->
   pixel map. Which warp runs a pixel changes no output bit.
+* The backward kernel runs a warp per group of 128 consecutive pixels,
+  each lane four of them in turn, its column sums in the warp's slice of
+  shared memory, into one partial sum per column and group (the map and
+  the order of every sum are stated in csrc/trace_bwd.cu's header). A
+  second launch sums the groups and folds the frequency columns into the
+  lacunarity's. The order of every sum is fixed by the frame's shape, so
+  the gradient is the same bit for bit from run to run. Its scratch (the partial sums and the second stage's
+  counter, left at 0) is kept per device and stream, as the forward's, and
+  ``g`` may be the (h, W, 3) colour cotangent's view, read in place.
 * ``trace_frame_reference``, ``trace_phase1_reference``,
   ``trace_phase2_reference`` and ``trace_bwd_reference`` are the plain
   PyTorch versions of exactly what the kernels compute, written against the
@@ -124,6 +133,9 @@ class TraceBwdConfig(ctypes.Structure):
         ("volumetric", ctypes.c_int),
         ("warp_octaves", ctypes.c_int),
         ("bf16", ctypes.c_int),  # 1: the march channel pulls back through the bf16 field
+        # g[c][pixel] at c * g_channel_stride + pixel * g_pixel_stride
+        ("g_channel_stride", ctypes.c_int),
+        ("g_pixel_stride", ctypes.c_int),
     ]
 
 
@@ -142,9 +154,11 @@ def _check_supported(cfg: RenderConfig) -> None:
         )
 
 
-def _check_tensors(packed, seed, cfg, local_height, named) -> None:
+def _check_tensors(packed, seed, cfg, local_height, named, permuted=()) -> None:
     """Raise on anything the kernels do not take. ``named`` maps a name to
-    (tensor, required shape) for the per-pixel inputs."""
+    (tensor, required shape) for the per-pixel inputs; those named in
+    ``permuted`` may also be the ``permute(2, 0, 1)`` view of a contiguous
+    (h, W, 3) tensor."""
     _check_supported(cfg)
     n_params = pk.AMPS + cfg.num_octaves
     if packed.dtype != torch.float32 or packed.shape != (1, n_params):
@@ -163,11 +177,16 @@ def _check_tensors(packed, seed, cfg, local_height, named) -> None:
             raise ValueError(
                 f"{name} must be float32 {shape}, got {x.dtype} {tuple(x.shape)}"
             )
-    for x in [packed, seed] + [x for x, _ in named.values()]:
+    for name, x in {"packed": packed, "seed": seed,
+                    **{name: x for name, (x, _) in named.items()}}.items():
         if x.device != packed.device:
             raise ValueError(f"inputs on {x.device} and {packed.device}")
         if not x.is_contiguous():
-            raise ValueError("trace kernel inputs must be contiguous")
+            if name not in permuted:
+                raise ValueError("trace kernel inputs must be contiguous")
+            if not x.permute(1, 2, 0).is_contiguous():
+                raise ValueError(f"trace kernel inputs must be contiguous ({name}: or the "
+                                 f"permute(2, 0, 1) view of a contiguous (h, W, 3) tensor)")
 
 
 def _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps) -> None:
@@ -295,24 +314,36 @@ def _ptr(x: torch.Tensor | None):
     return None if x is None else x.data_ptr()
 
 
-# The forward kernel's tile scratch by (device index, stream).
+# The kernels' scratch buffers by (device index, stream): the forward
+# kernel's tile counters and the backward's partial sums.
 _TILE_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+_BWD_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _stream_scratch(table: dict, dev, stream: int, numel: int, dtype: torch.dtype,
+                    counters: int) -> torch.Tensor:
+    """A kernel's scratch for a launch on ``stream`` (``dev``'s current
+    stream, as a handle): at least ``numel`` elements, the first
+    ``counters`` of them zeros when made and left at 0 by every launch (the
+    rest the kernel writes before it reads). Made once per device and stream
+    (launches on one stream never overlap), made anew larger when a launch
+    needs more, and kept in ``table``; inside a CUDA graph's capture a new
+    one, its counters zeroed by the graph."""
+    capturing = torch.cuda.is_current_stream_capturing()
+    key = (dev.index, stream)
+    scratch = None if capturing else table.get(key)
+    if scratch is None or scratch.numel() < numel:
+        scratch = torch.empty(numel, dtype=dtype, device=dev)
+        scratch[:counters].zero_()
+        if not capturing:
+            table[key] = scratch
+    return scratch
 
 
 def _tile_scratch(dev, stream: int) -> torch.Tensor:
-    """The forward kernel's scratch for a launch on ``stream`` (``dev``'s
-    current stream, as a handle): two int32, the counter from which its warps
-    take their tiles and the count of warps done, 0 when a launch starts and
-    left at 0 by it. Made once per device and stream (launches on one stream
-    never overlap) and kept; inside a CUDA graph's capture a new one, zeroed
-    by the graph."""
-    if torch.cuda.is_current_stream_capturing():
-        return torch.zeros(2, dtype=torch.int32, device=dev)
-    key = (dev.index, stream)
-    scratch = _TILE_SCRATCH.get(key)
-    if scratch is None:
-        scratch = _TILE_SCRATCH[key] = torch.zeros(2, dtype=torch.int32, device=dev)
-    return scratch
+    """The forward kernel's scratch: two int32, the counter from which its
+    warps take their tiles and the count of warps done."""
+    return _stream_scratch(_TILE_SCRATCH, dev, stream, 2, torch.int32, 2)
 
 
 def _launch(packed, seed, cfg, local_height, t0_prime, debug_steps):
@@ -431,7 +462,7 @@ def trace_phase2(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
 def _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g) -> None:
     hw = (local_height, cfg.width)
     _check_tensors(packed, seed, cfg, local_height,
-                   {"t": (t, hw), "hit": (hit, hw), "g": (g, (3, *hw))})
+                   {"t": (t, hw), "hit": (hit, hw), "g": (g, (3, *hw))}, permuted=("g",))
 
 
 def trace_frame_bwd(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
@@ -442,7 +473,9 @@ def trace_frame_bwd(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
     ``packed``, ``seed``, ``cfg`` and ``local_height`` as for
     ``trace_frame``; ``t`` and ``hit`` (local_height, width) float32 are its
     outputs, ``g`` (3, local_height, width) float32 the cotangent of its
-    colour planes. Returns the packed-vector cotangent (1, AMPS + octaves):
+    colour planes: contiguous, or the ``permute(2, 0, 1)`` view of a
+    contiguous (local_height, width, 3) tensor (the kernel reads either
+    layout, so the caller need not copy). Returns the packed-vector cotangent (1, AMPS + octaves):
     the shade channel at the saved t plus the implicit-function march
     channel, summed over the pixels. CUDA inputs launch the CUDA kernel;
     CPU inputs run ``trace_bwd_reference``."""
@@ -462,17 +495,22 @@ trace_frame_bwd.launches = collections.Counter()
 def _launch_bwd(packed, seed, cfg, local_height, t, hit, g):
     lib = _library()
     dev = packed.device
+    n_pix = local_height * cfg.width
+    # (channel, pixel) strides: contiguous (3, h, W), else the view of (h, W, 3).
+    g_strides = (n_pix, 1) if g.is_contiguous() else (1, 3)
     kcfg = TraceBwdConfig(height=cfg.height, width=cfg.width, local_h=local_height,
                           num_octaves=cfg.num_octaves, volumetric=int(cfg.volumetric),
-                          warp_octaves=cfg.warp_octaves, bf16=int(cfg.march_bf16))
-    partial = torch.empty(lib.trace_bwd_scratch_floats(kcfg), dtype=torch.float32,
-                          device=dev)
+                          warp_octaves=cfg.warp_octaves, bf16=int(cfg.march_bf16),
+                          g_channel_stride=g_strides[0], g_pixel_stride=g_strides[1])
     pbar = torch.empty((1, pk.AMPS + cfg.num_octaves), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # Its first float holds the second stage's counter (an int32).
+        scratch = _stream_scratch(_BWD_SCRATCH, dev, stream,
+                                  lib.trace_bwd_scratch_floats(kcfg), torch.float32, 1)
         err = lib.trace_bwd_launch(
             packed.data_ptr(), seed.data_ptr(), t.data_ptr(), hit.data_ptr(),
-            g.data_ptr(), partial.data_ptr(), pbar.data_ptr(), kcfg,
-            torch.cuda.current_stream(dev).cuda_stream,
+            g.data_ptr(), scratch.data_ptr(), pbar.data_ptr(), kcfg, stream,
         )
     _raise_on(lib, err, "trace_bwd")
     trace_frame_bwd.launches["bwd+bf16" if cfg.march_bf16 else "bwd"] += 1
@@ -874,6 +912,7 @@ def trace_bwd_reference(packed: torch.Tensor, seed: torch.Tensor,
     implicit-function march channel: scale = -t̄ / min(∇f·d, -1e-2) at hits,
     pulled back through one value-only field evaluation at the saved t."""
     _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g)
+    g = g.contiguous()  # either layout gives the same sums
     hitb = hit > 0.5
     grid = _pixel_grid(local_height, cfg.width, packed.device)
     with torch.enable_grad():
@@ -963,7 +1002,11 @@ class _KernelRender(torch.autograd.Function):
         cfg = ctx.cfg
         none = (None,) * 6
         if cfg.kernel_bwd:
-            gp = g.permute(2, 0, 1).contiguous()
+            # The kernel reads g's (h, W, 3) layout as it is; any other
+            # (a broadcast cotangent, say) is copied.
+            gp = g.permute(2, 0, 1)
+            if not (gp.is_contiguous() or g.is_contiguous()):
+                gp = gp.contiguous()
             pbar = trace_frame_bwd(packed, seed, cfg, ctx.local_height, t, hit, gp)
             return none + (pbar,) + (None,) * len(leaves)
         from gpgpuraytrace_tpu_torch.ops.render import render_from_checkpoint

@@ -28,8 +28,8 @@ with ctypes beside the others. Then, on one card:
 
 A design before the 4x8 warp tiles takes 11 pointers in ``trace_fwd_launch``,
 the warp-tile design 12 (its tile scratch last); an arm's signature is read
-from its source. Prints one JSON line per section and writes them all to
-``--out``.
+from its source, the backward's as ``scripts/torch_bwd_ab.py:Arm`` reads it.
+Prints one JSON line per section and writes them all to ``--out``.
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 from chip_smoke import output_digests, ptxas_lines  # noqa: E402
+from scripts.torch_bwd_ab import Arm as BwdArm  # noqa: E402
 from gpgpuraytrace_tpu_torch.kernels import build as kbuild  # noqa: E402
 from gpgpuraytrace_tpu_torch.kernels import trace as ktrace  # noqa: E402
 from gpgpuraytrace_tpu_torch.models.scene import RenderConfig, default_scene  # noqa: E402
@@ -113,9 +114,7 @@ class Arm:
         self.lib.trace_fwd_launch.restype = ctypes.c_int
         self.lib.trace_compact_launch.argtypes = [ctypes.c_void_p] * 8 + [
             ktrace.TraceConfig, ctypes.c_void_p]
-        self.lib.trace_bwd_scratch_floats.argtypes = [ktrace.TraceBwdConfig]
-        self.lib.trace_bwd_launch.argtypes = [ctypes.c_void_p] * 7 + [
-            ktrace.TraceBwdConfig, ctypes.c_void_p]
+        self.bwd_arm = BwdArm(name, lib_path, src_dir / "trace_bwd.cu")
 
     def fwd(self, packed, seed, cfg, h, prime=None, debug=False, compact=False):
         """trace_fwd_launch: (color, t, hit[, steps]) or phase 1's seven."""
@@ -159,20 +158,8 @@ class Arm:
             raise RuntimeError(f"{self.name}: trace_compact_launch returned {err}")
 
     def bwd(self, packed, seed, cfg, h, t, hit, g):
-        kcfg = ktrace.TraceBwdConfig(height=cfg.height, width=cfg.width, local_h=h,
-                                     num_octaves=cfg.num_octaves,
-                                     volumetric=int(cfg.volumetric),
-                                     warp_octaves=cfg.warp_octaves, bf16=int(cfg.march_bf16))
-        dev = packed.device
-        partial = torch.empty(self.lib.trace_bwd_scratch_floats(kcfg), dtype=torch.float32,
-                              device=dev)
-        pbar = torch.empty((1, pk.AMPS + cfg.num_octaves), dtype=torch.float32, device=dev)
-        err = self.lib.trace_bwd_launch(
-            *(x.data_ptr() for x in (packed, seed, t, hit, g, partial, pbar)), kcfg,
-            torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"{self.name}: trace_bwd_launch returned {err}")
-        return pbar
+        """trace_bwd_launch (contiguous g): pbar."""
+        return self.bwd_arm.bwd(packed, seed, cfg, h, t, hit, g)
 
 
 def coarse_inputs(scene, cfg):

@@ -180,6 +180,48 @@ def test_cuda_tile_scratch_across_streams_and_graphs(cuda, octaves):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("octaves", [2, 3, 6])
+def test_cuda_bwd_scratch_across_streams_and_graphs(cuda, octaves, bf16):
+    """The backward's scratch (its second stage's counter, left at 0 by
+    every launch, and the partial sums): launches back to back on the
+    default stream, the cotangent as the (h, W, 3) view, launches on a
+    second stream, and replays of a CUDA graph give the first launch's
+    gradient bit for bit, at 2, 3 and the main path's 6 octaves, float32
+    and bf16 march channel."""
+    cfg = dataclasses.replace(CFG, num_octaves=octaves, march_bf16=bf16)
+    scene = default_scene(octaves, device=cuda)
+    _, t, hit = ktrace.render_kernel_raw(scene, cfg)
+    packed, seed = (x.detach() for x in pack_scene(scene, cfg.height, cfg.width))
+    g = torch.randn(3, cfg.height, cfg.width, generator=torch.Generator().manual_seed(0))
+    g = g.to(cuda)
+
+    def bwd(cotangent=g):
+        return ktrace.trace_frame_bwd(packed, seed, cfg, cfg.height, t, hit.float(), cotangent)
+
+    first = bwd()
+    runs = [bwd() for _ in range(2)]
+    runs.append(bwd(g.permute(1, 2, 0).contiguous().permute(2, 0, 1)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        runs += [bwd() for _ in range(2)]
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = bwd()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        runs.append(captured.clone())
+    torch.cuda.synchronize()
+    assert first.abs().max() > 0
+    for out in runs:
+        assert torch.equal(out, first)
+    assert all(int(s[:1].view(torch.int32)) == 0 for s in ktrace._BWD_SCRATCH.values())
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_rejects_cpu_mix(cuda):
     scene = default_scene(3, device=cuda)
     packed, seed = pack_scene(scene, CFG.height, CFG.width)

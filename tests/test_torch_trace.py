@@ -136,7 +136,8 @@ def test_trace_frame_bwd_rejects_bad_inputs(scene, case):
     elif case == "g_shape":
         g = g[:2]
     else:
-        g = torch.zeros(CFG.height, CFG.width, 3).permute(2, 0, 1)
+        # Neither contiguous nor the (h, W, 3) view the kernel also reads.
+        g = torch.zeros(3, CFG.width, CFG.height).transpose(1, 2)
     with pytest.raises(ValueError):
         ktrace.trace_frame_bwd(packed, seed, CFG, CFG.height, t, hit, g)
 
