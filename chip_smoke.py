@@ -12,7 +12,7 @@ each prints one line and any failure exits non-zero:
 1. host: CUDA present; card name and power limit; CUDA and nvcc versions;
 2. build: the kernels from gpgpuraytrace_tpu_torch/kernels/csrc, one nvcc
    per source, in parallel, beside the test-only noise probe; no kernel
-   spills (ptxas);
+   spills (ptxas), and compaction's phase 2 at its recorded registers;
 3. the forward kernel against its plain PyTorch version on the card, at the
    main path's shapes (coarse prime pass 66x64, then the 512x512 pass), and
    on frames that are not whole warp tiles (a 37x100 band at row 5, one
@@ -64,9 +64,12 @@ each prints one line and any failure exits non-zero:
     phase 2's on the survivors' pixels only; ``alive`` and the survivors'
     list exactly); the compact frame against the unprimed chunked kernel's
     with JAX's exactness contract, traced with host syncs raising; the
-    survivors; the times of phase 1 and phase 2 beside the unprimed and
-    primed chunked passes; one training step under compact; the default
-    instantiation's registers and fine-pass times held to their record;
+    survivors; the times of phase 1 and phase 2 (each as a CUDA graph of 50
+    and back to back, phase 2's calls restoring phase 1's t, less the
+    restores; each kernel by the profiler; each wrapper's host time per
+    call) beside the unprimed and primed chunked passes; one training step
+    under compact; the default instantiation's registers and fine-pass
+    times, and phase 2's graph time, held to their record;
 21. the flythrough: ``fly_frames`` at 512x512, 8 frames in batches of 4 under
     the default config and 4 under compact, each frame equal to ``render`` of
     its camera, tonemapped and quantized; a tweak file read between batches
@@ -244,6 +247,21 @@ DEFAULT_REGISTERS, DEFAULT_FINE_MS, DEFAULT_FINE_SLACK = 107, (0.1181, 0.2247), 
 # (PERF.md, section 6).
 DEFAULT_BWD_KERNEL = "trace_bwd_kernel<bf16=0>"
 DEFAULT_BWD_REGISTERS, DEFAULT_BWD_MS, DEFAULT_BWD_SLACK = 126, (0.0349, 0.0427), 0.03
+# Compaction's phase 2 (persistent ray groups of 2 lanes): its four
+# instantiations' register counts, which phase 2 holds them to (no spill
+# either), and its float32 device time that phase 20 holds it to, at most
+# PHASE2_SLACK slower: a CUDA graph of 50 calls, each restoring phase 1's t
+# into the in-place buffer, less a graph of the 50 restores (under capture
+# each call's fresh scratch is zeroed too), its median over PHASE2_LISTINGS
+# survivor lists from as many launches of phase 1; heightfield, volumetric.
+# Recorded with the ray groups on an H100 80GB HBM3 at 700 W as the mean of
+# two runs' medians (PERF.md, section 6).
+PHASE2_REGISTERS = {"trace_phase2_kernel<bf16=0, octaves=0>": 113,
+                    "trace_phase2_kernel<bf16=0, octaves=6>": 117,
+                    "trace_phase2_kernel<bf16=1, octaves=0>": 108,
+                    "trace_phase2_kernel<bf16=1, octaves=6>": 117}
+PHASE2_MS, PHASE2_SLACK = (0.05151, 0.09827), 0.03
+PHASE2_LISTINGS = 25
 # The TPU kernel's lines each forward instantiation replaces
 # (gpgpuraytrace_tpu/kernels/trace.py).
 FWD_SOURCE = "gpgpuraytrace_tpu_torch/kernels/csrc/trace_fwd.cu"
@@ -405,27 +423,35 @@ def ptxas_lines(log: str) -> list[str]:
     """ptxas's register and spill lines, each with the kernel it reports on
     (the forward kernel as trace_fwd_kernel<mode, bf16, debug, octaves>,
     octaves 0 for the loop over a runtime count, and without octaves for a
-    build before the unrolled twins; phase 2 and the backward kernel as
-    <bf16>)."""
+    build before the unrolled twins; phase 2 as <bf16, octaves>, or <bf16>
+    before its ray groups; the backward kernel as <bf16>)."""
     modes = ("chunked", "fixed", "lod", "compact")
     name, out = "", []
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            m = re.search(r"\d(trace_\w+?)(?:ILi(\d)ELb(\d)ELb(\d)E(?:Li(\d+)E)?|ILb(\d)E)?E",
-                          entry.group(1))
+            m = re.search(r"\d(trace_\w+?)(?:ILi(\d)ELb(\d)ELb(\d)E(?:Li(\d+)E)?"
+                          r"|ILb(\d)E(?:Li(\d+)E)?)?E", entry.group(1))
             name = m.group(1) if m else entry.group(1)
             if m and m.group(2):
                 octaves = f", octaves={m.group(5)}" if m.group(5) else ""
                 name += (f"<{modes[int(m.group(2))]}, bf16={m.group(3)}, debug={m.group(4)}"
                          f"{octaves}>")
             elif m and m.group(6):
-                name += f"<bf16={m.group(6)}>"
+                octaves = f", octaves={m.group(7)}" if m.group(7) else ""
+                name += f"<bf16={m.group(6)}{octaves}>"
         elif line.startswith("---"):
             out.append(line.strip())
         elif "registers" in line or "spill" in line:
             out.append(f"{name}: {line.strip().removeprefix('ptxas info    : ')}")
     return out
+
+
+def ptxas_registers(log: str, kernel: str) -> list[int]:
+    """The register counts ptxas reports for ``kernel`` (named as
+    ``ptxas_lines`` names it)."""
+    return [int(m.group(1)) for ln in ptxas_lines(log)
+            if ln.startswith(f"{kernel}:") and (m := re.search(r"Used (\d+) registers", ln))]
 
 
 def add_ops(total: dict, part: dict, times: float) -> dict:
@@ -548,6 +574,25 @@ def graph_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_us(fn, name: str, calls: int = 20) -> tuple[float, int]:
+    """Device microseconds per launch of the kernels whose name holds
+    ``name``, by torch.profiler over ``calls`` calls of ``fn`` (after a
+    warm-up), and the number of launches it recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+    count = sum(e.count for e in events)
+    total = sum(e.self_device_time_total for e in events)
+    return (total / count if count else float("nan")), count
 
 
 def digest(tensors) -> str:
@@ -1404,13 +1449,50 @@ def compact_phase(scene, cfg, tag: str) -> dict:
     bitwise = all(torch.equal(a, b) for a, b in zip(frame, chunked))
     counted = (lanes > COMPACT_BUDGET).sum().item()
 
-    # Times: 50 launches back to back each (phase 2 on its own copy of
-    # phase 1's t per launch: it writes t in place), then the whole traces
-    # in turns, best of two.
-    ms1 = cuda_ms_back_to_back(lambda: trace_phase1(packed, seed, ccfg, h), 50)
-    t_copies = iter([p1[1].clone() for _ in range(51)])
-    ms2 = cuda_ms_back_to_back(lambda: trace_phase2(
-        packed, seed, ccfg, h, n_alive, ids, prev, k2[0], next(t_copies), k2[2]), 50)
+    # Times of each phase: 50 calls as a CUDA graph (device time) and back
+    # to back, phase 2's calls each restoring phase 1's t into the buffer it
+    # writes in place, less 50 restores alone; each phase's kernel by the
+    # profiler; each wrapper's host us per call. Then the whole traces in
+    # turns, best of two.
+    t_buf = p1[1].clone()
+
+    def restore():
+        t_buf.copy_(p1[1])
+
+    def run1():
+        trace_phase1(packed, seed, ccfg, h)
+
+    def run2():
+        trace_phase2(packed, seed, ccfg, h, n_alive, ids, prev, k2[0], t_buf, k2[2])
+
+    def run2_restored():
+        restore()
+        run2()
+
+    g1 = graph_ms(run1, 50)
+
+    def graph2(ids_k):
+        def run2_k():
+            restore()
+            trace_phase2(packed, seed, ccfg, h, n_alive, ids_k, prev, k2[0], t_buf, k2[2])
+
+        return graph_ms(run2_k, 50) - graph_ms(restore, 50)
+
+    # Phase 2's time depends on the order of phase 1's list (the order in
+    # which phase 1's warps finish, which differs between launches): the
+    # groups take the survivors in that order. One list reads up to 20% off
+    # another, so the reading is the median over PHASE2_LISTINGS lists, each
+    # from its own launch of phase 1; and, for comparison, the same
+    # survivors in pixel order.
+    g2_all = [graph2(ids if k == 0 else trace_phase1(packed, seed, ccfg, h)[5])
+              for k in range(PHASE2_LISTINGS)]
+    g2 = statistics.median(g2_all)
+    by_pixel = ids.clone()
+    by_pixel[:n] = ids[:n].sort().values
+    g2_pixel = graph2(by_pixel)
+    ms1 = cuda_ms_back_to_back(run1, 50)
+    ms2 = cuda_ms_back_to_back(run2_restored, 50) - cuda_ms_back_to_back(restore, 50)
+    host1, host2 = host_us(run1), host_us(run2)
     prime = _prime_map(scene, cfg, 0.0, h)
     traces = {
         "compact": lambda: trace_frame(packed, seed, ccfg, h),
@@ -1426,6 +1508,8 @@ def compact_phase(scene, cfg, tag: str) -> dict:
     best = {k: min(v) for k, v in times.items()}
     prof = profile_frames(traces["compact"], best["compact"])
     prof_u = profile_frames(traces["unprimed chunked"], best["unprimed chunked"])
+    prof1 = kernel_us(run1, "trace_fwd_kernel")
+    prof2 = kernel_us(run2_restored, "trace_phase2_kernel")
 
     # One training step under compact: phase 1, phase 2 and the backward
     # once each; its gradients against unprimed chunked's.
@@ -1474,10 +1558,16 @@ def compact_phase(scene, cfg, tag: str) -> dict:
             f"are left to phase 2); vs the unprimed "
             f"chunked kernel: 0 hit flips, max colour error {color_err:.3e}, "
             f"{'bit for bit equal' if bitwise else 'not bit for bit equal'}; no host sync "
-            f"in the compact trace; times (50 back to back): phase 1 {ms1:.4f} ms (bound "
-            f"{b1[0]:.4f} ms, {b1[1]}; plain {plain1_ms:.3f} ms; it lists the survivors "
-            f"itself, so no glue runs between the phases), phase 2 {ms2:.4f} ms (bound "
-            f"{b2[0]:.4f} ms, {b2[1]}; plain {plain2_ms:.3f} ms); "
+            f"in the compact trace; phase 1 (it lists the survivors itself, so no glue "
+            f"runs between the phases): {g1:.5f} ms as a CUDA graph of 50, {ms1:.5f} back "
+            f"to back, kernel {prof1[0]:.2f} us by the profiler ({prof1[1]} launches), "
+            f"wrapper {host1:.1f} us host per call (bound {b1[0]:.4f} ms, {b1[1]}; plain "
+            f"{plain1_ms:.3f} ms); phase 2 (each call restoring phase 1's t, less the "
+            f"restores): {g2:.5f} ms as a CUDA graph of 50 (median over {len(g2_all)} lists, "
+            f"{min(g2_all):.5f}-{max(g2_all):.5f}; {g2_pixel:.5f} on the list in pixel "
+            f"order), {ms2:.5f} back to back, kernel "
+            f"{prof2[0]:.2f} us by the profiler ({prof2[1]} launches), wrapper {host2:.1f} "
+            f"us host per call (bound {b2[0]:.4f} ms, {b2[1]}; plain {plain2_ms:.3f} ms); "
             f"whole traces, best of 2 x 50 in turns: "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in best.items())
             + f"; profile of the compact trace: {prof}; of the unprimed chunked pass: {prof_u}"
@@ -1486,10 +1576,13 @@ def compact_phase(scene, cfg, tag: str) -> dict:
             f"unprimed chunked's (worst {worst_grad:.4f} of tolerance)")
     return {"line": line, "coarse_and_fine_ms": best["primed chunked with its coarse pass"],
             "phase1": {"launches": launches[names[0]], "err": err1, "ms": ms1,
-                                     "plain_ms": plain1_ms, "bound_ms": b1[0],
-                                     "bound_by": b1[1]},
+                       "plain_ms": plain1_ms, "bound_ms": b1[0], "bound_by": b1[1],
+                       "graph_ms": g1, "profiler_us": prof1[0], "host_us": host1},
             "phase2": {"launches": launches[names[1]], "err": err2, "ms": ms2,
-                       "plain_ms": plain2_ms, "bound_ms": b2[0], "bound_by": b2[1]}}
+                       "plain_ms": plain2_ms, "bound_ms": b2[0], "bound_by": b2[1],
+                       "graph_ms": g2, "graph_all": g2_all, "graph_pixel_order_ms": g2_pixel,
+                       "profiler_us": prof2[0],
+                       "host_us": host2}}
 
 
 def fly_phase(cfg, dev) -> tuple[str, dict]:
@@ -1723,8 +1816,14 @@ def main() -> None:
     spills = [ln for ln in ptxas_lines(log) if re.search(r"\b[1-9]\d* bytes spill", ln)]
     if spills:
         fail("ptxas reports spills: " + "; ".join(spills))
+    p2_regs = {k: ptxas_registers(log, k) for k in PHASE2_REGISTERS}
+    if p2_regs != {k: [v] for k, v in PHASE2_REGISTERS.items()}:
+        fail(f"compaction's phase 2 compiled to {p2_regs} registers (ptxas), expected "
+             f"{PHASE2_REGISTERS}")
     phase(2, "build", f"{lib_path.relative_to(REPO)} in {build_s:.2f} s; {len(kernels)} "
-          f"kernels, no spills (ptxas)")
+          f"kernels, no spills (ptxas); phase 2 at "
+          f"{' / '.join(str(v[0]) for v in p2_regs.values())} registers (recorded: "
+          f"{' / '.join(map(str, PHASE2_REGISTERS.values()))})")
 
     # --- 3. kernel vs plain version at the main path's shapes --------------
     cfg = RenderConfig(num_octaves=6)  # 512x512, the default march
@@ -1858,9 +1957,7 @@ def main() -> None:
     phase(13, "volumetric backward kernel vs plain", f"{bwd_report(vbwd)}; warp amplitude "
           f"and frequency entries {warp_bars.tolist()} (plain "
           f"{vbwd['ref'][0, WARP_ENTRIES].tolist()}) {card}")
-    bwd_regs = [int(m.group(1)) for ln in ptxas_lines(log)
-                if ln.startswith(f"{DEFAULT_BWD_KERNEL}:")
-                and (m := re.search(r"Used (\d+) registers", ln))]
+    bwd_regs = ptxas_registers(log, DEFAULT_BWD_KERNEL)
     if bwd_regs != [DEFAULT_BWD_REGISTERS]:
         fail(f"the default backward instantiation compiled to {bwd_regs} registers "
              f"(ptxas), expected [{DEFAULT_BWD_REGISTERS}]")
@@ -1931,9 +2028,7 @@ def main() -> None:
         phase(19, "profiling", profiling_phase(scene, c, tag))
 
     # --- 20-22. compaction, the flythrough, the bf16 backward --------------------
-    regs = [int(m.group(1)) for ln in ptxas_lines(log)
-            if ln.startswith(f"{DEFAULT_KERNEL}:")
-            and (m := re.search(r"Used (\d+) registers", ln))]
+    regs = ptxas_registers(log, DEFAULT_KERNEL)
     if regs != [DEFAULT_REGISTERS]:
         fail(f"the default forward instantiation compiled to {regs} registers "
              f"(ptxas), expected [{DEFAULT_REGISTERS}]")
@@ -1952,6 +2047,25 @@ def main() -> None:
     for tag, (scene, c) in scenes.items():
         results["compact", tag] = compact_phase(scene, c, tag)
         phase(20, "compact", f"{results['compact', tag]['line']} {card}")
+    p2_graph = tuple(results["compact", tag]["phase2"]["graph_ms"] for tag in scenes)
+    p2_all = " / ".join(
+        f"{min(r['graph_all']):.5f}-{max(r['graph_all']):.5f}, pixel order "
+        f"{r['graph_pixel_order_ms']:.5f}"
+        for r in (results["compact", tag]["phase2"] for tag in scenes))
+    moved = [100 * (ms / before - 1) for ms, before in zip(p2_graph, PHASE2_MS)]
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    if max(moved) > 100 * PHASE2_SLACK:
+        fail(f"compaction's phase 2 took {p2_graph[0]:.5f} / {p2_graph[1]:.5f} ms (medians "
+             f"over {PHASE2_LISTINGS} lists: {p2_all}), {moved[0]:+.2f}% / {moved[1]:+.2f}% "
+             f"against {PHASE2_MS[0]} / "
+             f"{PHASE2_MS[1]} ms (at most +{100 * PHASE2_SLACK:.0f}%; SM clock, temperature, "
+             f"power after: {clocks})")
+    phase(20, "compact", f"phase 2 (ray groups, float32) {p2_graph[0]:.5f} / {p2_graph[1]:.5f} "
+          f"ms as a CUDA graph (medians over {PHASE2_LISTINGS} lists: {p2_all}) against "
+          f"{PHASE2_MS[0]} / {PHASE2_MS[1]} ms recorded ({moved[0]:+.2f}% / "
+          f"{moved[1]:+.2f}%, at most +{100 * PHASE2_SLACK:.0f}%; SM clock, temperature, power after: {clocks}) {card}")
     fly_line, fly_compact = fly_phase(cfg, dev)
     phase(21, "flythrough", f"{fly_line} {card}")
     for part, k in (("phase1", 1), ("phase2", 2)):  # the flythrough's compact frames
@@ -1984,14 +2098,19 @@ def main() -> None:
         h, v = results[label, ""], results[label, "volumetric "]
         if part is not None:
             h, v = h[part], v[part]
+        # Compaction's phases: device time as a CUDA graph, the profiler's
+        # kernel time and the wrapper's host time too.
+        extra = ("graph_ms", "profiler_us", "host_us")
         return {
             "name": f"{kernel}[{name}]", "route": "cuda", "source": source,
             "replaces": REPLACES[name], "variants": ["heightfield", "volumetric"],
             "launches": h["launches"] + v["launches"], "max_abs_err": max(h["err"], v["err"]),
             "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
             "bound_by": h["bound_by"], "library_ms": None,
+            **{k: h[k] for k in extra if k in h},
             "volumetric": {"max_abs_err": v["err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
-                           "bound_ms": v["bound_ms"], "bound_by": v["bound_by"]},
+                           "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+                           **{k: v[k] for k in extra if k in v}},
         }
 
     paths = {"fwd": {"serving": serve_launches, "training": tr["fwd"],

@@ -25,6 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libgpgpuraytrace_kernels.so"
+LOG_NAME = "nvcc.log"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -64,8 +65,8 @@ def find_nvcc() -> str:
 def build_library() -> tuple[Path, str]:
     """Compile the kernels unless a library for these sources exists.
 
-    Returns (library path, compiler log); the log is empty when nothing was
-    compiled and holds ptxas's register and spill report otherwise."""
+    Returns (library path, compiler log): the log holds ptxas's register
+    and spill report, kept beside the library by the build that made it."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available: the trace kernels run only on an NVIDIA "
@@ -73,8 +74,9 @@ def build_library() -> tuple[Path, str]:
         )
     out_dir = build_dir()
     lib = out_dir / LIB_NAME
+    log_path = out_dir / LOG_NAME
     if lib.is_file():
-        return lib, ""
+        return lib, log_path.read_text() if log_path.is_file() else ""
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = os.getpid()
@@ -102,10 +104,14 @@ def build_library() -> tuple[Path, str]:
         raise RuntimeError(
             f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
         )
+    log = "\n".join(logs)
+    log_tmp = out_dir / f"{LOG_NAME}.{tag}.tmp"
+    log_tmp.write_text(log)
+    os.replace(log_tmp, log_path)  # before the library, so a library has its log
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     for _, obj, _, _ in jobs:
         obj.unlink()
-    return lib, "\n".join(logs)
+    return lib, log
 
 
 @functools.cache

@@ -1,8 +1,10 @@
 // Device code shared by the forward trace kernels (trace_fwd.cu: the one-pass
 // kernel and compaction's phase 1; trace_compact.cu: compaction's phase 2):
 // the launch config, the sky envelope, the march, the bracketed Newton polish
-// with the residual verdict, and the shade. Both sources inline the same
-// functions, so a ray that phase 2 resumes runs the arithmetic the one-pass
+// with the residual verdict, and the shade. Phase 2 takes march()'s chunked
+// step one per iteration of its loop and evaluates the field over a ray's
+// group of lanes, summing in the same order; the polish and the shade are
+// these. So a ray that phase 2 resumes runs the arithmetic the one-pass
 // kernel runs, operation for operation.
 
 #pragma once
@@ -114,8 +116,10 @@ __device__ __forceinline__ int march(const Field& field, const Ray& ray, float e
 // The bracketed safeguarded-Newton polish of a hit (from its march bracket
 // [prev_t, t]), the final field evaluation with the residual verdict, and
 // the shade (_shade_from_grads): writes pixel idx of color (3 planes of n),
-// t_out and hit_out.
-__device__ __forceinline__ void polish_and_shade(const Field& field, const Ray& ray,
+// t_out and hit_out. ``field`` is a Field, or anything with its value_grad
+// (phase 2's, split over a ray's group of lanes).
+template <class F>
+__device__ __forceinline__ void polish_and_shade(const F& field, const Ray& ray,
                                                  const float* sc, const TraceConfig& cfg,
                                                  float t, float prev_t, bool hit, int idx,
                                                  int n, float* __restrict__ color,

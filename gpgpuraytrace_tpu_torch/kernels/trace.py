@@ -16,8 +16,8 @@ heightfield and on the volumetric terrain (the 3D fBm warp).
 ``march_mode="compact"`` runs two kernels: phase 1 marches every ray for
 ``compact_budget`` steps and lists the pixel ids of the rays still marching
 in its first ``n_alive`` slots (``n_alive`` stays on the device: no host
-sync); phase 2 resumes those rays, one thread per slot, and writes each
-result in place. The variants change only where the
+sync); phase 2 resumes those rays, a pair of lanes per ray on persistent
+warps, and writes each result in place. The variants change only where the
 march stops, so one backward serves them all; under ``march_bf16`` its march
 channel pulls back through the bf16 field, as JAX's does. The pieces:
 
@@ -36,6 +36,14 @@ channel pulls back through the bf16 field, as JAX's does. The pieces:
   last warp to finish sets it back to 0); a frame of few tiles (the 66x64 coarse prime pass) runs
   1-warp blocks, spread over all SMs. ``warp_tile_pixels`` is its tile ->
   pixel map. Which warp runs a pixel changes no output bit.
+* Compaction's phase 2 runs a group of 2 lanes per survivor (16 per warp):
+  lane k evaluates the field's items k, k + 2, ... (the heightfield's
+  octaves, then the volumetric warp's), and both lanes sum them in item
+  order, as the one-pass kernel does (the map and each sum's order are
+  stated in csrc/trace_compact.cu's header). Its groups are persistent and
+  take their next slot from a counter in the same per-stream scratch as the
+  forward's tiles, up to ``n_alive``, read on the device; a warp polishes
+  and shades its groups' finished rays together, one per group per round.
 * The backward kernel runs a warp per group of 128 consecutive pixels,
   each lane four of them in turn, its column sums in the warp's slice of
   shared memory, into one partial sum per column and group (the map and
@@ -287,7 +295,7 @@ def _library() -> ctypes.CDLL:
         TraceConfig, ctypes.c_void_p,
     ]
     lib.trace_fwd_launch.restype = ctypes.c_int
-    lib.trace_compact_launch.argtypes = [ctypes.c_void_p] * 8 + [
+    lib.trace_compact_launch.argtypes = [ctypes.c_void_p] * 9 + [
         TraceConfig, ctypes.c_void_p,
     ]
     lib.trace_compact_launch.restype = ctypes.c_int
@@ -315,7 +323,8 @@ def _ptr(x: torch.Tensor | None):
 
 
 # The kernels' scratch buffers by (device index, stream): the forward
-# kernel's tile counters and the backward's partial sums.
+# kernel's tile counters (phase 2's slot counters too) and the backward's
+# partial sums.
 _TILE_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
 _BWD_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
 
@@ -326,9 +335,10 @@ def _stream_scratch(table: dict, dev, stream: int, numel: int, dtype: torch.dtyp
     stream, as a handle): at least ``numel`` elements, the first
     ``counters`` of them zeros when made and left at 0 by every launch (the
     rest the kernel writes before it reads). Made once per device and stream
-    (launches on one stream never overlap), made anew larger when a launch
-    needs more, and kept in ``table``; inside a CUDA graph's capture a new
-    one, its counters zeroed by the graph."""
+    (launches on one stream never overlap, so kernels that leave their
+    counters at 0 may share one), made anew larger when a launch needs more,
+    and kept in ``table``; inside a CUDA graph's capture a new one for each
+    launch, its counters zeroed by the graph."""
     capturing = torch.cuda.is_current_stream_capturing()
     key = (dev.index, stream)
     scratch = None if capturing else table.get(key)
@@ -341,8 +351,9 @@ def _stream_scratch(table: dict, dev, stream: int, numel: int, dtype: torch.dtyp
 
 
 def _tile_scratch(dev, stream: int) -> torch.Tensor:
-    """The forward kernel's scratch: two int32, the counter from which its
-    warps take their tiles and the count of warps done."""
+    """The forward kernel's scratch, which compaction's phase 2 shares: two
+    int32, the counter from which the forward's warps take their tiles (phase
+    2's ray groups their slots) and the count of warps (blocks) done."""
     return _stream_scratch(_TILE_SCRATCH, dev, stream, 2, torch.int32, 2)
 
 
@@ -437,8 +448,14 @@ def trace_phase2(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
     still marching) from phase 1's ``t`` and ``prev``, polish and shade it,
     and write its colour, t and hit in place into phase 1's ``color``, ``t``
     and ``hit``. The slots' order changes no output. CUDA inputs launch the
-    kernel (``csrc/trace_compact.cu``; ``n_alive`` stays on the device); CPU
-    inputs run ``trace_phase2_reference``."""
+    kernel (``csrc/trace_compact.cu``): a group of 2 lanes marches each
+    listed ray, lane k evaluating its field's items k, k + 2, ... (the
+    heightfield's octaves, then the volumetric warp's), both lanes summing
+    them in item order; persistent groups take their first slot in turn
+    round the blocks, then the next from a counter in ``_tile_scratch``'s
+    per-stream buffer, left at 0, until the slots reach ``n_alive``, read on
+    the device (no host sync); each warp polishes and shades its groups'
+    finished rays together. CPU inputs run ``trace_phase2_reference``."""
     args = (n_alive, ids, prev, color, t, hit)
     _check_phase2(packed, seed, cfg, local_height, *args)
     if packed.device.type == "cpu":
@@ -451,9 +468,10 @@ def trace_phase2(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
     kcfg = _kernel_config(cfg, local_height, budget=cfg.max_steps - cfg.compact_budget,
                           phase=2)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.trace_compact_launch(
-            packed.data_ptr(), seed.data_ptr(), *(x.data_ptr() for x in args), kcfg,
-            torch.cuda.current_stream(dev).cuda_stream,
+            packed.data_ptr(), seed.data_ptr(), *(x.data_ptr() for x in args),
+            _tile_scratch(dev, stream).data_ptr(), kcfg, stream,
         )
     _raise_on(lib, err, "trace_compact (compact phase 2)")
     trace_frame.launches[phase_name(cfg, 2)] += 1

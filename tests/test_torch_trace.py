@@ -191,6 +191,19 @@ def test_no_fallback_without_cuda(monkeypatch, tmp_path):
         build.build_library()
 
 
+def test_a_built_library_returns_its_compiler_log(monkeypatch, tmp_path):
+    """A library built earlier comes back with the ptxas report that its
+    build kept beside it, so a later run can still read the registers."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
+    out = build.build_dir()
+    out.mkdir(parents=True)
+    (out / build.LIB_NAME).write_bytes(b"")
+    (out / build.LOG_NAME).write_text("ptxas info    : Used 117 registers")
+    assert build.build_library() == (out / build.LIB_NAME,
+                                     "ptxas info    : Used 117 registers")
+
+
 def test_editing_a_header_changes_the_build_directory(monkeypatch, tmp_path):
     """The build hash covers every file in csrc/, headers too, but only the
     .cu files are compiled: an edited header must not load a stale library."""
