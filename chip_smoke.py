@@ -91,12 +91,31 @@ each prints one line and any failure exits non-zero:
     forward kernel against a dense plain oracle: both terrains within the
     reference's bounds, and the over-relaxed march outside them; and at the
     main path's 6 octaves (its unrolled instantiation) too, each config
-    within the harness's margins of the plain path's own counts.
+    within the harness's margins of the plain path's own counts;
+25. the fit loop, both terrains: ``fit`` of 24 steps in chunks of 8 (the
+    first chunk eager, the rest replays of one CUDA graph of 8 whole steps)
+    against 24 single steps, bit for bit, with the launch counts of the eager
+    chunk and the capture (counted once, not per replay); killed at step 6
+    of 12 and resumed from its checkpoint in chunks of 3, bit for bit the
+    straight run; ms per step eager against graph replays of 8 and 16 steps
+    (CUDA events) and the device's busy share of each (profiler); whether
+    compaction's path captures (reported); the command line's ``fit --save
+    --save-every --steps-per-call 8``, then ``--resume``, ``-o``;
+26. the native frame writer (``utils/native_io.py``, built from
+    native/tpurt_io.cc): 8 flythrough frames at 512x512 written through
+    ``AsyncFrameWriter``, the native encoder alone and the Python encoder,
+    every PNG decoded equal to its frame; fps of each and without writing;
+    the command line's ``fly`` with native=True;
+27. row bands, both terrains: a process group of world size 1 on NCCL, its
+    sharded render bit for bit ``render`` and a sharded fit step's loss
+    ``pixel_loss``'s; 4 bands of 128 rows, each through the kernels from its
+    own row0, bit for bit the whole frame, their summed gradients the whole
+    frame's within rtol 1e-4, atol 1e-7.
 
-Phases 15-18 and 20-22 each drive their variants through the entry point a
-user calls (``render``, ``render_kernel_raw`` for the counter, ``fly_frames``,
-``fit_step``) with the launch counts set to 0 just before and read just
-after.
+Phases 15-18, 20-22 and 25-27 each drive their paths through the entry point
+a user calls (``render``, ``render_kernel_raw`` for the counter, ``fly_frames``,
+``fit_step``, ``fit``, ``sharded_render``, ``make_sharded_fit_step``) with
+the launch counts set to 0 just before and read just after.
 
 A line before the last is a JSON record of the kernels, each with its least
 time on the card (``bound_ms``, from operation counts of the source and the
@@ -339,6 +358,16 @@ EXPECTED_DIGESTS = {
     "volumetric/band 37x100 at row 5": "f372e28c79a0b3f8",
     "volumetric/row 1x512 at row 300": "346c4bc10cd187a5",
 }
+# Kill and resume in phase 25: a run stopped after RESUME_AT of RESUME_STEPS
+# steps, resumed from its checkpoint. FIT_STEPS steps in chunks of FIT_K
+# against single steps; step times of chunks of 1 (eager) and of
+# STEP_CHUNKS steps (CUDA graph replays).
+FIT_STEPS, FIT_K, RESUME_AT, RESUME_STEPS = 24, 8, 6, 12
+STEP_CHUNKS = (1, 8, 16)
+# Phase 27: the 512-row frame in BANDS bands of 128 rows; their summed
+# gradients against the whole frame's at tests/test_sharding.py:80-84's
+# tolerance, a group of one's loss against pixel_loss at BAND_LOSS_RTOL.
+BANDS, BAND_GRAD_RTOL, BAND_GRAD_ATOL, BAND_LOSS_RTOL = 4, 1e-4, 1e-7, 1e-6
 # AD vs FD checks of tests/test_grad.py: (leaf, component, eps, rtol, t_cap).
 FD_CHECKS = (
     ("noise.amplitudes", 0, 3e-3, 5e-2, 0.03),
@@ -1771,6 +1800,311 @@ def bf16_bwd_phase(scene, cfg, tag: str) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "graph_ms": gms, "host_us": host}
 
 
+def decode_png(data: bytes) -> np.ndarray:
+    """(H, W, 3) uint8 of a filter-0 truecolor PNG (what both writers emit)."""
+    import struct
+    import zlib
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail("not a PNG")
+    off, idat, shape = 8, b"", None
+    while off < len(data):
+        (n,) = struct.unpack(">I", data[off:off + 4])
+        tag = data[off + 4:off + 8]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", data[off + 8:off + 16])
+            shape = (h, w)
+        elif tag == b"IDAT":
+            idat += data[off + 8:off + 8 + n]
+        off += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(shape[0], shape[1] * 3 + 1)
+    if (rows[:, 0] != 0).any():
+        fail("PNG rows not filter 0")
+    return rows[:, 1:].reshape(shape[0], shape[1], 3)
+
+
+def params_of(scene) -> dict:
+    return {n: p.detach().clone() for n, p in scene.named_parameters()}
+
+
+def same_run(a, b) -> bool:
+    """Two fits' (scene, losses) bit for bit."""
+    return a[1] == b[1] and all(torch.equal(x, y) for x, y in
+                                zip(params_of(a[0]).values(), params_of(b[0]).values()))
+
+
+def fit_counts(what: str, steps: int, captured: int) -> dict:
+    """The launches since reset_counts() of a fit that ran ``steps`` steps
+    eagerly and captured ``captured`` (counted once, at capture): 2 forward
+    (coarse + fine) and 1 backward each."""
+    n = steps + captured
+    expect_counts(what, {"chunked": 2 * n, "bwd": n})
+    return launch_counts()
+
+
+def fit_loop_phase(start, target, cfg, trainable, tag: str, card: str) -> dict:
+    """Phase 25 on one terrain: ``fit`` in chunks of FIT_K (one CUDA graph)
+    against single steps, kill and resume, step times eager against graph
+    replays with the device's busy share; compaction's capture, reported."""
+    from gpgpuraytrace_tpu_torch.ops import fit as fitmod
+
+    def run(steps, **kw):
+        out = fitmod.fit(copy.deepcopy(start), cfg, target, steps=steps, learning_rate=5e-3,
+                         trainable=trainable, log_every=0, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    reset_counts()
+    single = run(FIT_STEPS)
+    fit_counts(f"{tag}fit, {FIT_STEPS} single steps", FIT_STEPS, 0)
+    reset_counts()
+    chunked = run(FIT_STEPS, steps_per_call=FIT_K)
+    # The first chunk runs eagerly; the second captures FIT_K steps once and
+    # every full chunk after it replays them.
+    counts = fit_counts(f"{tag}fit in chunks of {FIT_K}", FIT_K, FIT_K)
+    # One Adam configuration for every chunk size and the same kernels
+    # captured: bit for bit.
+    if not same_run(single, chunked):
+        fail(f"{tag}fit in chunks of {FIT_K} differs from single steps: losses "
+             f"{chunked[1]} vs {single[1]}")
+    if not (np.isfinite(single[1]).all() and single[1][-1] < single[1][0]):
+        fail(f"{tag}fit losses not finite or not falling: {single[1]}")
+    # What ``capturable`` moved: phase 9's (14's) 5 steps with torch's default
+    # CUDA Adam beside make_optimizer's, reported.
+    five = run(5)
+    s = copy.deepcopy(start)
+    opt = torch.optim.Adam(fitmod.partition_scene(s, trainable), lr=5e-3, betas=(0.9, 0.999),
+                           eps=1e-8)
+    default = [fitmod.fit_step(s, cfg, target, opt).item() for _ in range(5)]
+    adam_gap = (max(abs(a - b) / abs(b) for a, b in zip(five[1], default)),
+                max((a - b).abs().max().item()
+                    for a, b in zip(params_of(five[0]).values(), params_of(s).values())))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fit.npz")
+        straight = run(RESUME_STEPS)
+        run(RESUME_AT, save_path=path, save_every=RESUME_AT)  # "killed" after its save
+        resumed = run(RESUME_STEPS, save_path=path, save_every=RESUME_AT, resume=True,
+                      steps_per_call=3)
+    if not same_run(straight, resumed):
+        fail(f"{tag}kill at step {RESUME_AT} of {RESUME_STEPS} and resume (chunks of 3) "
+             f"differs from the straight run: {resumed[1]} vs {straight[1]}")
+    # Step times: a chunk of 1 eager, of 8 and 16 graph replays, in turns.
+    runs = {}
+    for k in STEP_CHUNKS:
+        s = copy.deepcopy(start)
+        opt = fitmod.make_optimizer(fitmod.partition_scene(s, trainable), 5e-3)
+        runs[k] = fitmod.StepChunk(s, cfg, target, opt, k)
+        runs[k]()  # eager (the warm-up); the next call captures and replays
+    times = {k: [] for k in STEP_CHUNKS}
+    for _ in range(2):
+        for k, r in runs.items():
+            times[k].extend(ms / k for ms in cuda_ms(r, max(2, 40 // k)))
+    step_ms = {k: statistics.median(v) for k, v in times.items()}
+    busy = {k: profile_frames(runs[k], step_ms[k] * k, frames=3) for k in STEP_CHUNKS}
+    # Compaction's path syncs no host (phase 20), so it may capture too:
+    # whether it captures is reported, not gated; once it has captured, its
+    # chunks must be its single steps bit for bit.
+    ccfg = dataclasses.replace(cfg, march_mode="compact")
+    c1 = fitmod.fit(copy.deepcopy(start), ccfg, target, steps=2 * FIT_K,
+                    learning_rate=5e-3, trainable=trainable, log_every=0)
+    try:
+        ck = fitmod.fit(copy.deepcopy(start), ccfg, target, steps=2 * FIT_K,
+                        learning_rate=5e-3, trainable=trainable, log_every=0,
+                        steps_per_call=FIT_K)
+    except RuntimeError as e:
+        compact = f"does not capture: {str(e).splitlines()[0][:200]}"
+    else:
+        if not same_run(c1, ck):
+            fail(f"{tag}compact fit in chunks of {FIT_K} (captured) differs from single "
+                 f"steps: losses {ck[1]} vs {c1[1]}")
+        compact = f"captures; {2 * FIT_K} steps in chunks of {FIT_K} bit for bit single steps"
+    torch.cuda.synchronize()
+    line = (f"{tag}fit of {FIT_STEPS} steps in chunks of {FIT_K} (one CUDA graph; "
+            f"launches counted {counts}: the eager chunk and the capture) bit for bit "
+            f"single steps (losses {single[1][0]:.6e} -> {single[1][-1]:.6e}); killed at "
+            f"step {RESUME_AT} of {RESUME_STEPS} and resumed in chunks of 3: bit for bit the "
+            f"straight run; ms per step (median, CUDA events): "
+            + ", ".join(f"{'eager' if k == 1 else f'graph of {k}'} {step_ms[k]:.4f}"
+                        for k in STEP_CHUNKS)
+            + f"; compaction {compact}; Adam capturable against torch's default CUDA "
+            f"Adam over phase 9's 5 steps: losses within rel {adam_gap[0]:.3e}, parameters "
+            f"within {adam_gap[1]:.3e} {card}")
+    return {"line": line, "step_ms": step_ms, "busy": busy, "losses": single[1]}
+
+
+def cli_fit_phase(losses: list[float]) -> str:
+    """Phase 25's command line: ``fit --save --save-every --steps-per-call``
+    for 16 steps, then ``--resume`` to 24, ``-o`` both; the 24 losses equal
+    the in-process single-step run's (the same start: seed 0, rel 0.15) bit
+    for bit."""
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, out = os.path.join(tmp, "fit.npz"), os.path.join(tmp, "out.npz")
+        for steps, extra in ((16, []), (FIT_STEPS, ["--resume"])):
+            args = ["fit", "--steps", str(steps), "--save", ckpt, "--save-every", "8",
+                    "--steps-per-call", str(FIT_K), "-o", out, *extra]
+            proc = subprocess.run([sys.executable, "-m", "gpgpuraytrace_tpu_torch.cli", *args],
+                                  cwd=REPO, capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                fail(f"cli {' '.join(args)} exited {proc.returncode}: {proc.stderr[-2000:]}")
+            lines.append(proc.stdout.strip().splitlines()[-2])
+        if "fit: resumed from" not in proc.stdout:
+            fail("cli fit --resume did not resume")
+        got = np.load(out)
+        if got["losses"].tolist() != losses or got["amplitudes"].shape != (6,):
+            fail(f"cli fit's resumed losses {got['losses'].tolist()} differ from the "
+                 f"in-process run's {losses}")
+    return ("cli fit 16 steps in chunks of 8 with --save, then --resume to 24, -o: the "
+            "in-process single steps' 24 losses bit for bit | " + " | ".join(lines))
+
+
+def writer_phase(cfg, dev) -> str:
+    """Phase 26: the flythrough through the native writer, every PNG decoded
+    and equal to its frame; frames per second with the native async writer,
+    the native encoder called synchronously, the Python encoder and without
+    writing; the command line's ``fly`` says native=True."""
+    from gpgpuraytrace_tpu_torch import default_scene
+    from gpgpuraytrace_tpu_torch.ops.flythrough import fly_frames
+    from gpgpuraytrace_tpu_torch.utils import native_io
+    from gpgpuraytrace_tpu_torch.utils.image import write_png
+
+    scene = default_scene(cfg.num_octaves, device=dev)
+    t0 = time.perf_counter()
+    if not native_io.available():
+        fail("the native writer did not build (g++ and zlib)")
+    build_s = time.perf_counter() - t0
+    reset_counts()
+    frames = dict(fly_frames(scene, cfg, 8, batch=4))
+    torch.cuda.synchronize()
+    expect_counts("fly_frames for the writer", {"chunked": 16})
+    writers = {
+        "without writing": None,
+        "Python writer": lambda p, f: write_png(p, f),
+        "native, synchronous": lambda p, f: native_io.write_png_native(p, f) or fail(p),
+        "native AsyncFrameWriter (2 threads)": "async",
+    }
+    fps = {k: [] for k in writers}
+    with tempfile.TemporaryDirectory() as tmp:
+        for rnd in range(2):
+            for n, (label, write) in enumerate(writers.items()):
+                d = os.path.join(tmp, f"{rnd}-{n}")
+                os.makedirs(d)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if write == "async":
+                    with native_io.AsyncFrameWriter(num_threads=2, level=6) as w:
+                        for i, f in fly_frames(scene, cfg, 8, batch=4):
+                            w.push(os.path.join(d, f"frame_{i:04d}.png"), f)
+                else:
+                    for i, f in fly_frames(scene, cfg, 8, batch=4):
+                        if write is not None:
+                            write(os.path.join(d, f"frame_{i:04d}.png"), f)
+                fps[label].append(8 / (time.perf_counter() - t0))
+                if write is not None:
+                    for i, f in frames.items():
+                        with open(os.path.join(d, f"frame_{i:04d}.png"), "rb") as fh:
+                            if not np.array_equal(decode_png(fh.read()), f):
+                                fail(f"{label}: frame {i}'s PNG differs from the frame")
+        proc = subprocess.run(
+            [sys.executable, "-m", "gpgpuraytrace_tpu_torch.cli", "fly", "--size", "512",
+             "--frames", "8", "--batch", "4", "-o", os.path.join(tmp, "cli")],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0 or "native=True" not in proc.stdout:
+            fail(f"cli fly: exit {proc.returncode}, {proc.stdout[-500:]} {proc.stderr[-2000:]}")
+        for i, f in frames.items():
+            with open(os.path.join(tmp, "cli", f"frame_{i:04d}.png"), "rb") as fh:
+                if not np.array_equal(decode_png(fh.read()), f):
+                    fail(f"cli fly: frame {i}'s PNG differs from fly_frames' frame")
+    return (f"native library built or loaded in {build_s:.2f} s; 8 frames 512x512 in "
+            f"batches of 4, each writer's PNGs decoded equal to fly_frames' frames, the "
+            f"cli's too; fps (host clock, 2 rounds in turns): "
+            + "; ".join(f"{k} " + " / ".join(f"{x:.2f}" for x in v) for k, v in fps.items())
+            + f" (phase 21's Python writer read 31.92 in PERF.md run 40) | "
+            + proc.stdout.strip().splitlines()[-1])
+
+
+def bands_phase(scene, cfg, tag: str, card: str) -> str:
+    """Phase 27 on one terrain: a process group of world size 1 on NCCL, its
+    sharded render bit for bit ``render`` and a sharded fit step's loss
+    ``pixel_loss``'s; then BANDS bands of 512 / BANDS rows, each traced
+    through the kernels from its own row0, bit for bit the whole frame, and
+    their summed gradients the whole frame's."""
+    from gpgpuraytrace_tpu_torch import render
+    from gpgpuraytrace_tpu_torch.ops import fit as fitmod
+    from gpgpuraytrace_tpu_torch.parallel import mesh
+    from gpgpuraytrace_tpu_torch.parallel.launch import free_port
+    from gpgpuraytrace_tpu_torch.parallel.sharded import (
+        make_sharded_fit_step, shard_target, sharded_render,
+    )
+
+    start = fitmod.perturb_scene(scene, torch.Generator().manual_seed(0), rel=0.15)
+    with torch.no_grad():
+        whole = render(scene, cfg)
+        target = render(start, cfg)
+    # "cuda" without an index: the rank binds its own card (mesh.rank_device).
+    if not mesh.initialize_distributed("cuda", f"tcp://localhost:{free_port()}", 1, 0):
+        fail("no process group was made")
+    try:
+        backend = torch.distributed.get_backend()
+        if backend != "nccl" or torch.cuda.current_device() != 0:
+            fail(f"{tag}the group of one runs {backend} on card "
+                 f"{torch.cuda.current_device()}, not nccl on card 0")
+        reset_counts()
+        sharded = sharded_render(scene, cfg)
+        torch.cuda.synchronize()
+        expect_counts(f"{tag}sharded render", {"chunked": 2})
+        if not torch.equal(sharded, whole):
+            fail(f"{tag}the sharded render of a group of one differs from render")
+        s = copy.deepcopy(scene)
+        params = fitmod.partition_scene(s)
+        with torch.no_grad():
+            want = fitmod.pixel_loss(s, cfg, target).item()
+        step = make_sharded_fit_step(s, cfg, params, fitmod.make_optimizer(params, 5e-3))
+        reset_counts()
+        got = step(shard_target(target, cfg)).item()
+        torch.cuda.synchronize()
+        expect_counts(f"{tag}sharded fit step", {"chunked": 2, "bwd": 1})
+        if abs(got - want) > BAND_LOSS_RTOL * abs(want):
+            fail(f"{tag}sharded fit step's loss {got!r} vs pixel_loss {want!r}")
+    finally:
+        torch.distributed.destroy_process_group()
+    # The bands in one process, each with its own row0.
+    params = fitmod.partition_scene(scene)
+    loss = fitmod.pixel_loss(scene, cfg, target)
+    whole_grads = torch.autograd.grad(loss, params)
+    summed = [torch.zeros_like(p) for p in params]
+    parts = []
+    reset_counts()
+    for r in range(BANDS):
+        row0, h = mesh.band(cfg, r, BANDS)
+        with torch.no_grad():
+            parts.append(render(scene, cfg, row0, h))
+        d = render(scene, cfg, row0, h) - target[int(row0):int(row0) + h]
+        band_loss = torch.sum(d * d) * (1.0 / (cfg.height * cfg.width * 3))
+        for acc, g in zip(summed, torch.autograd.grad(band_loss, params)):
+            acc += g
+    torch.cuda.synchronize()
+    expect_counts(f"{tag}{BANDS} bands", {"chunked": 4 * BANDS, "bwd": BANDS})
+    if not torch.equal(torch.cat(parts), whole):
+        rows = (torch.cat(parts) != whole).any(dim=(1, 2)).nonzero().flatten().tolist()
+        fail(f"{tag}the {BANDS} bands differ from the whole frame in rows {rows[:20]}")
+    worst = 0.0
+    for (n, _), a, b in zip([(n, p) for n, p in scene.named_parameters() if p.requires_grad],
+                            summed, whole_grads):
+        tol = BAND_GRAD_ATOL + BAND_GRAD_RTOL * b.abs()
+        w = ((a - b).abs() / tol).max().item()
+        worst = max(worst, w)
+        if w > 1.0:
+            fail(f"{tag}{n}: the bands' summed gradient at {w:.3f} of rtol {BAND_GRAD_RTOL} "
+                 f"+ atol {BAND_GRAD_ATOL} against the whole frame's")
+    return (f"{tag}group of world size 1 on {backend}: sharded render bit for bit render "
+            f"(2 forward launches), a sharded fit step's loss {got:.9e} vs pixel_loss "
+            f"{want:.9e} (rtol {BAND_LOSS_RTOL}); {BANDS} bands of {cfg.height // BANDS} rows "
+            f"from their own row0 ({4 * BANDS} forward, {BANDS} backward launches): bit for "
+            f"bit the whole frame, summed gradients at worst {worst:.4f} of rtol "
+            f"{BAND_GRAD_RTOL} + atol {BAND_GRAD_ATOL} {card}")
+
+
 def main() -> None:
     # --- 1. host -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2086,6 +2420,27 @@ def main() -> None:
 
     # --- 24. march quality through the kernel --------------------------------------
     phase(24, "march quality", quality_phase(dev))
+
+    # --- 25-27. the fit loop, the native writer, row bands -------------------------
+    for tag, vol in (("", False), ("volumetric ", True)):
+        c = vcfg if vol else cfg
+        target_scene = default_scene(6, volumetric=vol, device=dev)
+        with torch.no_grad():
+            target = render(target_scene, c)
+        start = fitmod.perturb_scene(target_scene, torch.Generator().manual_seed(0), rel=0.15)
+        if vol:
+            with torch.no_grad():
+                start.noise.warp_amplitude.mul_(1.1)
+        results["fit", tag] = fit_loop_phase(
+            start, target, c, vtrainable if vol else fitmod.default_trainable, tag, card)
+        phase(25, "fit loop", results["fit", tag]["line"])
+        for k, prof in results["fit", tag]["busy"].items():
+            print(f"    {tag}where a chunk of {k} step(s) goes: {prof}")
+    phase(25, "fit loop", cli_fit_phase(results["fit", ""]["losses"]))
+    phase(26, "native writer", f"{writer_phase(cfg, dev)} {card}")
+    for tag, vol in (("", False), ("volumetric ", True)):
+        phase(27, "row bands", bands_phase(default_scene(6, volumetric=vol, device=dev),
+                                           vcfg if vol else cfg, tag, card))
 
     # Bounds of phases 3, 8, 11 and 13 from phase 15's useful steps and hits.
     n_pix = cfg.height * cfg.width

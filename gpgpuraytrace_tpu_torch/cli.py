@@ -3,6 +3,7 @@ flythrough frames with live tweaks, or write a tweak template.
 
   python -m gpgpuraytrace_tpu_torch.cli render --size 512 --octaves 6 -o frame.png
   python -m gpgpuraytrace_tpu_torch.cli fit --size 512 --steps 100
+  python -m gpgpuraytrace_tpu_torch.cli fit --steps 100 --steps-per-call 8 --save fit.npz --resume
   python -m gpgpuraytrace_tpu_torch.cli render --volumetric --size 512 -o frame.png
   python -m gpgpuraytrace_tpu_torch.cli render --march-mode compact -o frame.png
   python -m gpgpuraytrace_tpu_torch.cli fly --size 512 --frames 60 --tweak live.json -o frames/
@@ -13,6 +14,12 @@ flythrough frames with live tweaks, or write a tweak template.
 renders through the trace kernel path, ``--no-kernel`` through the plain
 op-by-op path. ``render`` and ``fly`` take ``--march-mode`` (the march
 variant; RenderConfig's defaults for the rest, compaction's budget too).
+``fit`` checkpoints and resumes (``--save``, ``--save-every``, ``--resume``)
+and runs ``--steps-per-call`` steps per chunk (on the card one CUDA graph);
+``fly`` writes frames through the native writer's worker threads
+(``utils/native_io.py``), or the Python encoder when it cannot be built.
+There is no ``--aot-cache``: the port's compiled artifact is the kernel
+library, built once per source hash (``kernels/build.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import argparse
 import os
 import time
 
+import numpy as np
 import torch
 
 
@@ -124,17 +132,24 @@ def cmd_fit(args):
         target = render(target_scene, cfg)
     scene0 = perturb_scene(target_scene, torch.Generator().manual_seed(args.seed), rel=0.15)
     t0 = time.perf_counter()
-    scene, losses = fit(scene0, cfg, target, steps=args.steps, learning_rate=args.lr)
+    scene, losses = fit(
+        scene0, cfg, target, steps=args.steps, learning_rate=args.lr,
+        save_path=args.save, save_every=args.save_every, resume=args.resume,
+        steps_per_call=args.steps_per_call,
+    )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     fit_s = time.perf_counter() - t0
     print(
         f"fit: loss {losses[0]:.4e} -> {losses[-1]:.4e} over {len(losses)} steps "
-        f"({fit_s / len(losses) * 1e3:.2f} ms/step host clock, first step "
-        f"includes the kernel build)"
+        f"({fit_s * 1e3:.1f} ms host clock for this run's steps, "
+        f"steps_per_call={args.steps_per_call}; the first step includes the kernel build)"
     )
     amp_err = (scene.noise.amplitudes - target_scene.noise.amplitudes).abs().max().item()
     print(f"max |amplitude error| = {amp_err:.4f}")
+    if args.out:
+        np.savez(args.out, losses=np.asarray(losses),
+                 amplitudes=scene.noise.amplitudes.detach().cpu().numpy())
 
 
 def cmd_fly(args):
@@ -167,19 +182,37 @@ def cmd_fly(args):
 
     os.makedirs(args.out, exist_ok=True)
     ext = args.format
+    level = args.encode_level
+    # The native writer's worker threads encode and write while the card
+    # renders the next batch; without g++ or zlib, synchronous Python writes.
+    writer = None
+    try:
+        from gpgpuraytrace_tpu_torch.utils.native_io import AsyncFrameWriter
+
+        writer = AsyncFrameWriter(num_threads=2, level=level)
+    except RuntimeError:
+        pass
     t0 = time.perf_counter()
     n = 0
-    for idx, frame in fly_frames(scene, cfg, args.frames, batch=args.batch,
-                                 on_batch=on_batch):
-        write_png(os.path.join(args.out, f"frame_{idx:04d}.{ext}"), frame,
-                  level=args.encode_level)
-        n += 1
-    dt = time.perf_counter() - t0
+    try:
+        for idx, frame in fly_frames(scene, cfg, args.frames, batch=args.batch,
+                                     on_batch=on_batch):
+            path = os.path.join(args.out, f"frame_{idx:04d}.{ext}")
+            if writer is not None:
+                writer.push(path, frame)
+            else:
+                write_png(path, frame, level=level)
+            n += 1
+    finally:
+        errs = writer.close() if writer is not None else 0
+    dt = time.perf_counter() - t0  # the writer's queue drained
+    if errs:
+        raise RuntimeError(f"the native writer failed to write {errs} frames")
     print(
         f"flythrough: {n} frames {cfg.width}x{cfg.height} in {dt:.2f}s "
         f"({n / dt:.2f} fps incl. writing, host clock; on the card the first "
-        f"batch includes the kernel build; format={ext}"
-        + (f" zlib={args.encode_level}" if ext == "png" else "")
+        f"batch includes the kernel build; native={writer is not None}, format={ext}"
+        + (f" zlib={level}" if ext == "png" else "")
         + f", march_mode={cfg.march_mode})"
     )
 
@@ -241,6 +274,17 @@ def main(argv=None):
     sp.add_argument("--steps", type=int, default=300)
     sp.add_argument("--lr", type=float, default=5e-3)
     sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--save", default="", metavar="PATH",
+                    help="checkpoint the trainable params and Adam's state to PATH (.npz)")
+    sp.add_argument("--save-every", type=int, default=25,
+                    help="checkpoint interval in steps (with --save)")
+    sp.add_argument("--resume", action="store_true",
+                    help="resume from --save PATH if it exists (exact continuation)")
+    sp.add_argument("--steps-per-call", type=int, default=1,
+                    help="Adam steps per chunk; on the card one CUDA graph of the "
+                    "chunk's steps, same trajectory, far fewer launches from the host")
+    sp.add_argument("-o", "--out", default="",
+                    help="write the losses and the fitted amplitudes to this .npz")
     sp.set_defaults(fn=cmd_fit)
     sp = sub.add_parser("fly", help="animated flythrough frames")
     _common(sp, march_mode=True)

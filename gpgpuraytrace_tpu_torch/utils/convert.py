@@ -9,6 +9,8 @@ JAX package's pytree leaf names (``noise.amplitudes``, ``camera.position``,
 
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 
 from gpgpuraytrace_tpu_torch.models.scene import (
@@ -56,3 +58,41 @@ def scene_to_numpy(scene: Scene) -> dict[str, np.ndarray]:
     tensors = dict(scene.named_parameters())
     tensors.update(scene.named_buffers())
     return {name: tensors[name].detach().cpu().numpy() for name in LEAF_NAMES}
+
+
+def fit_state_from_jax(npz, trainable: Callable[[str], bool] | None = None
+                       ) -> dict[str, np.ndarray]:
+    """The JAX package's fit checkpoint (``save_fit_state`` of
+    ``(train_leaves, ScaleByAdamState(count, mu, nu))``: keys
+    ``s{i:04d}|0.{leaf}``, ``|1.0.count``, ``|1.0.mu.{leaf}``,
+    ``|1.0.nu.{leaf}``) as the arrays of the port's
+    (``utils/checkpoint.py``): write them with ``np.savez`` and resume from
+    that file. ``npz`` is a path or what ``np.load`` returned for one.
+
+    Leaf i is the i-th float name of ``LEAF_NAMES`` that ``trainable``
+    accepts (default: ``ops/fit.py:default_trainable``), the order both
+    packages partition a scene in. optax's one ``count`` (int32) becomes
+    every parameter's ``step`` (float32, exact), ``mu`` its ``exp_avg`` and
+    ``nu`` its ``exp_avg_sq``; values are copied bit for bit."""
+    if trainable is None:
+        from gpgpuraytrace_tpu_torch.ops.fit import default_trainable as trainable
+    data = npz if hasattr(npz, "files") else np.load(npz)
+    by_path = {k.split("|", 1)[1]: data[k] for k in data.files if k.startswith("s")}
+    names = [n for n in LEAF_NAMES if n != "noise.seed" and trainable(n)]
+    leaves = sorted(int(p[2:]) for p in by_path if p.startswith("0."))
+    if leaves != list(range(len(names))):
+        raise ValueError(f"JAX checkpoint has {len(leaves)} trainable leaves, the port's "
+                         f"trainable set {names}")
+    count = np.float32(by_path["1.0.count"])
+    n = len(names)
+    out = {}
+    for i, name in enumerate(names):
+        out[f"s{i:04d}|{name}"] = by_path[f"0.{i}"]
+        for k, (field, value) in enumerate((
+                ("step", np.asarray(count, np.float32)),
+                ("exp_avg", by_path[f"1.0.mu.{i}"]),
+                ("exp_avg_sq", by_path[f"1.0.nu.{i}"]))):
+            out[f"s{n + 3 * i + k:04d}|adam.{name}.{field}"] = value
+    out["meta_step"] = np.asarray(data["meta_step"], np.int64)
+    out["meta_losses"] = np.asarray(data["meta_losses"], np.float64)
+    return out

@@ -1,8 +1,10 @@
 """Image output: PNG and NPY writers (numpy only).
 
 Copied from ``gpgpuraytrace_tpu/utils/image.py`` so the port does not import
-the JAX package; the dependency-free PNG encoder is zlib + struct. The JAX
-package's native C++ frame writer is not ported yet (ROADMAP.md).
+the JAX package; the dependency-free PNG encoder is zlib + struct, and
+``write_png`` always uses it. The native C++ writer (``utils/native_io.py``:
+a synchronous encoder and the asynchronous ``AsyncFrameWriter``) is what
+the flythrough CLI writes frames with; this encoder is its fallback.
 """
 
 from __future__ import annotations

@@ -50,7 +50,9 @@ def pack_scene(scene: Scene, height: int, width: int, row0=0.0):
     sun = m.sun_dir * torch.rsqrt(torch.sum(m.sun_dir * m.sun_dir) + 1e-12)
 
     def scalar(v):
-        return torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(1)
+        # Filled on the device: a host-to-device copy would sync the host and
+        # is not allowed while a stream is capturing a CUDA graph.
+        return torch.full((1,), v, dtype=torch.float32, device=dev)
 
     parts = [
         scene.camera.position, fwd, right, up,
