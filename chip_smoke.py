@@ -71,10 +71,11 @@ each prints one line and any failure exits non-zero:
     under compact; the default instantiation's registers and fine-pass
     times, and phase 2's graph time, held to their record;
 21. the flythrough: ``fly_frames`` at 512x512, 8 frames in batches of 4 under
-    the default config and 4 under compact, each frame equal to ``render`` of
-    its camera, tonemapped and quantized; a tweak file read between batches
-    changes the next batch and reports an unknown name; the command line's
-    ``fly`` and ``tweaks``; frames per second with and without writing;
+    the default config and 4 under compact, one launch per pass per batch
+    (the kernels' frame axis), each frame equal to ``render`` of its camera,
+    tonemapped and quantized; a tweak file read between batches changes the
+    next batch and reports an unknown name; the command line's ``fly`` and
+    ``tweaks``; frames per second with and without writing;
 22. the backward kernel's bf16 instantiation (its march channel through the
     bf16 field), both terrains: a training step under ``march_bf16`` launches
     it; against its plain version on the bf16 frame's (t, hit), with phase
@@ -110,9 +111,23 @@ each prints one line and any failure exits non-zero:
     sharded render bit for bit ``render`` and a sharded fit step's loss
     ``pixel_loss``'s; 4 bands of 128 rows, each through the kernels from its
     own row0, bit for bit the whole frame, their summed gradients the whole
-    frame's within rtol 1e-4, atol 1e-7.
+    frame's within rtol 1e-4, atol 1e-7;
+28. batches (the forward kernels' frame axis: the flythrough's temporal ray
+    batching, one launch per pass per batch), both terrains: at 512x512,
+    batches of 1, 2, 4 and 8 frames along the fly path, each frame's outputs
+    (coarse and fine pass, float32 and bf16, compaction's two phases at
+    budget 32) bit for bit (SHA-256) its one-frame launch; the batched
+    kernels against their plain versions on 2 frames with phase 3's gates,
+    their times and bounds; ``fly_frames``, 8 frames in batches of 4, one
+    launch per pass per batch, and a batch traced with host syncs raising; a
+    1920x1080 batch of 4 bit for bit its one-frame renders; device times as
+    CUDA graphs (a batch of 4 against 4 one-frame traces, the coarse pass of
+    4 frames against 1), the wrapper's host us per launch, one frame and a
+    batch, and of each part of its launcher; fly fps without writing at
+    batch 1, 4 and 8 at 512x512 and 1920x1080, and the device's busy share
+    of a batch of 4.
 
-Phases 15-18, 20-22 and 25-27 each drive their paths through the entry point
+Phases 15-18, 20-22 and 25-28 each drive their paths through the entry point
 a user calls (``render``, ``render_kernel_raw`` for the counter, ``fly_frames``,
 ``fit_step``, ``fit``, ``sharded_render``, ``make_sharded_fit_step``) with
 the launch counts set to 0 just before and read just after.
@@ -125,6 +140,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import hashlib
@@ -294,6 +310,11 @@ REPLACES = {
     "lod+bf16": "gpgpuraytrace_tpu/ops/noise.py:181",
     "compact:phase1": "gpgpuraytrace_tpu/kernels/trace.py:610",
     "compact:phase2": "gpgpuraytrace_tpu/kernels/trace.py:650",
+    # A batch of frames, one launch (the kernels under the JAX package's vmap,
+    # gpgpuraytrace_tpu/ops/flythrough.py:39-55).
+    "chunked+frames": "gpgpuraytrace_tpu/kernels/trace.py:510",
+    "compact+frames:phase1": "gpgpuraytrace_tpu/kernels/trace.py:610",
+    "compact+frames:phase2": "gpgpuraytrace_tpu/kernels/trace.py:650",
     "bwd+bf16": "gpgpuraytrace_tpu/kernels/trace.py:796",
 }
 # The first 16 hex digits of the SHA-256 of every output's bytes
@@ -368,6 +389,12 @@ STEP_CHUNKS = (1, 8, 16)
 # gradients against the whole frame's at tests/test_sharding.py:80-84's
 # tolerance, a group of one's loss against pixel_loss at BAND_LOSS_RTOL.
 BANDS, BAND_GRAD_RTOL, BAND_GRAD_ATOL, BAND_LOSS_RTOL = 4, 1e-4, 1e-7, 1e-6
+# Phase 28: batches of frames along the fly path through the forward
+# kernels' frame axis, the 1080p size of BASELINE.json's config 4 (height,
+# width), and the frames of each fly fps reading.
+BATCHES = (1, 2, 4, 8)
+HD = (1080, 1920)
+FLY_FRAMES, FLY_ROUNDS = 24, 3
 # AD vs FD checks of tests/test_grad.py: (leaf, component, eps, rtol, t_cap).
 FD_CHECKS = (
     ("noise.amplitudes", 0, 3e-3, 5e-2, 0.03),
@@ -453,22 +480,25 @@ def ptxas_lines(log: str) -> list[str]:
     (the forward kernel as trace_fwd_kernel<mode, bf16, debug, octaves>,
     octaves 0 for the loop over a runtime count, and without octaves for a
     build before the unrolled twins; phase 2 as <bf16, octaves>, or <bf16>
-    before its ray groups; the backward kernel as <bf16>)."""
+    before its ray groups; the backward kernel as <bf16>; an instantiation
+    with the frame axis ends ", frames>")."""
     modes = ("chunked", "fixed", "lod", "compact")
     name, out = "", []
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            m = re.search(r"\d(trace_\w+?)(?:ILi(\d)ELb(\d)ELb(\d)E(?:Li(\d+)E)?"
-                          r"|ILb(\d)E(?:Li(\d+)E)?)?E", entry.group(1))
+            m = re.search(r"\d(trace_\w+?)(?:ILi(\d)ELb(\d)ELb(\d)E(?:Li(\d+)E)?(?:Lb(\d)E)?"
+                          r"|ILb(\d)E(?:Li(\d+)E)?(?:Lb(\d)E)?)?E", entry.group(1))
             name = m.group(1) if m else entry.group(1)
             if m and m.group(2):
                 octaves = f", octaves={m.group(5)}" if m.group(5) else ""
+                frames = ", frames" if m.group(6) == "1" else ""
                 name += (f"<{modes[int(m.group(2))]}, bf16={m.group(3)}, debug={m.group(4)}"
-                         f"{octaves}>")
-            elif m and m.group(6):
-                octaves = f", octaves={m.group(7)}" if m.group(7) else ""
-                name += f"<bf16={m.group(6)}{octaves}>"
+                         f"{octaves}{frames}>")
+            elif m and m.group(7):
+                octaves = f", octaves={m.group(8)}" if m.group(8) else ""
+                frames = ", frames" if m.group(9) == "1" else ""
+                name += f"<bf16={m.group(7)}{octaves}{frames}>"
         elif line.startswith("---"):
             out.append(line.strip())
         elif "registers" in line or "spill" in line:
@@ -1616,9 +1646,9 @@ def compact_phase(scene, cfg, tag: str) -> dict:
 
 def fly_phase(cfg, dev) -> tuple[str, dict]:
     """Phase 21: the flythrough through ``fly_frames``, its tweaks and its
-    command line: (report, the compact frames' launches by instantiation)."""
+    command line: (report, the frames' launches by instantiation)."""
     from gpgpuraytrace_tpu_torch import default_scene, render
-    from gpgpuraytrace_tpu_torch.kernels.trace import phase_name
+    from gpgpuraytrace_tpu_torch.kernels.trace import phase_name, variant_name
     from gpgpuraytrace_tpu_torch.models.scene import Scene
     from gpgpuraytrace_tpu_torch.ops.flythrough import fly_frames, flythrough_camera
     from gpgpuraytrace_tpu_torch.ops.shade import tonemap
@@ -1637,9 +1667,9 @@ def fly_phase(cfg, dev) -> tuple[str, dict]:
 
     counts = {}
     frames = {}
-    for label, c, n, expect in (("default", cfg, 8, {"chunked": 16}),
-                                ("compact", ccfg, 4, {phase_name(ccfg, 1): 4,
-                                                      phase_name(ccfg, 2): 4})):
+    for label, c, n, expect in (("default", cfg, 8, {variant_name(cfg, frames=4): 4}),
+                                ("compact", ccfg, 4, {phase_name(ccfg, 1, 4): 1,
+                                                      phase_name(ccfg, 2, 4): 1})):
         reset_counts()
         frames[label] = list(fly_frames(scene, c, n, batch=4))
         torch.cuda.synchronize()
@@ -1711,14 +1741,14 @@ def fly_phase(cfg, dev) -> tuple[str, dict]:
     same_as_primed = sum(np.array_equal(a, b) for (_, a), (_, b)
                          in zip(frames["compact"], frames["default"]))
     return (f"fly_frames 512x512: 8 default frames in batches of 4 "
-            f"({sum(counts['default'].values())} forward launches), 4 compact frames "
-            f"({sum(counts['compact'].values())} launches), each "
+            f"({sum(counts['default'].values())} forward launches: one per pass per batch), "
+            f"4 compact frames ({sum(counts['compact'].values())} launches), each "
             f"equal to render + tonemap + quantize of its camera bit for bit; compact frames "
             f"vs the default's primed frames: {same_as_primed} of 4 equal; "
             f"a tweak file read between batches changed batch 2 only and rejected "
             f"noise.no_such_leaf; in-process fps (host clock, 8 frames): "
             + ", ".join(f"{k} {v:.2f}" for k, v in fps.items())
-            + "; cli: " + " | ".join(cli_lines)), counts["compact"]
+            + "; cli: " + " | ".join(cli_lines)), {**counts["default"], **counts["compact"]}
 
 
 def bf16_bwd_phase(scene, cfg, tag: str) -> dict:
@@ -1964,6 +1994,7 @@ def writer_phase(cfg, dev) -> str:
     the native encoder called synchronously, the Python encoder and without
     writing; the command line's ``fly`` says native=True."""
     from gpgpuraytrace_tpu_torch import default_scene
+    from gpgpuraytrace_tpu_torch.kernels.trace import variant_name
     from gpgpuraytrace_tpu_torch.ops.flythrough import fly_frames
     from gpgpuraytrace_tpu_torch.utils import native_io
     from gpgpuraytrace_tpu_torch.utils.image import write_png
@@ -1976,7 +2007,7 @@ def writer_phase(cfg, dev) -> str:
     reset_counts()
     frames = dict(fly_frames(scene, cfg, 8, batch=4))
     torch.cuda.synchronize()
-    expect_counts("fly_frames for the writer", {"chunked": 16})
+    expect_counts("fly_frames for the writer", {variant_name(cfg, frames=4): 4})
     writers = {
         "without writing": None,
         "Python writer": lambda p, f: write_png(p, f),
@@ -2103,6 +2134,372 @@ def bands_phase(scene, cfg, tag: str, card: str) -> str:
             f"from their own row0 ({4 * BANDS} forward, {BANDS} backward launches): bit for "
             f"bit the whole frame, summed gradients at worst {worst:.4f} of rtol "
             f"{BAND_GRAD_RTOL} + atol {BAND_GRAD_ATOL} {card}")
+
+
+def fly_batch(scene, n: int, start: int = 0):
+    """The fly path's frames start .. start + n - 1 at 30 fps: (times, Cameras)."""
+    from gpgpuraytrace_tpu_torch.ops.flythrough import flythrough_cameras
+
+    times = torch.arange(start, start + n, dtype=torch.float32) / 30.0
+    return times, flythrough_cameras(scene, times)
+
+
+def one_frame_cameras(scene, times):
+    """The scene seen from the fly path's camera at each time, one frame each."""
+    from gpgpuraytrace_tpu_torch.models.scene import Scene
+    from gpgpuraytrace_tpu_torch.ops.flythrough import flythrough_camera
+
+    return [Scene(scene.noise, flythrough_camera(scene, t), scene.materials) for t in times]
+
+
+def batch_digests(scene, cfg, tag: str) -> str:
+    """Phase 28, part 1 on one terrain: at ``cfg``'s size, batches of
+    BATCHES frames along the fly path through the frame axis, each frame's
+    SHA-256 against its one-frame launch: the coarse and the fine pass
+    (float32 and bf16), compaction's phase 1 (its survivors as a sorted set)
+    and phase 2."""
+    from gpgpuraytrace_tpu_torch.kernels.trace import (
+        trace_frame, trace_frames, trace_phase1, trace_phase1s, trace_phase2, trace_phase2s,
+    )
+    from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
+    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene, pack_scenes
+
+    n_max = max(BATCHES)
+    times, cams = fly_batch(scene, n_max)
+    singles = one_frame_cameras(scene, times)
+    ch = cfg.height // cfg.prime_ds + 2
+    checked = 0
+    with torch.no_grad():
+        for bf16 in (False, True):
+            c = dataclasses.replace(cfg, march_bf16=bf16)
+            ccfg = coarse_prime_cfg(c)
+            cmp = dataclasses.replace(c, march_mode="compact", compact_budget=COMPACT_BUDGET)
+            ones = []
+            for s in singles:  # every one-frame launch once; batches take the first B
+                pc, seed = (x.detach() for x in pack_scene(s, ccfg.height, ccfg.width, -1.0))
+                pf = pack_scene(s, c.height, c.width)[0].detach()
+                coarse = trace_frame(pc, seed, ccfg, ch)
+                prime = prime_from_coarse(coarse[1], c)
+                fine = trace_frame(pf, seed, c, c.height, prime)
+                p1 = trace_phase1(pf, seed, cmp, c.height)
+                n = int(p1[6].item())
+                d1 = digest((*p1[:5], p1[5][:n].sort().values, p1[6]))
+                trace_phase2(pf, seed, cmp, c.height, p1[6], p1[5], p1[4], *p1[:3])
+                ones.append({"coarse": digest(coarse), "prime": digest([prime]),
+                             "fine": digest(fine), "phase1": d1, "phase2": digest(p1[:3])})
+            for b in BATCHES:
+                sub = dataclasses.replace(cams, position=cams.position[:b], yaw=cams.yaw[:b])
+                pc = pack_scenes(scene, sub, ccfg.height, ccfg.width, -1.0)[0].detach()
+                pf, seed = (x.detach() for x in pack_scenes(scene, sub, c.height, c.width))
+                coarse = trace_frames(pc, seed, ccfg, ch)
+                prime = prime_from_coarse(coarse[1], c)
+                fine = trace_frames(pf, seed, c, c.height, prime)
+                p1 = trace_phase1s(pf, seed, cmp, c.height)
+                got1 = []
+                for k in range(b):
+                    n = int(p1[6][k].item())
+                    got1.append(digest((*(x[k] for x in p1[:5]), p1[5][k][:n].sort().values,
+                                        p1[6][k:k + 1])))
+                trace_phase2s(pf, seed, cmp, c.height, p1[6], p1[5], p1[4], *p1[:3])
+                for k in range(b):
+                    got = {"coarse": digest(x[k] for x in coarse), "prime": digest([prime[k]]),
+                           "fine": digest(x[k] for x in fine), "phase1": got1[k],
+                           "phase2": digest(x[k] for x in p1[:3])}
+                    moved = sorted(p for p in got if got[p] != ones[k][p])
+                    if moved:
+                        fail(f"{tag}batch of {b}{' bf16' if bf16 else ''}: frame {k}'s "
+                             f"{moved} differ from its one-frame launch")
+                    checked += len(got)
+    torch.cuda.synchronize()
+    return (f"{tag}{cfg.height}x{cfg.width}, batches of {'/'.join(map(str, BATCHES))} "
+            f"frames along the fly path, float32 and bf16: {checked} outputs (coarse pass, "
+            f"prime map, fine pass, compaction's phase 1 with its survivors as a set and "
+            f"phase 2 at budget {COMPACT_BUDGET}) each bit for bit (SHA-256) its one-frame "
+            f"launch")
+
+
+def batch_vs_plain(scene, cfg, tag: str) -> dict:
+    """Phase 28, part 2 on one terrain: on the fly path's first 2 frames,
+    the batched kernels against their plain versions with phase 3's gates
+    (the fine pass from the batch's prime map; phase 2 on the survivors'
+    pixels), their device times as CUDA graphs and their bounds from this
+    batch's counted steps and hits."""
+    from gpgpuraytrace_tpu_torch.kernels.trace import (
+        _prime_maps, trace_frames, trace_frames_reference, trace_phase1s,
+        trace_phase1s_reference, trace_phase2s, trace_phase2s_reference,
+    )
+    from gpgpuraytrace_tpu_torch.utils.packing import pack_scenes
+
+    b = 2
+    _, cams = fly_batch(scene, b)
+    h, n_pix = cfg.height, b * cfg.height * cfg.width
+    cmp = dataclasses.replace(cfg, march_mode="compact", compact_budget=COMPACT_BUDGET)
+    ucfg = dataclasses.replace(cfg, prime_ds=0)
+    with torch.no_grad():
+        prime = _prime_maps(scene, cams, cfg)
+        packed, seed = (x.detach() for x in pack_scenes(scene, cams, cfg.height, cfg.width))
+        kern = trace_frames(packed, seed, cfg, h, prime)
+        ref, plain_ms = once_ms(lambda: trace_frames_reference(packed, seed, cfg, h, prime))
+        err, line = compare_trace(f"{tag}batch of 2 fine vs plain", kern, ref)
+        *_, steps = trace_frames(packed, seed, cfg, h, prime, debug_steps=True)
+        ms = graph_ms(lambda: trace_frames(packed, seed, cfg, h, prime), 20)
+        bnd = fwd_bound(cfg, steps.sum().item(), kern[2].sum().item(), n_pix)
+
+        p1 = trace_phase1s(packed, seed, cmp, h)
+        r1, plain1_ms = once_ms(lambda: trace_phase1s_reference(packed, seed, cmp, h))
+        err1, line1 = compare_trace(f"{tag}batch of 2 phase 1 vs plain", p1[:3], r1[:3])
+        if not torch.equal(p1[3], r1[3]) or not torch.equal(p1[6], r1[6]):
+            fail(f"{tag}batch phase 1: alive or n_alive differs from the plain version's")
+        for k in range(b):
+            n = int(p1[6][k].item())
+            if not torch.equal(p1[5][k][:n].sort().values, r1[5][k][:n]):
+                fail(f"{tag}batch phase 1: frame {k}'s survivors' list differs as a set")
+        k2 = [x.clone() for x in p1[:3]]
+        trace_phase2s(packed, seed, cmp, h, p1[6], p1[5], p1[4], *k2)
+        r2 = [x.clone() for x in p1[:3]]
+        _, plain2_ms = once_ms(lambda: trace_phase2s_reference(
+            packed, seed, cmp, h, p1[6], p1[5], p1[4], *r2))
+        alive = p1[3] > 0.5
+
+        def survivors(out):
+            return out[0].transpose(0, 1)[:, alive], out[1][alive], out[2][alive]
+
+        err2, line2 = compare_trace(f"{tag}batch of 2 phase 2 vs plain on the "
+                                    f"{int(alive.sum())} survivors", survivors(k2),
+                                    survivors(r2))
+        ms1 = graph_ms(lambda: trace_phase1s(packed, seed, cmp, h), 20)
+        tbuf = p1[1].clone()
+        outs = [x.clone() for x in p1[:3]]
+
+        def restore():
+            outs[1].copy_(tbuf)
+
+        def p2():
+            restore()
+            trace_phase2s(packed, seed, cmp, h, p1[6], p1[5], p1[4], *outs)
+
+        ms2 = max(graph_ms(p2, 20) - graph_ms(restore, 20), 0.0)
+        *_, lanes = trace_frames(packed, seed, ucfg, h, debug_steps=True)
+    torch.cuda.synchronize()
+    n = int(p1[6].sum().item())
+    hits1 = p1[2].sum().item()
+    hits2 = k2[2].sum().item() - hits1
+    b1 = fwd_bound(cmp, lanes.clamp(max=COMPACT_BUDGET).sum().item(), hits1, n_pix,
+                   nbytes=28 * n_pix + 4 * n + 4 * b)
+    b2 = fwd_bound(cmp, (lanes - COMPACT_BUDGET).clamp(min=0).sum().item(), hits2, n,
+                   nbytes=32 * n + 4 * b)
+    report = (f"{line}; {ms:.5f} ms as a CUDA graph (bound {bnd[0]:.4f} ms, {bnd[1]}; plain "
+              f"{plain_ms:.3f} ms) | {line1}; {ms1:.5f} ms (bound {b1[0]:.4f}; plain "
+              f"{plain1_ms:.3f}) | {line2}; {ms2:.5f} ms less its restores (bound "
+              f"{b2[0]:.4f}; plain {plain2_ms:.3f})")
+    entry = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+    return {"line": report, "fine": entry,
+            "phase1": {"err": err1, "ms": ms1, "plain_ms": plain1_ms, "bound_ms": b1[0],
+                       "bound_by": b1[1]},
+            "phase2": {"err": err2, "ms": ms2, "plain_ms": plain2_ms, "bound_ms": b2[0],
+                       "bound_by": b2[1]}}
+
+
+def batch_fly(scene, cfg, tag: str) -> tuple[str, dict]:
+    """Phase 28, part 3 on one terrain: ``fly_frames``, 8 frames in batches
+    of 4, under the default config and under compact, with the launch counts
+    set to 0 just before and read just after: one launch per pass per batch,
+    each frame bit for bit ``render_frame_uint8`` of its time; a batch traced
+    with every host sync raising. Returns (report, launches by
+    instantiation)."""
+    from gpgpuraytrace_tpu_torch.kernels.trace import phase_name, variant_name
+    from gpgpuraytrace_tpu_torch.ops.flythrough import (
+        fly_frames, render_batch_uint8, render_frame_uint8,
+    )
+
+    counts = collections.Counter()
+    cmp = dataclasses.replace(cfg, march_mode="compact", compact_budget=COMPACT_BUDGET)
+    for c, expect in ((cfg, {variant_name(cfg, frames=4): 4}),
+                      (cmp, {phase_name(cmp, 1, 4): 2, phase_name(cmp, 2, 4): 2})):
+        reset_counts()
+        frames = list(fly_frames(scene, c, 8, batch=4))
+        torch.cuda.synchronize()
+        expect_counts(f"{tag}fly_frames {c.march_mode}, 8 frames in batches of 4", expect)
+        counts.update(launch_counts())
+        times = torch.arange(8, dtype=torch.float32) / 30.0
+        for i, f in frames:
+            if not np.array_equal(f, render_frame_uint8(scene, c, times[i]).cpu().numpy()):
+                fail(f"{tag}fly frame {i} ({c.march_mode}) differs from render_frame_uint8")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            render_batch_uint8(scene, c, times[4:])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return (f"{tag}fly_frames 8 frames {cfg.height}x{cfg.width} in batches of 4: "
+            f"{dict(counts)} launches (one per pass per batch), every frame bit for bit "
+            f"render_frame_uint8 of its time; a batch rendered with host syncs raising "
+            f"(default and compact)"), dict(counts)
+
+
+def batch_hd(scene, cfg, tag: str) -> str:
+    """Phase 28, part 4 on one terrain: a 1920x1080 batch of 4 through
+    ``render_frames_raw``, each frame bit for bit ``render_kernel_raw`` of
+    its camera (coarse pass, prime map and fine pass); the device time of the
+    batch's trace (coarse, prime maps, fine) as a CUDA graph against 4
+    one-frame traces, at 1080p and at ``cfg``'s size; the coarse pass of 4
+    frames against 1."""
+    from gpgpuraytrace_tpu_torch.kernels.trace import (
+        render_frames_raw, render_kernel_raw, trace_frame, trace_frames,
+    )
+    from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
+    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene, pack_scenes
+
+    hd = dataclasses.replace(cfg, height=HD[0], width=HD[1])
+    times, cams = fly_batch(scene, 4)
+    singles = one_frame_cameras(scene, times)
+    with torch.no_grad():
+        batch = render_frames_raw(scene, cams, hd)
+        for k, s in enumerate(singles):
+            for a, b, what in zip(batch, render_kernel_raw(s, hd), ("colour", "t", "hit")):
+                if not torch.equal(a[k], b):
+                    fail(f"{tag}1080p batch of 4: frame {k}'s {what} differs from its "
+                         f"one-frame render")
+    times_ms = {}
+    for label, c in ((f"{cfg.height}x{cfg.width}", cfg), ("1920x1080", hd)):
+        ccfg = coarse_prime_cfg(c)
+        ch = c.height // c.prime_ds + 2
+        with torch.no_grad():
+            pc4 = pack_scenes(scene, cams, ccfg.height, ccfg.width, -1.0)[0].detach()
+            pf4, seed = (x.detach() for x in pack_scenes(scene, cams, c.height, c.width))
+            pc1 = [pack_scene(s, ccfg.height, ccfg.width, -1.0)[0].detach() for s in singles]
+            pf1 = [pack_scene(s, c.height, c.width)[0].detach() for s in singles]
+
+            def batched():
+                coarse = trace_frames(pc4, seed, ccfg, ch)
+                return trace_frames(pf4, seed, c, c.height, prime_from_coarse(coarse[1], c))
+
+            def one_by_one():
+                for p_c, p_f in zip(pc1, pf1):
+                    coarse = trace_frame(p_c, seed, ccfg, ch)
+                    trace_frame(p_f, seed, c, c.height, prime_from_coarse(coarse[1], c))
+
+            reps = 10
+            times_ms[label] = {
+                "batch_of_4": graph_ms(batched, reps), "one_by_one_4": graph_ms(one_by_one, reps),
+                "coarse_4": graph_ms(lambda: trace_frames(pc4, seed, ccfg, ch), 50),
+                "coarse_1": graph_ms(lambda: trace_frame(pc1[0], seed, ccfg, ch), 50)}
+    torch.cuda.synchronize()
+    return (f"{tag}1920x1080 batch of 4: every frame's colour, t and hit bit for bit its "
+            f"one-frame render; device time as CUDA graphs (ms): "
+            + "; ".join(f"{k}: trace of a batch of 4 {v['batch_of_4']:.4f} against 4 one-frame "
+                        f"traces {v['one_by_one_4']:.4f} ({v['one_by_one_4'] / v['batch_of_4']:.3f}x), "
+                        f"coarse pass of 4 frames {v['coarse_4']:.5f} against 1 frame "
+                        f"{v['coarse_1']:.5f} ({v['coarse_4'] / v['coarse_1']:.3f}x)"
+                        for k, v in times_ms.items()))
+
+
+def launcher_host_us(scene, cfg) -> str:
+    """Phase 28, part 5a: host microseconds per call (``host_us``) of the
+    fine pass's wrapper for one frame and for a batch of 4, and of the parts
+    of its launcher ``_launch``: the library's handle, the config struct, the
+    outputs' allocation, the device guard, the stream query, the capture
+    query, the tile scratch, the input checks and the C call itself; and what
+    setting the C functions' signatures costs, which every launch paid before
+    the library's handle was cached."""
+    from gpgpuraytrace_tpu_torch.kernels import trace as kt
+    from gpgpuraytrace_tpu_torch.kernels.trace import (
+        _check_inputs, _kernel_config, _library, _tile_scratch,
+        trace_frame, trace_frames,
+    )
+    from gpgpuraytrace_tpu_torch.utils.packing import pack_scenes
+
+    dev = torch.device("cuda")
+    _, cams = fly_batch(scene, 4)
+    h, w = cfg.height, cfg.width
+    with torch.no_grad():
+        prime = kt._prime_maps(scene, cams, cfg)
+        pf4, seed = (x.detach() for x in pack_scenes(scene, cams, h, w))
+    pf1, prime1 = pf4[:1].contiguous(), prime[0].contiguous()
+    lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = _tile_scratch(dev, stream)
+    f32 = dict(dtype=torch.float32, device=dev)
+    color, t, hit = torch.empty((3, h, w), **f32), torch.empty((h, w), **f32), \
+        torch.empty((h, w), **f32)
+    kcfg = _kernel_config(cfg, h, primed=True)
+
+    def c_call():
+        lib.trace_fwd_launch(pf1.data_ptr(), seed.data_ptr(), prime1.data_ptr(),
+                             color.data_ptr(), t.data_ptr(), hit.data_ptr(), None, None, None,
+                             None, None, scratch.data_ptr(), kcfg, 1, stream)
+
+    def signatures():
+        for fn in (lib.trace_fwd_launch, lib.trace_compact_launch, lib.trace_bwd_scratch_floats,
+                   lib.trace_bwd_launch, lib.trace_error_string):
+            fn.argtypes = list(fn.argtypes)
+            fn.restype = fn.restype
+
+    def device_guard():
+        with torch.cuda.device(dev):
+            pass
+
+    parts = {
+        "trace_frame (1 frame)": lambda: trace_frame(pf1, seed, cfg, h, prime1),
+        "trace_frames (4 frames)": lambda: trace_frames(pf4, seed, cfg, h, prime),
+        "input checks": lambda: _check_inputs(pf1, seed, cfg, h, prime1, False),
+        "library handle (cached)": _library,
+        "signatures set anew": signatures,
+        "config struct made": lambda: _kernel_config(cfg, h, primed=True),
+        "3 outputs allocated": lambda: (torch.empty((3, h, w), **f32), torch.empty((h, w), **f32),
+                                        torch.empty((h, w), **f32)),
+        "device guard": device_guard,
+        "stream query": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "capture query": torch.cuda.is_current_stream_capturing,
+        "tile scratch": lambda: _tile_scratch(dev, stream),
+        "the C call (launch)": c_call,
+    }
+    us = {k: host_us(fn) for k, fn in parts.items()}
+    return ("wrapper host us per call (least of 5 runs of 200): "
+            + "; ".join(f"{k} {v:.2f}" for k, v in us.items()))
+
+
+def fly_fps(scene, cfg, tag: str) -> str:
+    """Phase 28, part 5b: ``fly_frames`` frames per second without writing
+    (host clock, FLY_FRAMES frames after a warm-up) at batch 1, 4 and 8, at
+    ``cfg``'s size and at 1920x1080, FLY_ROUNDS rounds in turns; and the
+    device's busy share of a batch of 4 (``render_batch_uint8``, the
+    profiler against its host-clock time)."""
+    from gpgpuraytrace_tpu_torch.ops.flythrough import fly_frames, render_batch_uint8
+
+    sizes = {f"{cfg.height}x{cfg.width}": cfg,
+             "1920x1080": dataclasses.replace(cfg, height=HD[0], width=HD[1])}
+    fps = collections.defaultdict(list)
+    for label, c in sizes.items():
+        for b in (1, 4, 8):
+            for _ in fly_frames(scene, c, b, batch=b):  # warm-up
+                pass
+    for _ in range(FLY_ROUNDS):
+        for label, c in sizes.items():
+            for b in (1, 4, 8):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in fly_frames(scene, c, FLY_FRAMES, batch=b):
+                    pass
+                fps[label, b].append(FLY_FRAMES / (time.perf_counter() - t0))
+    busy = {}
+    for label, c in sizes.items():
+        times = torch.arange(4, dtype=torch.float32) / 30.0
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render_batch_uint8(scene, c, times)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        busy[label] = profile_frames(lambda: render_batch_uint8(scene, c, times),
+                                     statistics.median(walls))
+    return (f"{tag}fly fps without writing (host clock, {FLY_FRAMES} frames, "
+            f"{FLY_ROUNDS} rounds in turns): "
+            + "; ".join(f"{k[0]} batch {k[1]} " + " / ".join(f"{x:.2f}" for x in v)
+                        for k, v in fps.items())
+            + " | a batch of 4: " + " | ".join(f"{k}: {v}" for k, v in busy.items()))
 
 
 def main() -> None:
@@ -2400,10 +2797,9 @@ def main() -> None:
           f"ms as a CUDA graph (medians over {PHASE2_LISTINGS} lists: {p2_all}) against "
           f"{PHASE2_MS[0]} / {PHASE2_MS[1]} ms recorded ({moved[0]:+.2f}% / "
           f"{moved[1]:+.2f}%, at most +{100 * PHASE2_SLACK:.0f}%; SM clock, temperature, power after: {clocks}) {card}")
-    fly_line, fly_compact = fly_phase(cfg, dev)
+    fly_line, fly_counts = fly_phase(cfg, dev)
+    fly_counts = collections.Counter(fly_counts)
     phase(21, "flythrough", f"{fly_line} {card}")
-    for part, k in (("phase1", 1), ("phase2", 2)):  # the flythrough's compact frames
-        results["compact", ""][part]["launches"] += fly_compact[f"compact:phase{k}"]
     for tag, (scene, c) in scenes.items():
         results["bwd+bf16", tag] = bf16_bwd_phase(scene, c, tag)
         phase(22, "bf16 backward", f"{results['bwd+bf16', tag]['line']} {card}")
@@ -2442,6 +2838,24 @@ def main() -> None:
         phase(27, "row bands", bands_phase(default_scene(6, volumetric=vol, device=dev),
                                            vcfg if vol else cfg, tag, card))
 
+    # --- 28. batches: the forward kernels' frame axis ------------------------------
+    t28 = time.perf_counter()
+    batch = {}
+    for tag, (scene, c) in scenes.items():
+        phase(28, "batch digests", batch_digests(scene, c, tag))
+    for tag, (scene, c) in scenes.items():
+        batch[tag] = batch_vs_plain(scene, c, tag)
+        phase(28, "batch vs plain", f"{batch[tag]['line']} {card}")
+    for tag, (scene, c) in scenes.items():
+        line, counts = batch_fly(scene, c, tag)
+        fly_counts.update(counts)
+        phase(28, "batch fly", line)
+    for tag, (scene, c) in scenes.items():
+        phase(28, "batch 1080p", f"{batch_hd(scene, c, tag)} {card}")
+    phase(28, "batch host", f"{launcher_host_us(default_scene(6, device=dev), cfg)} {card}")
+    phase(28, "batch fly fps", f"{fly_fps(default_scene(6, device=dev), cfg, '')} {card}")
+    phase(28, "batch", f"phase 28 took {time.perf_counter() - t28:.1f} s")
+
     # Bounds of phases 3, 8, 11 and 13 from phase 15's useful steps and hits.
     n_pix = cfg.height * cfg.width
     fwd_b = {tag: fwd_bound(c, results["counter", tag]["lanes"].sum().item(),
@@ -2467,6 +2881,19 @@ def main() -> None:
                            "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
                            **{k: v[k] for k in extra if k in v}},
         }
+
+    def batch_entry(name: str, part: str, source: str = FWD_SOURCE,
+                    kernel: str = "trace_fwd") -> dict:
+        """A batched launch (phase 28, a batch of 2 frames at 512x512; its
+        launches from the flythrough runs of phases 21 and 28)."""
+        h, v = batch[""][part], batch["volumetric "][part]
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+        return {"name": f"{kernel}[{name}]", "route": "cuda", "source": source,
+                "replaces": REPLACES[name], "variants": ["heightfield", "volumetric"],
+                "frames": 2, "launches": fly_counts[name],
+                "max_abs_err": max(h["err"], v["err"]), **{k: h[k] for k in keys},
+                "library_ms": None,
+                "volumetric": {"max_abs_err": v["err"], **{k: v[k] for k in keys}}}
 
     paths = {"fwd": {"serving": serve_launches, "training": tr["fwd"],
                      "volumetric serving": vserve_launches,
@@ -2541,6 +2968,11 @@ def main() -> None:
                       kernel="trace_compact"),
         variant_entry("bwd+bf16", "bwd+bf16", kernel="trace_bwd",
                       source="gpgpuraytrace_tpu_torch/kernels/csrc/trace_bwd.cu"),
+        batch_entry("chunked+frames", "fine"),
+        batch_entry("compact+frames:phase1", "phase1"),
+        batch_entry("compact+frames:phase2", "phase2",
+                    source="gpgpuraytrace_tpu_torch/kernels/csrc/trace_compact.cu",
+                    kernel="trace_compact"),
     ]}
     print(json.dumps(record))
     print(smi)

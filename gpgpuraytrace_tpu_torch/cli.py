@@ -16,8 +16,10 @@ op-by-op path. ``render`` and ``fly`` take ``--march-mode`` (the march
 variant; RenderConfig's defaults for the rest, compaction's budget too).
 ``fit`` checkpoints and resumes (``--save``, ``--save-every``, ``--resume``)
 and runs ``--steps-per-call`` steps per chunk (on the card one CUDA graph);
-``fly`` writes frames through the native writer's worker threads
-(``utils/native_io.py``), or the Python encoder when it cannot be built.
+``fly`` renders each ``--batch`` of frames as one launch per pass (the
+kernels' frame axis) and writes them through the native writer's worker
+threads (``utils/native_io.py``), or the Python encoder when it cannot be
+built.
 There is no ``--aot-cache``: the port's compiled artifact is the kernel
 library, built once per source hash (``kernels/build.py``).
 """
@@ -153,6 +155,7 @@ def cmd_fit(args):
 
 
 def cmd_fly(args):
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame
     from gpgpuraytrace_tpu_torch.models.scene import default_scene
     from gpgpuraytrace_tpu_torch.ops.flythrough import fly_frames
     from gpgpuraytrace_tpu_torch.utils.image import write_png
@@ -192,6 +195,7 @@ def cmd_fly(args):
         writer = AsyncFrameWriter(num_threads=2, level=level)
     except RuntimeError:
         pass
+    launches = trace_frame.launches.total()
     t0 = time.perf_counter()
     n = 0
     try:
@@ -208,12 +212,15 @@ def cmd_fly(args):
     dt = time.perf_counter() - t0  # the writer's queue drained
     if errs:
         raise RuntimeError(f"the native writer failed to write {errs} frames")
+    batches = -(-n // args.batch)
+    per_batch = (trace_frame.launches.total() - launches) / max(batches, 1)
     print(
         f"flythrough: {n} frames {cfg.width}x{cfg.height} in {dt:.2f}s "
         f"({n / dt:.2f} fps incl. writing, host clock; on the card the first "
         f"batch includes the kernel build; native={writer is not None}, format={ext}"
         + (f" zlib={level}" if ext == "png" else "")
-        + f", march_mode={cfg.march_mode})"
+        + f", march_mode={cfg.march_mode}; batches of {args.batch}, {per_batch:g} kernel "
+        f"launches per batch)"
     )
 
 

@@ -69,6 +69,12 @@
 // the group's field, so a resumed ray ends where the one-pass march ends it,
 // bit for bit. Every lane of a group writes the group's pixel with the same
 // values.
+// - A batch of frames (trace_fwd.cu's frame axis) runs as blockIdx.y = frame:
+//   each block reads its own frame's scalars, n_alive and list, takes slots
+//   from its own frame's counter and writes its own frame's outputs; the
+//   resident blocks are shared out among the frames. The frame axis is a
+//   template parameter (kFrames), so a one-frame launch runs the one-frame
+//   kernel's code as it was.
 
 #include <algorithm>
 
@@ -274,7 +280,7 @@ struct NextSlot {
   float t, prev_t;
 };
 
-template <bool kBf16, int kOct>
+template <bool kBf16, int kOct, bool kFrames>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 trace_phase2_kernel(const float* __restrict__ packed, const int* __restrict__ seed_ptr,
                     const int* __restrict__ n_alive_ptr, const int* __restrict__ ids,
@@ -287,6 +293,20 @@ trace_phase2_kernel(const float* __restrict__ packed, const int* __restrict__ se
   __shared__ float4 xch[kGroupsPerBlock][kLanes];
   __shared__ Finished done[kWarpsPerBlock][kPool];
   const int n_params = kAmps + cfg.num_octaves;
+  if constexpr (kFrames) {
+    // This block's frame: its packed scalars, n_alive, list, planes and
+    // counter pair.
+    const size_t frame = blockIdx.y;
+    const size_t px = frame * static_cast<size_t>(cfg.local_h) * cfg.width;
+    packed += frame * n_params;
+    n_alive_ptr += frame;
+    ids += px;
+    prev += px;
+    color += 3 * px;
+    t_io += px;
+    hit_out += px;
+    scratch += 2 * frame;
+  }
   const int items = cfg.num_octaves + (cfg.volumetric ? cfg.warp_octaves : 0);
   for (int k = threadIdx.x; k < n_params; k += blockDim.x) sc[k] = packed[k];
   __syncthreads();
@@ -433,7 +453,7 @@ trace_phase2_kernel(const float* __restrict__ packed, const int* __restrict__ se
     }
   }
   // Every group's last fetch is done before its block counts itself out in
-  // scratch[1]; the last block out sets both back to 0.
+  // scratch[1]; the last block out (of its frame) sets both back to 0.
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
@@ -444,11 +464,12 @@ trace_phase2_kernel(const float* __restrict__ packed, const int* __restrict__ se
   }
 }
 
-// The blocks of a launch over a frame of n_pix pixels: as many as are
-// resident at once (the occupancy query, once per device and
-// instantiation), and no more than its pixels could fill.
-template <bool kBf16, int kOct>
-cudaError_t blocks_for(int n_pix, int& blocks) {
+// The blocks of a launch over each frame of n_pix pixels (the grid's x; its
+// y is the frames): the resident blocks (the occupancy query, once per device
+// and instantiation) shared out evenly among the frames, at least one each,
+// and no more than a frame's pixels could fill.
+template <bool kBf16, int kOct, bool kFrames>
+cudaError_t blocks_for(int n_pix, int frames, int& blocks) {
   static int resident[kMaxDevices];
   int dev = 0;
   if (const cudaError_t err = cudaGetDevice(&dev)) return err;
@@ -460,68 +481,80 @@ cudaError_t blocks_for(int n_pix, int& blocks) {
       return err;
     }
     if (const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, trace_phase2_kernel<kBf16, kOct>, kThreads, 0)) {
+            &per_sm, trace_phase2_kernel<kBf16, kOct, kFrames>, kThreads, 0)) {
       return err;
     }
     if (per_sm < 1) return cudaErrorLaunchOutOfResources;
     resident[dev] = per_sm * sms;
   }
-  blocks = std::max(1, std::min(resident[dev], (n_pix + kGroupsPerBlock - 1) / kGroupsPerBlock));
+  blocks = std::max(1, std::min(resident[dev] / frames,
+                                (n_pix + kGroupsPerBlock - 1) / kGroupsPerBlock));
   return cudaSuccess;
 }
 
-template <bool kBf16, int kOct>
-cudaError_t launch_octaves(const float* packed, const int* seed, const int* n_alive,
-                           const int* ids, const float* prev, float* color, float* t,
-                           float* hit, int* scratch, const TraceConfig& cfg,
-                           cudaStream_t stream) {
+// The pointers of a launch, each to its frames' data one after another.
+struct Phase2Args {
+  const float* packed;
+  const int *seed, *n_alive, *ids;
+  const float* prev;
+  float *color, *t, *hit;
+  int* scratch;
+};
+
+template <bool kBf16, int kOct, bool kFrames>
+cudaError_t launch_frames(const Phase2Args& a, const TraceConfig& cfg, int frames,
+                          cudaStream_t stream) {
   int blocks = 0;
-  if (const cudaError_t err = blocks_for<kBf16, kOct>(cfg.local_h * cfg.width, blocks)) {
+  if (const cudaError_t err =
+          blocks_for<kBf16, kOct, kFrames>(cfg.local_h * cfg.width, frames, blocks)) {
     return err;
   }
-  trace_phase2_kernel<kBf16, kOct><<<blocks, kThreads, 0, stream>>>(
-      packed, seed, n_alive, ids, prev, color, t, hit, scratch, cfg);
+  trace_phase2_kernel<kBf16, kOct, kFrames><<<dim3(blocks, frames), kThreads, 0, stream>>>(
+      a.packed, a.seed, a.n_alive, a.ids, a.prev, a.color, a.t, a.hit, a.scratch, cfg);
   return cudaGetLastError();
 }
 
 // The main path's 6 octaves run their own instantiation (kOct 6), any other
-// count the runtime loop (kOct 0).
+// count the runtime loop (kOct 0); one frame the instantiation without the
+// frame axis, a batch the one with it.
 template <bool kBf16>
-cudaError_t launch(const float* packed, const int* seed, const int* n_alive, const int* ids,
-                   const float* prev, float* color, float* t, float* hit, int* scratch,
-                   const TraceConfig& cfg, cudaStream_t stream) {
+cudaError_t launch(const Phase2Args& a, const TraceConfig& cfg, int frames,
+                   cudaStream_t stream) {
   if (cfg.num_octaves == kUnrolledOctaves) {
-    return launch_octaves<kBf16, kUnrolledOctaves>(packed, seed, n_alive, ids, prev, color, t,
-                                                   hit, scratch, cfg, stream);
+    return frames == 1 ? launch_frames<kBf16, kUnrolledOctaves, false>(a, cfg, 1, stream)
+                       : launch_frames<kBf16, kUnrolledOctaves, true>(a, cfg, frames, stream);
   }
-  return launch_octaves<kBf16, 0>(packed, seed, n_alive, ids, prev, color, t, hit, scratch, cfg,
-                                  stream);
+  return frames == 1 ? launch_frames<kBf16, 0, false>(a, cfg, 1, stream)
+                     : launch_frames<kBf16, 0, true>(a, cfg, frames, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches phase 2 on ``stream`` and returns its CUDA error (0 on success).
-// Device pointers: ``n_alive`` one int32 and ``ids`` the pixel id of each
-// slot (int32, local_h * width), both as phase 1 wrote them, ``prev`` phase
-// 1's (local_h, width) output, ``color``, ``t`` and ``hit`` phase 1's
-// outputs, overwritten at the pixels of the first n_alive slots (``t`` is
-// read there first); ``scratch`` two int32, 0 when the kernel starts and
-// left at 0 (launches that may overlap, on different streams, need their
-// own). cfg.budget is the steps left (max_steps - compact_budget), cfg.phase
-// 2. The caller validates shapes, dtypes and contiguity.
+// Launches phase 2 over ``frames`` frames on ``stream`` and returns its CUDA
+// error (0 on success). Device pointers, each to ``frames`` consecutive
+// frames of its data: ``packed`` (frames, kAmps + num_octaves), ``seed`` one
+// int32 for them all, ``n_alive`` one int32 per frame and ``ids`` the pixel
+// id of each slot (int32, local_h * width per frame), both as phase 1 wrote
+// them, ``prev`` phase 1's (local_h, width) output, ``color``, ``t`` and
+// ``hit`` phase 1's outputs, overwritten at the pixels of the first n_alive
+// slots (``t`` is read there first); ``scratch`` two int32 per frame, 0 when
+// the kernel starts and left at 0 (launches that may overlap, on different
+// streams, need their own). cfg.budget is the steps left (max_steps -
+// compact_budget), cfg.phase 2; ``frames`` 1 to kMaxFrames. The caller
+// validates shapes, dtypes and contiguity.
 int trace_compact_launch(const float* packed, const int* seed, const int* n_alive,
                          const int* ids, const float* prev, float* color, float* t,
-                         float* hit, int* scratch, TraceConfig cfg, void* stream) {
-  if (cfg.march_mode != kCompact || cfg.phase != 2 || scratch == nullptr) {
+                         float* hit, int* scratch, TraceConfig cfg, int frames, void* stream) {
+  if (cfg.march_mode != kCompact || cfg.phase != 2 || scratch == nullptr || frames < 1 ||
+      frames > kMaxFrames) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(cfg.bf16 ? launch<true>(packed, seed, n_alive, ids, prev, color, t,
-                                                  hit, scratch, cfg, s)
-                                   : launch<false>(packed, seed, n_alive, ids, prev, color, t,
-                                                   hit, scratch, cfg, s));
+  const Phase2Args a{packed, seed, n_alive, ids, prev, color, t, hit, scratch};
+  return static_cast<int>(cfg.bf16 ? launch<true>(a, cfg, frames, s)
+                                   : launch<false>(a, cfg, frames, s));
 }
 
 }  // extern "C"

@@ -22,6 +22,14 @@
 // octaves unrolled (kOctaves), which a frame of 6 octaves runs. The march,
 // the polish and the shade are trace_march.cuh's, which phase 2 shares.
 //
+// A launch traces a batch of frames (the JAX package's vmap over its kernel:
+// a flythrough batch, gpgpuraytrace_tpu/ops/flythrough.py:_make_batch_render)
+// as blockIdx.y = frame: each block reads its own frame's packed scalars,
+// prime map and tile counters and writes its own frame's outputs, so a
+// pixel's arithmetic is its one-frame launch's. The frame axis is a template
+// parameter too (kFrames): a one-frame launch runs the instantiations without
+// it, whose code is the one-frame kernel's as it was.
+//
 // What bounds it on the H100: INT32 and FP32 issue. Each march step
 // evaluates the value-only fBm, about 77 FP32 and 49 INT32 operations per
 // octave (the lattice hash is integer work; plus about 150 and 125 per warp
@@ -46,6 +54,10 @@
 // - A frame with few tiles (the 66x64 coarse prime pass: 136) launches
 //   blocks of fewer warps, so its tiles spread over all SMs, one or two
 //   warps each, where the march's serial chain of steps sets the time.
+// - A batch of frames that each fill the card shares the resident blocks out
+//   among its frames (each frame's warps take its own tiles); a batch of
+//   small frames (the coarse passes of a flythrough batch) launches each
+//   frame's one-warp blocks, B x 136 in all.
 // - The 6 octaves' noise chains are independent, so the main path's field
 //   unrolls them (Field::value<kBf16, 6>) and they overlap; the sum keeps
 //   its order. Only the main path's chunked march was timed with it (the
@@ -114,6 +126,13 @@ struct Frame {
   float margin;  // lod only
   int k_coarse, wo_coarse;
 };
+
+// ``p`` offset by ``offset`` elements, or null where it is null (an input or
+// output the launch does not use).
+template <class T>
+__device__ __forceinline__ T* at_frame(T* p, size_t offset) {
+  return p == nullptr ? p : p + offset;
+}
 
 // One pixel (row, col of the band): raygen, the march of kMode, polish and
 // shade, its outputs at idx = row * width + col.
@@ -196,7 +215,7 @@ __device__ __forceinline__ void trace_pixel(const Frame& fr, const FwdArgs& a,
                    a.hit);
 }
 
-template <int kMode, bool kBf16, bool kDebug, int kOctaves>
+template <int kMode, bool kBf16, bool kDebug, int kOctaves, bool kFrames>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed,
                  const float* __restrict__ prime, float* __restrict__ color,
@@ -204,12 +223,29 @@ trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed,
                  int* __restrict__ steps_out, float* __restrict__ alive_out,
                  float* __restrict__ prev_out, int* __restrict__ ids_out,
                  int* __restrict__ n_alive, int* __restrict__ tile_scratch, TraceConfig cfg) {
+  const int n_params = kAmps + cfg.num_octaves;
+  if constexpr (kFrames) {
+    // This block's frame: its row of packed scalars, its planes of every
+    // per-pixel input and output, its slot of n_alive and its counter pair.
+    const size_t frame = blockIdx.y;
+    const size_t px = frame * static_cast<size_t>(cfg.local_h) * cfg.width;
+    packed += frame * n_params;
+    prime = at_frame(prime, px);
+    color += 3 * px;
+    t_out += px;
+    hit_out += px;
+    steps_out = at_frame(steps_out, px);
+    alive_out = at_frame(alive_out, px);
+    prev_out = at_frame(prev_out, px);
+    ids_out = at_frame(ids_out, px);
+    n_alive = at_frame(n_alive, frame);
+    tile_scratch += 2 * frame;
+  }
   const FwdArgs a{packed,    seed,     prime,   color,  t_out,   hit_out,
                   steps_out, alive_out, prev_out, ids_out, n_alive, tile_scratch};
   __shared__ float sc[kAmps + kMaxOctaves];
   __shared__ Octaves oct;
   __shared__ float margin;  // lod only
-  const int n_params = kAmps + cfg.num_octaves;
   const int k_coarse = max(1, (cfg.num_octaves + 1) / 2);
   const int wo_coarse = max(1, cfg.warp_octaves - 1);
   for (int k = threadIdx.x; k < n_params; k += blockDim.x) sc[k] = packed[k];
@@ -246,7 +282,7 @@ trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed,
     }
   }
   // Every warp's last fetch is done before it counts itself out in
-  // tile_scratch[1]; the last one out sets both back to 0.
+  // tile_scratch[1]; the last one out (of its frame) sets both back to 0.
   if (lane == 0) {
     __threadfence();
     const int warps = static_cast<int>(gridDim.x * (blockDim.x / 32));
@@ -262,12 +298,15 @@ struct Grid {
   int warps, blocks;
 };
 
-// A frame that fills the card runs kWarpsPerBlock-warp blocks, as many as
-// are resident at once (the occupancy query, once per device and
-// instantiation); a smaller frame runs blocks of n_tiles / SMs warps (at
-// least 1), about one block per SM, so that its tiles spread over them all.
-template <int kMode, bool kBf16, bool kDebug, int kOctaves>
-cudaError_t grid_for(int n_tiles, Grid& g) {
+// The grid's x over one frame of n_tiles tiles (its y is the frames). A
+// frame that fills the card runs kWarpsPerBlock-warp blocks, as many as are
+// resident at once (the occupancy query, once per device and
+// instantiation), shared out evenly among the batch's frames (at least one
+// each); a smaller frame runs blocks of n_tiles / SMs warps (at least 1),
+// about one block per SM for each frame, so that its tiles spread over them
+// all.
+template <int kMode, bool kBf16, bool kDebug, int kOctaves, bool kFrames>
+cudaError_t grid_for(int n_tiles, int frames, Grid& g) {
   static int sms[kMaxDevices], resident[kMaxDevices];
   int dev = 0;
   if (const cudaError_t err = cudaGetDevice(&dev)) return err;
@@ -279,7 +318,8 @@ cudaError_t grid_for(int n_tiles, Grid& g) {
     }
     int per_sm = 0;
     if (const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, trace_fwd_kernel<kMode, kBf16, kDebug, kOctaves>, kThreads, 0)) {
+            &per_sm, trace_fwd_kernel<kMode, kBf16, kDebug, kOctaves, kFrames>, kThreads,
+            0)) {
       return err;
     }
     if (per_sm < 1) return cudaErrorLaunchOutOfResources;
@@ -287,41 +327,56 @@ cudaError_t grid_for(int n_tiles, Grid& g) {
   }
   g.warps = std::max(1, std::min(kWarpsPerBlock, n_tiles / sms[dev]));
   const int blocks = (n_tiles + g.warps - 1) / g.warps;
-  g.blocks = g.warps == kWarpsPerBlock ? std::min(blocks, resident[dev]) : blocks;
+  g.blocks = g.warps == kWarpsPerBlock ? std::min(blocks, std::max(1, resident[dev] / frames))
+                                        : blocks;
   return cudaSuccess;
 }
 
-template <int kMode, bool kBf16, bool kDebug, int kOctaves>
-cudaError_t launch_octaves(const FwdArgs& a, const TraceConfig& cfg, cudaStream_t stream) {
+template <int kMode, bool kBf16, bool kDebug, int kOctaves, bool kFrames>
+cudaError_t launch_frames(const FwdArgs& a, const TraceConfig& cfg, int frames,
+                          cudaStream_t stream) {
   const int n_tiles = ((cfg.width + kTileCols - 1) / kTileCols) *
                       ((cfg.local_h + kTileRows - 1) / kTileRows);
   Grid g{};
-  if (const cudaError_t err = grid_for<kMode, kBf16, kDebug, kOctaves>(n_tiles, g)) {
+  if (const cudaError_t err =
+          grid_for<kMode, kBf16, kDebug, kOctaves, kFrames>(n_tiles, frames, g)) {
     return err;
   }
-  trace_fwd_kernel<kMode, kBf16, kDebug, kOctaves><<<g.blocks, 32 * g.warps, 0, stream>>>(
+  const dim3 grid(g.blocks, frames);
+  trace_fwd_kernel<kMode, kBf16, kDebug, kOctaves, kFrames><<<grid, 32 * g.warps, 0, stream>>>(
       a.packed, a.seed, a.prime, a.color, a.t, a.hit, a.steps, a.alive, a.prev, a.ids,
       a.n_alive, a.tile_scratch, cfg);
   return cudaGetLastError();
 }
 
+// One frame runs the instantiation without the frame axis, a batch the one
+// with it.
+template <int kMode, bool kBf16, bool kDebug, int kOctaves>
+cudaError_t launch_octaves(const FwdArgs& a, const TraceConfig& cfg, int frames,
+                           cudaStream_t stream) {
+  if (frames == 1) return launch_frames<kMode, kBf16, kDebug, kOctaves, false>(a, cfg, 1, stream);
+  return launch_frames<kMode, kBf16, kDebug, kOctaves, true>(a, cfg, frames, stream);
+}
+
 template <int kMode, bool kBf16, bool kDebug>
-cudaError_t launch_variant(const FwdArgs& a, const TraceConfig& cfg, cudaStream_t stream) {
+cudaError_t launch_variant(const FwdArgs& a, const TraceConfig& cfg, int frames,
+                           cudaStream_t stream) {
   if constexpr (kMode == kChunked && !kDebug) {
     if (cfg.num_octaves == kUnrolledOctaves) {
-      return launch_octaves<kMode, kBf16, kDebug, kUnrolledOctaves>(a, cfg, stream);
+      return launch_octaves<kMode, kBf16, kDebug, kUnrolledOctaves>(a, cfg, frames, stream);
     }
   }
-  return launch_octaves<kMode, kBf16, kDebug, 0>(a, cfg, stream);
+  return launch_octaves<kMode, kBf16, kDebug, 0>(a, cfg, frames, stream);
 }
 
 template <int kMode>
-cudaError_t launch_mode(const FwdArgs& a, const TraceConfig& cfg, cudaStream_t stream) {
+cudaError_t launch_mode(const FwdArgs& a, const TraceConfig& cfg, int frames,
+                        cudaStream_t stream) {
   const bool bf16 = cfg.bf16 != 0, debug = a.steps != nullptr;
-  if (bf16 && debug) return launch_variant<kMode, true, true>(a, cfg, stream);
-  if (bf16) return launch_variant<kMode, true, false>(a, cfg, stream);
-  if (debug) return launch_variant<kMode, false, true>(a, cfg, stream);
-  return launch_variant<kMode, false, false>(a, cfg, stream);
+  if (bf16 && debug) return launch_variant<kMode, true, true>(a, cfg, frames, stream);
+  if (bf16) return launch_variant<kMode, true, false>(a, cfg, frames, stream);
+  if (debug) return launch_variant<kMode, false, true>(a, cfg, frames, stream);
+  return launch_variant<kMode, false, false>(a, cfg, frames, stream);
 }
 
 }  // namespace
@@ -329,42 +384,48 @@ cudaError_t launch_mode(const FwdArgs& a, const TraceConfig& cfg, cudaStream_t s
 extern "C" {
 
 // Launches the kernel instantiation that cfg.march_mode, cfg.bf16 and
-// ``steps`` select on ``stream`` and returns its CUDA error (0 on success).
-// Pointers are device pointers; ``prime`` is null unless cfg.primed,
-// ``steps`` (an int32 per pixel) null unless the counter is wanted,
-// ``alive`` and ``prev`` (a float per pixel), ``ids`` (an int32 per pixel)
-// and ``n_alive`` (one int32) null unless cfg.march_mode is kCompact, which
-// launches compaction's phase 1 (cfg.phase 1, no counter, unprimed): it sets
-// n_alive to 0 on the stream, then the kernel writes the survivors' pixel
-// ids to ids[0, n_alive). ``tile_scratch`` is two int32 of scratch, which
+// ``steps`` select over ``frames`` frames on ``stream`` and returns its CUDA
+// error (0 on success). Pointers are device pointers, each to ``frames``
+// consecutive frames of its data (frame b's at b times one frame's size);
+// ``packed`` is (frames, kAmps + num_octaves), ``seed`` one int32 for them
+// all. ``prime`` is null unless cfg.primed, ``steps`` (an int32 per pixel)
+// null unless the counter is wanted, ``alive`` and ``prev`` (a float per
+// pixel), ``ids`` (an int32 per pixel) and ``n_alive`` (one int32 per frame)
+// null unless cfg.march_mode is kCompact, which launches compaction's phase 1
+// (cfg.phase 1, no counter, unprimed): it sets n_alive to 0 on the stream,
+// then the kernel writes frame b's survivors' pixel ids to its ids[0,
+// n_alive[b]). ``tile_scratch`` is two int32 of scratch per frame, which
 // must be 0 when the kernel starts and which it leaves at 0; launches that
-// may overlap (on different streams) need their own. The caller validates
-// shapes, dtypes and contiguity.
+// may overlap (on different streams) need their own. ``frames`` is 1 to
+// kMaxFrames. The caller validates shapes, dtypes and contiguity.
 int trace_fwd_launch(const float* packed, const int* seed, const float* prime,
                      float* color, float* t, float* hit, int* steps, float* alive,
                      float* prev, int* ids, int* n_alive, int* tile_scratch, TraceConfig cfg,
-                     void* stream) {
+                     int frames, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const FwdArgs a{packed, seed, prime, color, t, hit, steps, alive, prev, ids, n_alive,
                   tile_scratch};
-  if (tile_scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (tile_scratch == nullptr || frames < 1 || frames > kMaxFrames) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (cfg.march_mode) {
     case kChunked:
-      return static_cast<int>(launch_mode<kChunked>(a, cfg, s));
+      return static_cast<int>(launch_mode<kChunked>(a, cfg, frames, s));
     case kFixed:
-      return static_cast<int>(launch_mode<kFixed>(a, cfg, s));
+      return static_cast<int>(launch_mode<kFixed>(a, cfg, frames, s));
     case kLod:
-      return static_cast<int>(launch_mode<kLod>(a, cfg, s));
+      return static_cast<int>(launch_mode<kLod>(a, cfg, frames, s));
     case kCompact:
       if (cfg.phase != 1 || steps != nullptr || prime != nullptr || alive == nullptr ||
           prev == nullptr || ids == nullptr || n_alive == nullptr) {
         return static_cast<int>(cudaErrorInvalidValue);
       }
-      if (const cudaError_t err = cudaMemsetAsync(n_alive, 0, sizeof(int), s)) {
+      if (const cudaError_t err = cudaMemsetAsync(n_alive, 0, frames * sizeof(int), s)) {
         return static_cast<int>(err);
       }
-      return static_cast<int>(cfg.bf16 ? launch_variant<kCompact, true, false>(a, cfg, s)
-                                       : launch_variant<kCompact, false, false>(a, cfg, s));
+      return static_cast<int>(
+          cfg.bf16 ? launch_variant<kCompact, true, false>(a, cfg, frames, s)
+                   : launch_variant<kCompact, false, false>(a, cfg, frames, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

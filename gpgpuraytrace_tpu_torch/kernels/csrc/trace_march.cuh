@@ -14,6 +14,8 @@
 namespace {
 // Must match kernels/trace.py:MARCH_MODES.
 enum MarchMode : int { kChunked = 0, kFixed = 1, kLod = 2, kCompact = 3 };
+// The most frames one launch takes (its grid's y): kernels/trace.py:MAX_FRAMES.
+constexpr int kMaxFrames = 65535;
 }  // namespace
 
 // Must match kernels/trace.py:TraceConfig field for field.

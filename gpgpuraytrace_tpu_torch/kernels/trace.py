@@ -29,6 +29,13 @@ channel pulls back through the bf16 field, as JAX's does. The pieces:
   launches (``trace_frame``'s, a ``Counter`` by instantiation, the two
   phases included). A CUDA input never falls back to the plain version: a
   failed build or launch raises.
+* ``trace_frames``, ``trace_phase1s`` and ``trace_phase2s`` are the same
+  for a batch of B frames of one scene (a row of packed scalars per frame,
+  a leading B on every per-pixel input and output): one launch for the
+  batch (the kernels' frame axis, blockIdx.y; the JAX package's ``vmap``
+  over its kernels), each frame bit for bit its one-frame launch. Their
+  launches count in ``trace_frame.launches``, as "+frames" instantiations
+  when B > 1 (a batch of one runs the one-frame kernel).
 * The forward kernel (and phase 1) runs one thread per pixel, a warp per
   ``WARP_TILE`` (4x8) tile of pixels, on persistent warps: the grid is what
   fits on the card at once, and each warp takes its next tile from a counter
@@ -56,7 +63,9 @@ channel pulls back through the bf16 field, as JAX's does. The pieces:
 * ``trace_frame_reference``, ``trace_phase1_reference``,
   ``trace_phase2_reference`` and ``trace_bwd_reference`` are the plain
   PyTorch versions of exactly what the kernels compute, written against the
-  same packed scalar vector.
+  same packed scalar vector; ``trace_frames_reference``,
+  ``trace_phase1s_reference`` and ``trace_phase2s_reference`` run them frame
+  by frame over a batch.
 * ``render_kernel_raw`` renders a frame through ``trace_frame`` (coarse
   depth-prime pass, prime map, full pass; or compaction's two phases) and
   returns its (t, hit) too, and the per-lane step counts with
@@ -64,6 +73,9 @@ channel pulls back through the bf16 field, as JAX's does. The pieces:
   ``warp_steps`` reduce those counts to what a (tile_h, 128) TPU tile and a
   warp of the CUDA kernel execute; ``warp_tile_pixels`` is the kernel's
   map from a warp's tile to its pixels.
+* ``render_frames_raw`` renders a batch of frames of one scene, one per
+  camera, through ``trace_frames``: both passes of the batch (or
+  compaction's two phases) one launch each.
 * ``render_kernel`` is the differentiable render of the kernel path: its
   backward is ``trace_frame_bwd`` (``cfg.kernel_bwd``) or autograd through
   the plain re-shade at the saved (t, hit).
@@ -74,6 +86,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import functools
 import operator
 
 import torch
@@ -81,6 +94,7 @@ import torch
 from gpgpuraytrace_tpu_torch.models.scene import (
     MARCH_CHUNK_DEFAULT, RenderConfig, Scene,
 )
+from gpgpuraytrace_tpu_torch.ops.camera import Cameras
 from gpgpuraytrace_tpu_torch.ops.field import WARP_GAIN, WARP_LACUNARITY, warp_tail
 from gpgpuraytrace_tpu_torch.ops.march import (
     _BWD_DENOM_MIN, _DENOM_EPS, _PRIME_PREV_PULLBACK, _RESIDUAL_SLACK,
@@ -100,6 +114,9 @@ WARP = 32  # threads of a warp
 # The pixels a warp of the forward kernel traces: a (rows, cols) tile
 # (csrc/trace_fwd.cu:kTileRows, kTileCols; ``warp_tile_pixels`` maps them).
 WARP_TILE = (4, 8)
+# The most frames one batched launch takes: the CUDA grid's y
+# (csrc/trace_march.cuh:kMaxFrames).
+MAX_FRAMES = 65535
 
 
 class TraceConfig(ctypes.Structure):
@@ -162,16 +179,28 @@ def _check_supported(cfg: RenderConfig) -> None:
         )
 
 
-def _check_tensors(packed, seed, cfg, local_height, named, permuted=()) -> None:
+def _frames(packed: torch.Tensor) -> tuple[int]:
+    """A batch's leading shape (B,): ``packed``'s rows, 1 to ``MAX_FRAMES``."""
+    if packed.dim() != 2:
+        raise ValueError(f"packed must be (frames, n_params), got {tuple(packed.shape)}")
+    if not 1 <= packed.shape[0] <= MAX_FRAMES:
+        raise ValueError(f"a batch of {packed.shape[0]} frames: one launch takes 1 to "
+                         f"{MAX_FRAMES} (MAX_FRAMES, the CUDA grid's y)")
+    return (packed.shape[0],)
+
+
+def _check_tensors(packed, seed, cfg, local_height, named, permuted=(), lead=()) -> None:
     """Raise on anything the kernels do not take. ``named`` maps a name to
     (tensor, required shape) for the per-pixel inputs; those named in
     ``permuted`` may also be the ``permute(2, 0, 1)`` view of a contiguous
-    (h, W, 3) tensor."""
+    (h, W, 3) tensor. ``lead`` is () for one frame, (B,) for a batch of B,
+    whose ``packed`` has a row per frame."""
     _check_supported(cfg)
     n_params = pk.AMPS + cfg.num_octaves
-    if packed.dtype != torch.float32 or packed.shape != (1, n_params):
+    rows = lead[0] if lead else 1
+    if packed.dtype != torch.float32 or packed.shape != (rows, n_params):
         raise ValueError(
-            f"packed must be float32 (1, {n_params}), got {packed.dtype} "
+            f"packed must be float32 ({rows}, {n_params}), got {packed.dtype} "
             f"{tuple(packed.shape)}"
         )
     if seed.dtype != torch.int32 or seed.shape != (1, 1):
@@ -197,8 +226,9 @@ def _check_tensors(packed, seed, cfg, local_height, named, permuted=()) -> None:
                                  f"permute(2, 0, 1) view of a contiguous (h, W, 3) tensor)")
 
 
-def _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps) -> None:
-    """Raise on anything the forward kernel does not take."""
+def _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps, lead=()) -> None:
+    """Raise on anything the forward kernel does not take (``lead`` as for
+    ``_check_tensors``)."""
     if debug_steps and cfg.march_mode == "compact":
         raise ValueError(
             "debug_steps is not supported for march_mode='compact' (two "
@@ -209,9 +239,9 @@ def _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps) -> Non
             f"t0_prime must be given exactly when cfg primes "
             f"(prime_ds={cfg.prime_ds})"
         )
-    shape = (local_height, cfg.width)
+    shape = (*lead, local_height, cfg.width)
     named = {} if t0_prime is None else {"t0_prime": (t0_prime, shape)}
-    _check_tensors(packed, seed, cfg, local_height, named)
+    _check_tensors(packed, seed, cfg, local_height, named, lead=lead)
     for x in [packed] + ([] if t0_prime is None else [t0_prime]):
         if x.requires_grad and torch.is_grad_enabled():
             raise RuntimeError(
@@ -244,26 +274,50 @@ def trace_frame(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
         raise RuntimeError(f"trace_frame: unsupported device {packed.device}")
     if cfg.march_mode == "compact":
         return _compact(trace_phase1, trace_phase2, packed, seed, cfg, local_height)
-    return _launch(packed, seed, cfg, local_height, t0_prime, debug_steps)
+    return _launch(packed, seed, cfg, local_height, t0_prime, debug_steps, ())
 
 
 # Launches of the CUDA kernels by instantiation (``variant_name``, and
-# ``phase_name`` for compaction's two); the total is
-# ``trace_frame.launches.total()``.
+# ``phase_name`` for compaction's two; the batched wrappers' too); the total
+# is ``trace_frame.launches.total()``.
 trace_frame.launches = collections.Counter()
 
 
-def variant_name(cfg: RenderConfig, debug_steps: bool = False) -> str:
+def trace_frames(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
+                 local_height: int, t0_prime: torch.Tensor | None = None,
+                 debug_steps: bool = False):
+    """``trace_frame`` over a batch of B frames of one scene, one launch for
+    them all: ``packed`` (B, AMPS + octaves) from ``utils.packing.pack_scenes``
+    (a row per frame; ``seed`` (1, 1) theirs), ``t0_prime`` (B,
+    local_height, width); results with a leading B, (color (B, 3, h, w), t,
+    hit (B, h, w)[, steps]), frame b bit for bit ``trace_frame`` of row b.
+    ``march_mode="compact"`` runs ``trace_phase1s`` and ``trace_phase2s``
+    once each. B is 1 to ``MAX_FRAMES``; a larger batch raises ValueError.
+    CUDA inputs launch the kernel's frame axis (blockIdx.y); CPU inputs run
+    ``trace_frames_reference``."""
+    lead = _frames(packed)
+    _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps, lead)
+    if packed.device.type == "cpu":
+        return trace_frames_reference(packed, seed, cfg, local_height, t0_prime, debug_steps)
+    if packed.device.type != "cuda":
+        raise RuntimeError(f"trace_frames: unsupported device {packed.device}")
+    if cfg.march_mode == "compact":
+        return _compact(trace_phase1s, trace_phase2s, packed, seed, cfg, local_height)
+    return _launch(packed, seed, cfg, local_height, t0_prime, debug_steps, lead)
+
+
+def variant_name(cfg: RenderConfig, debug_steps: bool = False, frames: int = 1) -> str:
     """The forward kernel's instantiation a launch with ``cfg`` runs:
-    the march mode, then "+bf16" and "+debug_steps" where set."""
+    the march mode, then "+bf16" and "+debug_steps" where set, and
+    "+frames" for a batch of more than one frame."""
     return (cfg.march_mode + ("+bf16" if cfg.march_bf16 else "")
-            + ("+debug_steps" if debug_steps else ""))
+            + ("+debug_steps" if debug_steps else "") + ("+frames" if frames > 1 else ""))
 
 
-def phase_name(cfg: RenderConfig, phase: int) -> str:
+def phase_name(cfg: RenderConfig, phase: int, frames: int = 1) -> str:
     """The launch count's key of compaction's phase 1 or 2:
-    "compact:phase1", "compact+bf16:phase2", ..."""
-    return f"{variant_name(cfg)}:phase{phase}"
+    "compact:phase1", "compact+bf16:phase2", "compact+frames:phase1", ..."""
+    return f"{variant_name(cfg, frames=frames)}:phase{phase}"
 
 
 def _compact(phase1, phase2, packed, seed, cfg, local_height):
@@ -287,16 +341,18 @@ def _kernel_config(cfg: RenderConfig, local_height: int, primed: bool = False,
     )
 
 
+@functools.cache
 def _library() -> ctypes.CDLL:
+    """The kernel library with its functions' signatures, once per process."""
     from gpgpuraytrace_tpu_torch.kernels.build import load_library
 
     lib = load_library()
     lib.trace_fwd_launch.argtypes = [ctypes.c_void_p] * 12 + [
-        TraceConfig, ctypes.c_void_p,
+        TraceConfig, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.trace_fwd_launch.restype = ctypes.c_int
     lib.trace_compact_launch.argtypes = [ctypes.c_void_p] * 9 + [
-        TraceConfig, ctypes.c_void_p,
+        TraceConfig, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.trace_compact_launch.restype = ctypes.c_int
     lib.trace_bwd_scratch_floats.argtypes = [TraceBwdConfig]
@@ -350,39 +406,42 @@ def _stream_scratch(table: dict, dev, stream: int, numel: int, dtype: torch.dtyp
     return scratch
 
 
-def _tile_scratch(dev, stream: int) -> torch.Tensor:
+def _tile_scratch(dev, stream: int, frames: int = 1) -> torch.Tensor:
     """The forward kernel's scratch, which compaction's phase 2 shares: two
-    int32, the counter from which the forward's warps take their tiles (phase
-    2's ray groups their slots) and the count of warps (blocks) done."""
-    return _stream_scratch(_TILE_SCRATCH, dev, stream, 2, torch.int32, 2)
+    int32 per frame, the counter from which the forward's warps take their
+    tiles (phase 2's ray groups their slots) and the count of warps (blocks)
+    done."""
+    return _stream_scratch(_TILE_SCRATCH, dev, stream, 2 * frames, torch.int32, 2 * frames)
 
 
-def _launch(packed, seed, cfg, local_height, t0_prime, debug_steps):
+def _launch(packed, seed, cfg, local_height, t0_prime, debug_steps, lead):
+    """The forward kernel over ``lead`` frames: () one, (B,) a batch."""
     lib = _library()
     dev = packed.device
-    h, w = local_height, cfg.width
-    color = torch.empty((3, h, w), dtype=torch.float32, device=dev)
-    t = torch.empty((h, w), dtype=torch.float32, device=dev)
-    hit = torch.empty((h, w), dtype=torch.float32, device=dev)
-    steps = torch.empty((h, w), dtype=torch.int32, device=dev) if debug_steps else None
-    kcfg = _kernel_config(cfg, h, primed=t0_prime is not None)
+    frames = lead[0] if lead else 1
+    hw = (*lead, local_height, cfg.width)
+    color = torch.empty((*lead, 3, local_height, cfg.width), dtype=torch.float32, device=dev)
+    t = torch.empty(hw, dtype=torch.float32, device=dev)
+    hit = torch.empty(hw, dtype=torch.float32, device=dev)
+    steps = torch.empty(hw, dtype=torch.int32, device=dev) if debug_steps else None
+    kcfg = _kernel_config(cfg, local_height, primed=t0_prime is not None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.trace_fwd_launch(
             packed.data_ptr(), seed.data_ptr(), _ptr(t0_prime), color.data_ptr(),
             t.data_ptr(), hit.data_ptr(), _ptr(steps), None, None, None, None,
-            _tile_scratch(dev, stream).data_ptr(), kcfg, stream,
+            _tile_scratch(dev, stream, frames).data_ptr(), kcfg, frames, stream,
         )
     _raise_on(lib, err, "trace_fwd")
-    trace_frame.launches[variant_name(cfg, debug_steps)] += 1
+    trace_frame.launches[variant_name(cfg, debug_steps, frames)] += 1
     return (color, t, hit) if steps is None else (color, t, hit, steps)
 
 
-def _check_compact(packed, seed, cfg, local_height, named) -> None:
+def _check_compact(packed, seed, cfg, local_height, named, lead=()) -> None:
     if cfg.march_mode != "compact":
         raise ValueError(f"march_mode={cfg.march_mode!r}: the compaction phases "
                          f"run only under march_mode='compact'")
-    _check_tensors(packed, seed, cfg, local_height, named)
+    _check_tensors(packed, seed, cfg, local_height, named, lead=lead)
 
 
 def trace_phase1(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
@@ -403,34 +462,57 @@ def trace_phase1(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
         return trace_phase1_reference(packed, seed, cfg, local_height)
     if packed.device.type != "cuda":
         raise RuntimeError(f"trace_phase1: unsupported device {packed.device}")
+    return _launch_phase1(packed, seed, cfg, local_height, ())
+
+
+def trace_phase1s(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
+                  local_height: int):
+    """``trace_phase1`` over a batch of B frames, one launch: ``packed`` (B,
+    AMPS + octaves); results with a leading B, ``ids`` (B, h·w) frame b's
+    survivors in its first ``n_alive[b]`` slots, ``n_alive`` (B,) int32 on
+    the device. CPU inputs run ``trace_phase1s_reference``."""
+    lead = _frames(packed)
+    _check_compact(packed, seed, cfg, local_height, {}, lead)
+    if packed.device.type == "cpu":
+        return trace_phase1s_reference(packed, seed, cfg, local_height)
+    if packed.device.type != "cuda":
+        raise RuntimeError(f"trace_phase1s: unsupported device {packed.device}")
+    return _launch_phase1(packed, seed, cfg, local_height, lead)
+
+
+def _launch_phase1(packed, seed, cfg, local_height, lead):
     lib = _library()
     dev = packed.device
-    hw = (local_height, cfg.width)
-    color = torch.empty((3, *hw), dtype=torch.float32, device=dev)
+    frames = lead[0] if lead else 1
+    hw = (*lead, local_height, cfg.width)
+    color = torch.empty((*lead, 3, local_height, cfg.width), dtype=torch.float32, device=dev)
     t, hit, alive, prev = (torch.empty(hw, dtype=torch.float32, device=dev)
                            for _ in range(4))
-    ids = torch.empty(local_height * cfg.width, dtype=torch.int32, device=dev)
-    n_alive = torch.empty(1, dtype=torch.int32, device=dev)  # zeroed by the launch
+    ids = torch.empty((*lead, local_height * cfg.width), dtype=torch.int32, device=dev)
+    n_alive = torch.empty(frames, dtype=torch.int32, device=dev)  # zeroed by the launch
     kcfg = _kernel_config(cfg, local_height, budget=cfg.compact_budget, phase=1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.trace_fwd_launch(
             packed.data_ptr(), seed.data_ptr(), None, color.data_ptr(), t.data_ptr(),
             hit.data_ptr(), None, alive.data_ptr(), prev.data_ptr(), ids.data_ptr(),
-            n_alive.data_ptr(), _tile_scratch(dev, stream).data_ptr(), kcfg, stream,
+            n_alive.data_ptr(), _tile_scratch(dev, stream, frames).data_ptr(), kcfg, frames,
+            stream,
         )
     _raise_on(lib, err, "trace_fwd (compact phase 1)")
-    trace_frame.launches[phase_name(cfg, 1)] += 1
+    trace_frame.launches[phase_name(cfg, 1, frames)] += 1
     return color, t, hit, alive, prev, ids, n_alive
 
 
 def _check_phase2(packed, seed, cfg, local_height, n_alive, ids, prev, color, t,
-                  hit) -> None:
-    hw = (local_height, cfg.width)
+                  hit, lead=()) -> None:
+    hw = (*lead, local_height, cfg.width)
+    color_shape = (*lead, 3, local_height, cfg.width)
     _check_compact(packed, seed, cfg, local_height, {
-        "prev": (prev, hw), "color": (color, (3, *hw)), "t": (t, hw), "hit": (hit, hw)})
-    for name, x, shape in (("n_alive", n_alive, (1,)),
-                           ("ids", ids, (local_height * cfg.width,))):
+        "prev": (prev, hw), "color": (color, color_shape), "t": (t, hw), "hit": (hit, hw)},
+        lead)
+    for name, x, shape in (("n_alive", n_alive, (lead[0] if lead else 1,)),
+                           ("ids", ids, (*lead, local_height * cfg.width))):
         if x.dtype != torch.int32 or x.shape != shape:
             raise ValueError(f"{name} must be int32 {shape}, got {x.dtype} "
                              f"{tuple(x.shape)}")
@@ -463,6 +545,29 @@ def trace_phase2(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
         return
     if packed.device.type != "cuda":
         raise RuntimeError(f"trace_phase2: unsupported device {packed.device}")
+    _launch_phase2(packed, seed, cfg, local_height, args, 1)
+
+
+def trace_phase2s(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
+                  local_height: int, n_alive: torch.Tensor, ids: torch.Tensor,
+                  prev: torch.Tensor, color: torch.Tensor, t: torch.Tensor,
+                  hit: torch.Tensor) -> None:
+    """``trace_phase2`` over a batch of B frames, one launch, on
+    ``trace_phase1s``' outputs (a leading B on each; ``n_alive`` (B,)): each
+    frame's listed rays resume from its own list, in place. CPU inputs run
+    ``trace_phase2s_reference``."""
+    lead = _frames(packed)
+    args = (n_alive, ids, prev, color, t, hit)
+    _check_phase2(packed, seed, cfg, local_height, *args, lead)
+    if packed.device.type == "cpu":
+        trace_phase2s_reference(packed, seed, cfg, local_height, *args)
+        return
+    if packed.device.type != "cuda":
+        raise RuntimeError(f"trace_phase2s: unsupported device {packed.device}")
+    _launch_phase2(packed, seed, cfg, local_height, args, lead[0])
+
+
+def _launch_phase2(packed, seed, cfg, local_height, args, frames):
     lib = _library()
     dev = packed.device
     kcfg = _kernel_config(cfg, local_height, budget=cfg.max_steps - cfg.compact_budget,
@@ -471,10 +576,10 @@ def trace_phase2(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.trace_compact_launch(
             packed.data_ptr(), seed.data_ptr(), *(x.data_ptr() for x in args),
-            _tile_scratch(dev, stream).data_ptr(), kcfg, stream,
+            _tile_scratch(dev, stream, frames).data_ptr(), kcfg, frames, stream,
         )
     _raise_on(lib, err, "trace_compact (compact phase 2)")
-    trace_frame.launches[phase_name(cfg, 2)] += 1
+    trace_frame.launches[phase_name(cfg, 2, frames)] += 1
 
 
 def _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g) -> None:
@@ -874,6 +979,47 @@ def trace_phase2_reference(packed: torch.Tensor, seed: torch.Tensor,
         out.view(-1)[sel] = new.reshape(-1)[sel]
 
 
+@torch.no_grad()
+def trace_frames_reference(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
+                           local_height: int, t0_prime: torch.Tensor | None = None,
+                           debug_steps: bool = False):
+    """Plain version of ``trace_frames``: ``trace_frame_reference`` of each
+    frame (row of ``packed``, plane of ``t0_prime``), stacked."""
+    lead = _frames(packed)
+    _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps, lead)
+    outs = [trace_frame_reference(packed[b:b + 1], seed, cfg, local_height,
+                                  None if t0_prime is None else t0_prime[b], debug_steps)
+            for b in range(lead[0])]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+@torch.no_grad()
+def trace_phase1s_reference(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
+                            local_height: int):
+    """Plain version of ``trace_phase1s``: ``trace_phase1_reference`` of
+    each frame, stacked (``n_alive`` (B,))."""
+    lead = _frames(packed)
+    _check_compact(packed, seed, cfg, local_height, {}, lead)
+    outs = [trace_phase1_reference(packed[b:b + 1], seed, cfg, local_height)
+            for b in range(lead[0])]
+    *planes, n_alive = (torch.stack(x) for x in zip(*outs))
+    return (*planes, n_alive.reshape(-1))
+
+
+@torch.no_grad()
+def trace_phase2s_reference(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
+                            local_height: int, n_alive: torch.Tensor, ids: torch.Tensor,
+                            prev: torch.Tensor, color: torch.Tensor, t: torch.Tensor,
+                            hit: torch.Tensor) -> None:
+    """Plain version of ``trace_phase2s``: ``trace_phase2_reference`` of
+    each frame, in place on its planes."""
+    lead = _frames(packed)
+    _check_phase2(packed, seed, cfg, local_height, n_alive, ids, prev, color, t, hit, lead)
+    for b in range(lead[0]):
+        trace_phase2_reference(packed[b:b + 1], seed, cfg, local_height, n_alive[b:b + 1],
+                               ids[b], prev[b], color[b], t[b], hit[b])
+
+
 def tile_steps(steps: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     """The march steps each (tile_h, 128) tile of the TPU kernel executes,
     from per-lane counts (h, w): a (grid_h, grid_w) int32 array, equal to
@@ -989,6 +1135,46 @@ def render_kernel_raw(scene: Scene, cfg: RenderConfig, row0=0.0,
     packed, seed = pk.pack_scene(scene, cfg.height, cfg.width, row0)
     color, t, hit_f, *steps = trace_frame(packed, seed, cfg, h, t0p, debug_steps)
     return (color.permute(1, 2, 0), t, hit_f > 0.5, *steps)
+
+
+@torch.no_grad()
+def _prime_maps(scene: Scene, cameras: Cameras, cfg: RenderConfig):
+    """``_prime_map`` of whole frames for a batch of cameras: the coarse
+    passes of all frames in one ``trace_frames`` launch, then their (B, h, w)
+    prime maps (None when ``cfg`` does not prime)."""
+    if not cfg.prime_ds:
+        return None
+    check_prime_band(cfg, 0.0, cfg.height)
+    ccfg = coarse_prime_cfg(cfg)
+    packed, seed = pk.pack_scenes(scene, cameras, ccfg.height, ccfg.width, -1.0)
+    _, t_c, _ = trace_frames(packed, seed, ccfg, cfg.height // cfg.prime_ds + 2)
+    return prime_from_coarse(t_c, cfg)
+
+
+@torch.no_grad()
+def render_frames_raw(scene: Scene, cameras: Cameras, cfg: RenderConfig):
+    """Render a batch of full frames of ``scene``, frame b from camera b of
+    ``cameras`` (``ops/camera.py:Cameras``), through ``trace_frames``: (color
+    (B, H, W, 3), t (B, H, W), hit bool (B, H, W)), frame b bit for bit
+    ``render_kernel_raw`` of the scene with camera b. The counterpart of the
+    body of the JAX package's ``_make_batch_render`` (``jit(vmap(render))``):
+    the coarse prime pass of every frame in one launch, the prime maps, then
+    the fine pass of every frame in one launch (compaction: phase 1 and
+    phase 2 once each). ``cfg.supersample`` k > 1 traces at k× resolution
+    and box-downsamples each frame's colour as ``ops/render.py:render`` does;
+    t and hit stay at the traced resolution. Builds no autograd graph."""
+    ss = cfg.supersample
+    if ss > 1:
+        from gpgpuraytrace_tpu_torch.ops.render import box_downsample
+
+        hi_cfg = dataclasses.replace(cfg, height=cfg.height * ss, width=cfg.width * ss,
+                                     supersample=1)
+        color, t, hit = render_frames_raw(scene, cameras, hi_cfg)
+        return torch.stack([box_downsample(c, ss) for c in color]), t, hit
+    t0p = _prime_maps(scene, cameras, cfg)
+    packed, seed = pk.pack_scenes(scene, cameras, cfg.height, cfg.width)
+    color, t, hit_f = trace_frames(packed, seed, cfg, cfg.height, t0p)
+    return color.permute(0, 2, 3, 1), t, hit_f > 0.5
 
 
 def _float_leaves(scene: Scene) -> list[torch.Tensor]:

@@ -2,23 +2,39 @@
 
 ``row0`` and ``local_height`` select a horizontal band of the full image; the
 depth-prime coarse pass renders one virtual halo row above the frame, so
-``row0`` may be negative.
+``row0`` may be negative. ``Cameras`` holds a batch of cameras (a flythrough
+batch, the JAX package's ``vmap`` over cameras).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from gpgpuraytrace_tpu_torch.models.scene import Camera
 
 
-def camera_basis(camera: Camera):
-    """Orthonormal (forward, right, up) from yaw/pitch (world up = +y)."""
+@dataclasses.dataclass(frozen=True)
+class Cameras:
+    """A batch of B cameras as plain tensors on one device: ``position``
+    (B, 3); ``yaw``, ``pitch`` and ``fov_y`` (B,) each, or 0-d where the
+    frames share it. Frame b is the ``Camera`` whose leaves are entry b."""
+
+    position: torch.Tensor
+    yaw: torch.Tensor
+    pitch: torch.Tensor
+    fov_y: torch.Tensor
+
+
+def camera_basis(camera: Camera | Cameras):
+    """Orthonormal (forward, right, up) from yaw/pitch (world up = +y): (3,)
+    each for a ``Camera``, (B, 3) for ``Cameras``, entry by entry the same."""
     cy, sy = torch.cos(camera.yaw), torch.sin(camera.yaw)
     cp, sp = torch.cos(camera.pitch), torch.sin(camera.pitch)
-    forward = torch.stack([sy * cp, sp, cy * cp])
-    right = torch.stack([cy, torch.zeros_like(cy), -sy])
-    up = torch.linalg.cross(forward, right)
+    forward = torch.stack(torch.broadcast_tensors(sy * cp, sp, cy * cp), dim=-1)
+    right = torch.stack([cy, torch.zeros_like(cy), -sy], dim=-1)
+    up = torch.linalg.cross(*torch.broadcast_tensors(forward, right))
     return forward, right, up
 
 

@@ -68,13 +68,15 @@ def prime_from_coarse(t_c_ext: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     rows. Each fine ray starts at ``prime_margin`` × the minimum t of its
     3×3 coarse neighbourhood (+inf padding at the sides: ``max_pool2d`` of
     −t pads with −inf); a neighbourhood that all reached t_max primes to
-    t_max. ``cfg`` is the fine config."""
-    m = -F.max_pool2d(-t_c_ext[None, None], 3, stride=1, padding=1)[0, 0, 1:-1, :]
+    t_max. ``cfg`` is the fine config. A (B, h_c + 2, w_c) batch of coarse
+    images gives the (B, h, w) batch of maps, each frame's bit for bit its
+    own map (a minimum, then elementwise)."""
+    m = -F.max_pool2d(-t_c_ext.unsqueeze(-3), 3, stride=1, padding=1)[..., 0, 1:-1, :]
     t_max = torch.full_like(m, cfg.t_max)
     tp = torch.where(m >= cfg.t_max, t_max, m * cfg.prime_margin)
     tp = torch.clamp(tp, cfg.t_min, cfg.t_max)
     ds = cfg.prime_ds
-    return tp.repeat_interleave(ds, dim=0).repeat_interleave(ds, dim=1)
+    return tp.repeat_interleave(ds, dim=-2).repeat_interleave(ds, dim=-1)
 
 
 def _march_loop(cfg: RenderConfig, ray_o, ray_d, noise: NoiseParams,

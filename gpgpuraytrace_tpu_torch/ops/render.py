@@ -88,6 +88,13 @@ def hit_distances(scene: Scene, cfg: RenderConfig, row0=0.0,
     return _march_torch(scene, cfg, ray_o, ray_d, row0, local_height)
 
 
+def box_downsample(img: torch.Tensor, ss: int) -> torch.Tensor:
+    """The mean of each ss×ss block of an (h·ss, w·ss, 3) image: (h, w, 3)."""
+    h = img.shape[0] // ss
+    w = img.shape[1] // ss
+    return img.reshape(h, ss, w, ss, 3).mean(dim=(1, 3))
+
+
 def render(scene: Scene, cfg: RenderConfig, row0=0.0,
            local_height: int | None = None) -> torch.Tensor:
     """Main entry: (h, W, 3) linear RGB of a full frame or a row band.
@@ -99,10 +106,7 @@ def render(scene: Scene, cfg: RenderConfig, row0=0.0,
             cfg, height=cfg.height * ss, width=cfg.width * ss, supersample=1
         )
         lh = None if local_height is None else local_height * ss
-        img = render(scene, hi_cfg, row0 * ss, lh)
-        h = img.shape[0] // ss
-        w = img.shape[1] // ss
-        return img.reshape(h, ss, w, ss, 3).mean(dim=(1, 3))
+        return box_downsample(render(scene, hi_cfg, row0 * ss, lh), ss)
     if cfg.use_kernel:
         return render_kernel(scene, cfg, row0, local_height)
     return render_torch(scene, cfg, row0, local_height)

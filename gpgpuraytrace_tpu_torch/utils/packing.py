@@ -2,15 +2,16 @@
 (counterpart of ``gpgpuraytrace_tpu/utils/packing.py``, same offsets).
 
 The camera basis is derived once per frame here; the kernel reads every
-scene scalar from this vector, which stays on the device.
+scene scalar from this vector, which stays on the device. ``pack_scenes``
+packs one scene for a batch of cameras: a row per frame.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gpgpuraytrace_tpu_torch.models.scene import Scene
-from gpgpuraytrace_tpu_torch.ops.camera import camera_basis
+from gpgpuraytrace_tpu_torch.models.scene import Camera, Scene
+from gpgpuraytrace_tpu_torch.ops.camera import Cameras, camera_basis
 
 POS = 0  # 3: camera position
 FWD = 3  # 3: camera forward
@@ -43,7 +44,24 @@ def pack_scene(scene: Scene, height: int, width: int, row0=0.0):
     """Returns (packed float32 (1, AMPS + octaves), seed int32 (1, 1)) on the
     scene's device. ``height``/``width`` are the full image dims; ``row0``
     is the first row of the block being rendered."""
-    fwd, right, up = camera_basis(scene.camera)
+    packed, seed = pack_scenes(scene, scene.camera, height, width, row0)
+    return packed[None, :], seed
+
+
+def pack_scenes(scene: Scene, cameras: Camera | Cameras, height: int, width: int,
+                row0=0.0):
+    """``pack_scene`` of ``scene`` seen from each camera of ``cameras``:
+    (packed float32 (B, AMPS + octaves), seed int32 (1, 1)) for a batch of B
+    cameras, row b bit for bit ``pack_scene`` of the scene with frame b's
+    camera (the camera columns are computed for all frames at once, entry by
+    entry as for one; the scene's other scalars are packed once); a single
+    ``Camera`` gives (AMPS + octaves,)."""
+    fwd, right, up = camera_basis(cameras)
+    tan = torch.tan(0.5 * cameras.fov_y)
+    lead = torch.broadcast_shapes(cameras.position.shape[:-1], fwd.shape[:-1], tan.shape)
+    cam = [x.to(torch.float32).expand(*lead, 3)
+           for x in (cameras.position, fwd, right, up)]
+    cam.append(tan.to(torch.float32).expand(lead)[..., None])
     m = scene.materials
     n = scene.noise
     dev = m.sun_dir.device
@@ -55,14 +73,14 @@ def pack_scene(scene: Scene, height: int, width: int, row0=0.0):
         return torch.full((1,), v, dtype=torch.float32, device=dev)
 
     parts = [
-        scene.camera.position, fwd, right, up,
-        torch.tan(0.5 * scene.camera.fov_y), scalar(width / height),
+        scalar(width / height),
         n.lacunarity, n.height_scale, n.height_offset, n.horizontal_scale,
         sun, m.sun_color, m.ambient_color, m.albedo_low, m.albedo_high,
         m.snow_color, m.snow_height, m.fog_color, m.fog_density,
         m.sky_zenith, m.sky_horizon,
         scalar(row0), n.warp_amplitude, n.warp_frequency, n.amplitudes,
     ]
-    packed = torch.cat([p.to(torch.float32).reshape(-1) for p in parts])
+    rest = torch.cat([p.to(torch.float32).reshape(-1) for p in parts])
+    packed = torch.cat([*cam, rest.expand(*lead, -1)], dim=-1)
     seed = n.seed.to(torch.int32).reshape(1, 1)
-    return packed[None, :], seed
+    return packed, seed

@@ -42,8 +42,10 @@ with ctypes beside the others. Then, on one card:
 A design before the 4x8 warp tiles takes 11 pointers in ``trace_fwd_launch``,
 the warp-tile design 12 (its tile scratch last); a phase 2 that takes a
 scratch (persistent ray groups) 9 pointers in ``trace_compact_launch``, an
-older one 8; an arm's signatures are read from its sources, the backward's
-as ``scripts/torch_bwd_ab.py:Arm`` reads it. The digests of step 2 are also
+older one 8; a design with the frame axis takes the frame count after the
+config in both (each arm here launches one frame); an arm's signatures are
+read from its sources, the backward's as ``scripts/torch_bwd_ab.py:Arm``
+reads it. The SASS census reads the one-frame instantiations. The digests of step 2 are also
 held to ``chip_smoke.py:EXPECTED_DIGESTS``. Prints one JSON line per section
 and writes them all to ``--out``.
 """
@@ -128,13 +130,17 @@ class Arm:
         # run on one stream.
         self.scratch = None
         n_ptr = 12 if self.tiles else 11
+        # The frame axis: the frame count after the config (1 here).
+        self.frames = ("int frames" in (src_dir / "trace_fwd.cu").read_text()) * [1]
+        frames_arg = [ctypes.c_int] if self.frames else []
         self.lib.trace_fwd_launch.argtypes = ([ctypes.c_void_p] * n_ptr
-                                              + [ktrace.TraceConfig, ctypes.c_void_p])
+                                              + [ktrace.TraceConfig, *frames_arg,
+                                                 ctypes.c_void_p])
         self.lib.trace_fwd_launch.restype = ctypes.c_int
         # Phase 2 on persistent ray groups takes a scratch for its slot counter.
         self.p2_scratch = "scratch" in (src_dir / "trace_compact.cu").read_text()
         self.lib.trace_compact_launch.argtypes = [ctypes.c_void_p] * (
-            9 if self.p2_scratch else 8) + [ktrace.TraceConfig, ctypes.c_void_p]
+            9 if self.p2_scratch else 8) + [ktrace.TraceConfig, *frames_arg, ctypes.c_void_p]
         self.lib.trace_compact_launch.restype = ctypes.c_int
         self.bwd_arm = BwdArm(name, lib_path, src_dir / "trace_bwd.cu")
 
@@ -158,7 +164,8 @@ class Arm:
         if self.tiles:
             ptrs.append(self.kept_scratch(dev))
         err = self.lib.trace_fwd_launch(*(None if x is None else x.data_ptr() for x in ptrs),
-                                        kcfg, torch.cuda.current_stream().cuda_stream)
+                                        kcfg, *self.frames,
+                                        torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"{self.name}: trace_fwd_launch returned CUDA error {err}")
         if compact:
@@ -182,7 +189,8 @@ class Arm:
         if self.p2_scratch:
             ptrs.append(self.kept_scratch(packed.device))
         err = self.lib.trace_compact_launch(
-            *(x.data_ptr() for x in ptrs), kcfg, torch.cuda.current_stream().cuda_stream)
+            *(x.data_ptr() for x in ptrs), kcfg, *self.frames,
+            torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"{self.name}: trace_compact_launch returned {err}")
 
@@ -254,7 +262,7 @@ def sass_census(lib_path: Path, dump: Path) -> dict:
     whose body floors (FRND) in float, i.e. evaluates the noise. Writes the
     function's SASS to ``dump``."""
     funcs = sass_functions(lib_path)
-    pick = [f for f in funcs if re.match(r"\S*trace_fwd_kernelILi0ELb0ELb0E(Li6E)?E", f)]
+    pick = [f for f in funcs if re.match(r"\S*trace_fwd_kernelILi0ELb0ELb0E(Li6E)?(Lb0E)?E", f)]
     pick.sort(key=lambda f: "Li6E" not in f.split("\n", 1)[0])  # the unrolled one first
     if not pick:
         raise SystemExit("no trace_fwd_kernel<chunked, 0, 0> in the SASS")
@@ -577,8 +585,8 @@ def compact_census(lib_path: Path, dump_dir: Path, arm: str) -> dict:
     class (shuffles apart) and every loop's; each written to
     ``dump_dir/sass_<kernel>_<arm>.txt``."""
     report = {}
-    for label, pattern in (("phase1", r"\S*trace_fwd_kernelILi3ELb0ELb0E(Li\d+E)?E"),
-                           ("phase2", r"\S*trace_phase2_kernelILb0E(Li\d+E)?E")):
+    for label, pattern in (("phase1", r"\S*trace_fwd_kernelILi3ELb0ELb0E(Li\d+E)?(Lb0E)?E"),
+                           ("phase2", r"\S*trace_phase2_kernelILb0E(Li\d+E)?(Lb0E)?E")):
         for body in (f for f in sass_functions(lib_path) if re.match(pattern, f)):
             name = body.split("\n", 1)[0].strip()
             tag = label + ("_unrolled" if "Li6E" in name else "")

@@ -519,3 +519,145 @@ def test_cuda_compact_scratch_across_streams_and_graphs(cuda, volumetric):
         for a, b in zip(out, first):
             assert torch.equal(a, b)
     assert all(int(s.abs().sum()) == 0 for s in ktrace._TILE_SCRATCH.values())
+
+
+def fly_batch(cuda, cfg, frames, row0=-1.0, height=None, width=None):
+    """The scene, (packed (frames, n), seed) of the fly path's first
+    ``frames`` cameras at (height, width) from ``row0``, and each frame's
+    one-frame packed row."""
+    from gpgpuraytrace_tpu_torch.models.scene import Scene
+    from gpgpuraytrace_tpu_torch.ops.flythrough import flythrough_camera, flythrough_cameras
+    from gpgpuraytrace_tpu_torch.utils.packing import pack_scenes
+
+    height, width = height or cfg.height, width or cfg.width
+    scene = default_scene(cfg.num_octaves, volumetric=cfg.volumetric, device=cuda)
+    times = torch.arange(frames, dtype=torch.float32) / 30.0
+    packed, seed = pack_scenes(scene, flythrough_cameras(scene, times), height, width, row0)
+    ones = [pack_scene(Scene(scene.noise, flythrough_camera(scene, t), scene.materials),
+                       height, width, row0)[0].detach() for t in times]
+    return packed.detach(), seed, ones
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("volumetric", [False, True], ids=["heightfield", "volumetric"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("octaves", [3, 6])
+@pytest.mark.parametrize("kind", ["coarse", "primed", "unprimed", "counted", "fixed", "lod"])
+def test_cuda_frame_axis_equals_one_frame_launches(cuda, kind, octaves, bf16, volumetric):
+    """Every forward instantiation's frame axis (6 octaves: the unrolled
+    twins too): batches of 1, 2 and 4 frames along the fly path, each frame
+    bit for bit its one-frame launch, one launch per batch (a batch of one
+    runs the one-frame kernel): the coarse prime pass (66x64 of 512 rows:
+    fewer tiles than warps), the primed fine pass, unprimed, counted, fixed
+    and lod."""
+    mode = kind if kind in ("fixed", "lod") else "chunked"
+    cfg = dataclasses.replace(CFG, height=512 if kind == "coarse" else CFG.height,
+                              width=512 if kind == "coarse" else CFG.width, march_mode=mode,
+                              march_bf16=bf16, num_octaves=octaves, volumetric=volumetric,
+                              step_relax=None, prime_ds=8 if kind in ("coarse", "primed") else 0)
+    if kind == "coarse":
+        cfg = coarse_prime_cfg(cfg)
+    h = cfg.height + 2 if kind == "coarse" else cfg.height
+    row0 = -1.0 if kind == "coarse" else 0.0
+    debug = kind == "counted"
+    packed, seed, ones = fly_batch(cuda, cfg, 4, row0)
+    with torch.no_grad():
+        prime = None
+        if kind == "primed":
+            gen = torch.Generator().manual_seed(1)
+            prime = (torch.rand(4, h, cfg.width, generator=gen) * 40.0).to(cuda)
+        singles = [ktrace.trace_frame(p, seed, cfg, h,
+                                      None if prime is None else prime[k].contiguous(), debug)
+                   for k, p in enumerate(ones)]
+        for frames in (1, 2, 4):
+            name = ktrace.variant_name(cfg, debug, frames)
+            before = ktrace.trace_frame.launches[name]
+            got = ktrace.trace_frames(packed[:frames], seed, cfg, h,
+                                      None if prime is None else prime[:frames], debug)
+            torch.cuda.synchronize()
+            assert ktrace.trace_frame.launches[name] == before + 1
+            for k in range(frames):
+                for a, b in zip(got, singles[k]):
+                    assert torch.equal(a[k], b), (frames, k)
+    assert all(int(s.abs().sum()) == 0 for s in ktrace._TILE_SCRATCH.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("volumetric", [False, True], ids=["heightfield", "volumetric"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("octaves", [3, 6])
+def test_cuda_compact_frame_axis_equals_one_frame_launches(cuda, octaves, bf16, volumetric):
+    """Compaction's two phases over batches of 1, 2 and 4 frames: each
+    frame's phase 1 outputs bit for bit its one-frame launch's (its
+    survivors' list as a set, in its own row, its count in its own slot of
+    n_alive), then each frame's phase 2 outputs, one launch per phase."""
+    cfg = dataclasses.replace(CFG, march_mode="compact", compact_budget=16, march_bf16=bf16,
+                              num_octaves=octaves, volumetric=volumetric, step_relax=None)
+    h = cfg.height
+    packed, seed, ones = fly_batch(cuda, cfg, 4, 0.0)
+    with torch.no_grad():
+        singles = []
+        for p in ones:
+            p1 = ktrace.trace_phase1(p, seed, cfg, h)
+            n = int(p1[6])
+            first = (*(x.clone() for x in p1[:5]), p1[5][:n].sort().values, p1[6].clone())
+            ktrace.trace_phase2(p, seed, cfg, h, p1[6], p1[5], p1[4], *p1[:3])
+            singles.append((first, p1[:3]))
+        for frames in (1, 2, 4):
+            p1 = ktrace.trace_phase1s(packed[:frames], seed, cfg, h)
+            assert p1[5].shape == (frames, h * cfg.width) and p1[6].shape == (frames,)
+            for k in range(frames):
+                n = int(p1[6][k])
+                got = (*(x[k] for x in p1[:5]), p1[5][k][:n].sort().values, p1[6][k:k + 1])
+                for a, b in zip(got, singles[k][0]):
+                    assert torch.equal(a, b), (frames, k)
+            ktrace.trace_phase2s(packed[:frames], seed, cfg, h, p1[6], p1[5], p1[4], *p1[:3])
+            for k in range(frames):
+                for a, b in zip(p1[:3], singles[k][1]):
+                    assert torch.equal(a[k], b), (frames, k)
+    torch.cuda.synchronize()
+    assert all(int(s.abs().sum()) == 0 for s in ktrace._TILE_SCRATCH.values())
+
+
+@pytest.mark.cuda
+def test_cuda_frame_axis_across_streams_and_graphs(cuda):
+    """A batch of 4 (coarse pass, fine pass, compaction) back to back, on a
+    second stream and replayed from a CUDA graph equals the first bit for
+    bit; every kept scratch (two counters per frame) reads 0 after."""
+    cfg = dataclasses.replace(CFG, num_octaves=6, prime_ds=0)
+    cmp = dataclasses.replace(cfg, march_mode="compact", compact_budget=16)
+    packed, seed, _ = fly_batch(cuda, cfg, 4, 0.0)
+
+    def trace():
+        return (*ktrace.trace_frames(packed, seed, cfg, cfg.height),
+                *ktrace.trace_frames(packed, seed, cmp, cfg.height))
+
+    with torch.no_grad():
+        first = trace()
+        runs = [trace()]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            runs.append(trace())
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = trace()
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            runs.append(tuple(x.clone() for x in captured))
+    torch.cuda.synchronize()
+    for out in runs:
+        for a, b in zip(out, first):
+            assert torch.equal(a, b)
+    assert all(int(s.abs().sum()) == 0 for s in ktrace._TILE_SCRATCH.values())
+
+
+@pytest.mark.cuda
+def test_cuda_batch_over_the_grid_raises(cuda):
+    cfg = dataclasses.replace(CFG, prime_ds=0)
+    packed, seed, _ = fly_batch(cuda, cfg, 1, 0.0)
+    with pytest.raises(ValueError, match=str(ktrace.MAX_FRAMES)):
+        ktrace.trace_frames(packed.expand(ktrace.MAX_FRAMES + 1, -1).contiguous(), seed, cfg,
+                            cfg.height)
