@@ -125,12 +125,23 @@ each prints one line and any failure exits non-zero:
     4 frames against 1), the wrapper's host us per launch, one frame and a
     batch, and of each part of its launcher; fly fps without writing at
     batch 1, 4 and 8 at 512x512 and 1920x1080, and the device's busy share
-    of a batch of 4.
+    of a batch of 4;
+29. the benchmark (``gpgpuraytrace_tpu_torch/bench.py``, the counterpart of
+    the JAX package's ``bench.py``): ``run_bench`` at 512x512, 6 octaves, K =
+    40: its same-run parity gate "ok", fwd+bwd rays/s by the slope of CUDA
+    graphs of 1 and 40 steps (every float parameter trainable) with a
+    training step's forward and backward launches per captured step (phase
+    9's), the eager slope, the plain path's (vs_baseline above 1), both
+    timed graphs replayed at a fixed salt bit for bit the eager loop, one
+    kernel-path step against the plain path's, the march statistics with
+    the counter's executed steps; ``run_bench_mesh(1)``, one rank of
+    ``parallel/worker.py --time-k`` on NCCL; both JSON lines printed.
 
-Phases 15-18, 20-22 and 25-28 each drive their paths through the entry point
+Phases 15-18, 20-22 and 25-29 each drive their paths through the entry point
 a user calls (``render``, ``render_kernel_raw`` for the counter, ``fly_frames``,
-``fit_step``, ``fit``, ``sharded_render``, ``make_sharded_fit_step``) with
-the launch counts set to 0 just before and read just after.
+``fit_step``, ``fit``, ``sharded_render``, ``make_sharded_fit_step``,
+``bench.run_bench``) with the launch counts set to 0 just before and read
+just after.
 
 A line before the last is a JSON record of the kernels, each with its least
 time on the card (``bound_ms``, from operation counts of the source and the
@@ -2502,6 +2513,77 @@ def fly_fps(scene, cfg, tag: str) -> str:
             + " | a batch of 4: " + " | ".join(f"{k}: {v}" for k, v in busy.items()))
 
 
+def bench_phase(fwd_per_step: float, bwd_per_step: float, card: str) -> tuple[str, dict]:
+    """Phase 29: the port's benchmark, ``bench.run_bench`` at 512x512, 6
+    octaves, K = 40 (parity gate, CUDA graphs of 1 and K steps, the eager
+    slope, the plain path, the march statistics), and ``bench.run_bench_mesh(1)``
+    (one rank of ``parallel/worker.py --time-k`` on NCCL), each JSON line
+    printed. It fails unless parity is "ok", every slope is positive,
+    vs_baseline is above 1, the K-step graph captured a training step's
+    kernel launches per step (phase 9's), both timed graphs replayed at a
+    fixed salt equal the eager loop bit for bit and one step of the kernel
+    path holds against the plain path's (``detail.checks``); returns its
+    line and this process's forward and backward launches (the captures
+    count once)."""
+    from gpgpuraytrace_tpu_torch import bench
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
+
+    t0 = time.perf_counter()
+    reset_counts()
+    result = bench.run_bench((512, 512), 6, iters=40)
+    torch.cuda.synchronize()
+    counts = {"forward": trace_frame.launches.total(),
+              "backward": trace_frame_bwd.launches.total()}
+    print(json.dumps(result), flush=True)
+    d = result["detail"]
+    if result["parity"] != "ok":
+        fail(f"bench: the parity gate says {result['parity']!r}")
+    slopes = [m["ms_per_step"] for m in d["kernel_measurements"] + d["eager_measurements"]
+              + [d["plain_measurement"]]]
+    if not all(ms > 0 for ms in slopes):
+        fail(f"bench: a slope is not positive: {slopes} ms per step")
+    if not result["vs_baseline"] > 1.0:
+        fail(f"bench: vs_baseline {result['vs_baseline']!r} is not above 1")
+    graph, step = d["checks"]["graph_vs_eager"], d["checks"]["kernel_vs_plain"]
+    if graph is None or not graph["ok"]:
+        fail(f"bench: the timed graphs against the eager loop: {graph}")
+    if not step["ok"]:
+        fail(f"bench: one step of the kernel path against the plain path's: {step}")
+    per_step = d["launches_per_step"]
+    got = (sum(per_step["forward"].values()), sum(per_step["backward"].values()))
+    if d["kernel_timing"] != "cuda_graph" or got != (fwd_per_step, bwd_per_step):
+        fail(f"bench: the {d['K']}-step graph ({d['kernel_timing']}) captured {per_step} "
+             f"launches per step, a training step launches {fwd_per_step:g} forward and "
+             f"{bwd_per_step:g} backward (phase 9)")
+    mesh = bench.run_bench_mesh(1)
+    print(json.dumps(mesh), flush=True)
+    rank = mesh["detail"]["ranks"]["1"][0]
+    if rank["backend"] != "nccl" or not mesh["value"] > 0:
+        fail(f"bench --mesh 1: the rank ran {rank['backend']!r}, eff(1) {mesh['value']!r}")
+    m = d["march"]
+    spread = [x["rays_per_sec"] for x in d["kernel_measurements"]]
+    line = (f"fwd+bwd {result['value']:.1f} rays/s ({d['kernel_ms_per_step']:.5f} ms a step, "
+            f"CUDA graphs of 1 and {d['K']} steps, lower middle of "
+            f"{', '.join(f'{x:.1f}' for x in spread)}), eager {d['rays_per_sec_eager']:.1f} "
+            f"({d['eager_ms_per_step']:.4f} ms), plain {d['plain']:.2f} "
+            f"({d['plain_ms_per_step']:.2f} ms, K {d['plain_K']}); vs_baseline "
+            f"{result['vs_baseline']:.2f}; parity ok; graphs of 1 and {d['K']} steps equal "
+            f"the eager loop bit for bit at salt {graph['salt']} ({graph[str(d['K'])]['graph']}); "
+            f"a kernel step vs plain: accumulator {step['acc_kernel']!r} vs "
+            f"{step['acc_plain']!r} (err {step['acc_err']:.3e}, bound {step['acc_bound']:.3e}), "
+            f"worst leaf {step['worst_leaf']} at {step['worst_leaf_share']:.4f} of its bound; "
+            f"{got[0]:g} forward and {got[1]:g} "
+            f"backward launches per captured step ({per_step}); build {d['kernel_build_s']:.2f} "
+            f"s; peak memory {d['peak_memory_bytes'] / 2**20:.1f} MiB; march: hit rate "
+            f"{m['hit_rate']:.4f}, steps mean {m['steps_mean']:.4f}, p99 {m['steps_p99']:.1f}, "
+            f"exhausted {m['exhausted_lanes']}, executed per ray {m['executed_steps_per_ray_kernel']} "
+            f"(TPU tiles) / {m['executed_steps_per_ray_kernel_warp_tile']} (warp tiles); "
+            f"mesh 1 on {rank['backend']}: {mesh['detail']['rays_per_sec']['1']:.1f} rays/s, eff(1) "
+            f"{mesh['value']}; seconds {d['seconds']}; phase 29 took "
+            f"{time.perf_counter() - t0:.1f} s {card}")
+    return line, counts
+
+
 def main() -> None:
     # --- 1. host -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2856,6 +2938,10 @@ def main() -> None:
     phase(28, "batch fly fps", f"{fly_fps(default_scene(6, device=dev), cfg, '')} {card}")
     phase(28, "batch", f"phase 28 took {time.perf_counter() - t28:.1f} s")
 
+    # --- 29. the benchmark -------------------------------------------------------
+    bench_line, bench_counts = bench_phase(tr["fwd"] / steps, tr["bwd"] / steps, card)
+    phase(29, "bench", bench_line)
+
     # Bounds of phases 3, 8, 11 and 13 from phase 15's useful steps and hits.
     n_pix = cfg.height * cfg.width
     fwd_b = {tag: fwd_bound(c, results["counter", tag]["lanes"].sum().item(),
@@ -2897,9 +2983,11 @@ def main() -> None:
 
     paths = {"fwd": {"serving": serve_launches, "training": tr["fwd"],
                      "volumetric serving": vserve_launches,
-                     "volumetric training": vtr["fwd"]},
+                     "volumetric training": vtr["fwd"],
+                     "bench": bench_counts["forward"]},
              "bwd": {"serving": 0, "training": tr["bwd"], "volumetric serving": 0,
-                     "volumetric training": vtr["bwd"]}}
+                     "volumetric training": vtr["bwd"],
+                     "bench": bench_counts["backward"]}}
     record = {"kernels": [
         {
             "name": "trace_fwd",

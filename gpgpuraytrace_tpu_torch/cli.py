@@ -8,6 +8,8 @@ flythrough frames with live tweaks, or write a tweak template.
   python -m gpgpuraytrace_tpu_torch.cli render --march-mode compact -o frame.png
   python -m gpgpuraytrace_tpu_torch.cli fly --size 512 --frames 60 --tweak live.json -o frames/
   python -m gpgpuraytrace_tpu_torch.cli tweaks -o live.json
+  python -m gpgpuraytrace_tpu_torch.cli bench --size 512 --octaves 6 --iters 40
+  python -m gpgpuraytrace_tpu_torch.cli bench --mesh 4
 
 ``--device cuda`` (the default) requires a CUDA GPU and raises without one;
 ``--device cpu`` runs the plain PyTorch versions. ``--kernel`` (the default)
@@ -19,7 +21,10 @@ and runs ``--steps-per-call`` steps per chunk (on the card one CUDA graph);
 ``fly`` renders each ``--batch`` of frames as one launch per pass (the
 kernels' frame axis) and writes them through the native writer's worker
 threads (``utils/native_io.py``), or the Python encoder when it cannot be
-built.
+built. ``bench`` prints the benchmark's JSON line (``bench.py``: fwd+bwd
+rays/s, its same-run parity gate, the checks of what was timed, the march
+statistics; ``--mesh N`` the row-band scaling over N cards) and exits 1 when
+the parity gate or a check fails.
 There is no ``--aot-cache``: the port's compiled artifact is the kernel
 library, built once per source hash (``kernels/build.py``).
 """
@@ -28,10 +33,13 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 import numpy as np
 import torch
+
+BENCH_ITERS = 20  # bench's K, the JAX CLI's default (gpgpuraytrace_tpu/cli.py:360-363)
 
 
 def _parse_size(s: str) -> tuple[int, int]:
@@ -236,6 +244,19 @@ def cmd_tweaks(args):
     print(f"wrote tweak template -> {args.out} (edit while `fly --tweak {args.out}` runs)")
 
 
+def cmd_bench(args):
+    """``bench.main`` with these options; K is the JAX CLI's 20 unless
+    ``--iters`` or ``--mesh`` is given (then the bench's own default)."""
+    from gpgpuraytrace_tpu_torch import bench
+
+    iters = args.iters if args.iters is not None or args.mesh else BENCH_ITERS
+    rc = bench.main(["--device", args.device, "--size", args.size, "--octaves",
+                     str(args.octaves), "--mesh", str(args.mesh)]
+                    + (["--iters", str(iters)] if iters is not None else []))
+    if rc:
+        sys.exit(rc)
+
+
 def _common(sp, march_mode: bool = False):
     sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     sp.add_argument("--size", default="512", help="N or WxH")
@@ -314,6 +335,16 @@ def main(argv=None):
     _common(sp)
     sp.add_argument("-o", "--out", default="tweaks.json")
     sp.set_defaults(fn=cmd_tweaks)
+    sp = sub.add_parser("bench", help="benchmark fwd+bwd rays/s (one JSON line)")
+    sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    sp.add_argument("--size", default="512", help="N or WxH")
+    sp.add_argument("--octaves", type=int, default=6)
+    sp.add_argument("--iters", type=int, default=None,
+                    help=f"K of the slope (T(K) - T(1)) / (K - 1) (default {BENCH_ITERS}; "
+                         "with --mesh, the bench's)")
+    sp.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="the row-band scaling harness over 1, 2, 4, ... N cards")
+    sp.set_defaults(fn=cmd_bench)
     args = p.parse_args(argv)
     args.fn(args)
 

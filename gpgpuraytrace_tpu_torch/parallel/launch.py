@@ -34,11 +34,13 @@ TIMEOUT_S = 600.0
 
 
 @contextlib.contextmanager
-def distributed_context(device="cuda"):
+def distributed_context(device="cuda", world_size: int | None = None):
     """Join the process group described by the environment for the body
     (``mesh.initialize_distributed``) and destroy it after, if this call
-    made it. Yields (rank, world size): (0, 1) for a single process."""
-    made = initialize_distributed(device)
+    made it. Yields (rank, world size): (0, 1) for a single process. A
+    ``world_size`` given joins a group of that size even when it is 1 (a
+    launched job of one rank)."""
+    made = initialize_distributed(device, world_size=world_size)
     try:
         yield world()
     finally:

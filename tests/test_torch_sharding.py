@@ -155,6 +155,22 @@ def test_initialize_distributed_is_a_noop_for_one_process(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
+@pytest.mark.parametrize("world_size", [None, "1"], ids=["unset", "one"])
+def test_master_addr_alone_is_a_noop(monkeypatch, world_size):
+    """A shell that exports MASTER_ADDR (and MASTER_PORT) still runs a single
+    process alone: only a world size above 1, or one given, makes a group."""
+    for var in ("WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", "1")
+    if world_size is not None:
+        monkeypatch.setenv("WORLD_SIZE", world_size)
+    assert not mesh.initialize_distributed("cpu")
+    with launch.distributed_context("cpu") as (rank, n):
+        assert (rank, n) == (0, 1)
+    assert not torch.distributed.is_initialized()
+
+
 def test_launch_raises_when_a_rank_fails():
     with pytest.raises(RuntimeError, match=r"rank\(s\) failed"):
         launch.launch_local_processes("gpgpuraytrace_tpu_torch.parallel.no_such_module", 2,
