@@ -137,11 +137,14 @@ each prints one line and any failure exits non-zero:
     the counter's executed steps; ``run_bench_mesh(1)``, one rank of
     ``parallel/worker.py --time-k`` on NCCL; both JSON lines printed.
 
-Phases 15-18, 20-22 and 25-29 each drive their paths through the entry point
+Phases 15-18, 20-22 and 25-30 each drive their paths through the entry point
 a user calls (``render``, ``render_kernel_raw`` for the counter, ``fly_frames``,
 ``fit_step``, ``fit``, ``sharded_render``, ``make_sharded_fit_step``,
 ``bench.run_bench``) with the launch counts set to 0 just before and read
-just after.
+just after. On the card ``fly_frames`` replays a CUDA graph for every batch
+after the first; a launch counter counts the eager batch and the capture,
+not the replays (``FlyBatch.launches`` and ``counted`` say what a batch
+launched and how often it was counted).
 
 A line before the last is a JSON record of the kernels, each with its least
 time on the card (``bound_ms``, from operation counts of the source and the
@@ -264,6 +267,12 @@ OPS = {
     # conversions, 40 bf16 operations forward and 57 back, and the float
     # accumulations of the amplitude, frequency and position cotangents.
     "bwd_octave_bf16": {"fp32": 50, "int32": 49, "bf16": 97},
+    # tonemap_quantize per pixel (kernels/csrc/quantize.cu), 3 channels of:
+    # add, divide, two clamps (NaN test, max, min, select), multiply, add,
+    # two conversions, and powf counted as 28 (libdevice's float pow, its
+    # log2 and exp2 with their corrections: an estimate, not read from the
+    # SASS). Bytes bound it: a pixel's 15 bytes take 2.4x its operations' time.
+    "quantize_pixel": {"fp32": 3 * 42},
 }
 BWD_OCTAVE_BEFORE = {"fp32": 360, "int32": 98}
 # Compaction's phase-1 budget on the main path (RenderConfig's default), and
@@ -406,6 +415,13 @@ BANDS, BAND_GRAD_RTOL, BAND_GRAD_ATOL, BAND_LOSS_RTOL = 4, 1e-4, 1e-7, 1e-6
 BATCHES = (1, 2, 4, 8)
 HD = (1080, 1920)
 FLY_FRAMES, FLY_ROUNDS = 24, 3
+# Phase 30: the flythrough batch as one CUDA graph. fly_frames of
+# FLY_GRAPH_FRAMES frames in batches of FLY_GRAPH_BATCHES (each with a short
+# last batch); the tonemap-and-quantize kernel and its plain version as CUDA
+# graphs of QUANT_REPS calls; COPY_REPS copies to the host of each size and
+# kind; FLY_GRAPH_FPS_FRAMES frames per fps reading.
+FLY_GRAPH_FRAMES, FLY_GRAPH_BATCHES = 10, (4, 8)
+QUANT_REPS, COPY_REPS, FLY_GRAPH_FPS_FRAMES = 20, 10, 24
 # AD vs FD checks of tests/test_grad.py: (leaf, component, eps, rtol, t_cap).
 FD_CHECKS = (
     ("noise.amplitudes", 0, 3e-3, 5e-2, 0.03),
@@ -479,11 +495,14 @@ def bwd_error(got: torch.Tensor, ref: torch.Tensor, rtol: float = BWD_RTOL,
 
 
 def reset_counts() -> None:
-    """Set the forward and backward kernels' launch counts to 0."""
+    """Set the forward, backward and tonemap-and-quantize kernels' launch
+    counts to 0."""
+    from gpgpuraytrace_tpu_torch.kernels.quantize import tonemap_quantize
     from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
 
     trace_frame.launches.clear()
     trace_frame_bwd.launches.clear()
+    tonemap_quantize.launches = 0
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -2314,23 +2333,30 @@ def batch_vs_plain(scene, cfg, tag: str) -> dict:
 def batch_fly(scene, cfg, tag: str) -> tuple[str, dict]:
     """Phase 28, part 3 on one terrain: ``fly_frames``, 8 frames in batches
     of 4, under the default config and under compact, with the launch counts
-    set to 0 just before and read just after: one launch per pass per batch,
-    each frame bit for bit ``render_frame_uint8`` of its time; a batch traced
-    with every host sync raising. Returns (report, launches by
-    instantiation)."""
+    set to 0 just before and read just after: one launch per pass per batch
+    (``FlyBatch.launches``; the counters rise by that for each batch that
+    ran eagerly or was captured, ``FlyBatch.counted``), each frame bit for
+    bit ``render_frame_uint8`` of its time; a batch traced with every host
+    sync raising. Returns (report, launches by instantiation)."""
     from gpgpuraytrace_tpu_torch.kernels.trace import phase_name, variant_name
     from gpgpuraytrace_tpu_torch.ops.flythrough import (
-        fly_frames, render_batch_uint8, render_frame_uint8,
+        FlyBatch, fly_frames, render_batch_uint8, render_frame_uint8,
     )
 
     counts = collections.Counter()
     cmp = dataclasses.replace(cfg, march_mode="compact", compact_budget=COMPACT_BUDGET)
-    for c, expect in ((cfg, {variant_name(cfg, frames=4): 4}),
-                      (cmp, {phase_name(cmp, 1, 4): 2, phase_name(cmp, 2, 4): 2})):
+    for c, per_batch in ((cfg, {variant_name(cfg, frames=4): 2}),
+                         (cmp, {phase_name(cmp, 1, 4): 1, phase_name(cmp, 2, 4): 1})):
+        program = FlyBatch(scene, c, 4)
         reset_counts()
-        frames = list(fly_frames(scene, c, 8, batch=4))
+        frames = list(fly_frames(scene, c, 8, batch=4, program=program))
         torch.cuda.synchronize()
-        expect_counts(f"{tag}fly_frames {c.march_mode}, 8 frames in batches of 4", expect)
+        got = {k: v for k, v in program.launches.items() if k != "tonemap_quantize"}
+        if got != per_batch:
+            fail(f"{tag}fly_frames {c.march_mode}: {program.launches} launches a batch, "
+                 f"expected {per_batch} and one tonemap_quantize")
+        expect_counts(f"{tag}fly_frames {c.march_mode}, 8 frames in batches of 4",
+                      {k: v * program.counted for k, v in per_batch.items()})
         counts.update(launch_counts())
         times = torch.arange(8, dtype=torch.float32) / 30.0
         for i, f in frames:
@@ -2344,7 +2370,8 @@ def batch_fly(scene, cfg, tag: str) -> tuple[str, dict]:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     return (f"{tag}fly_frames 8 frames {cfg.height}x{cfg.width} in batches of 4: "
-            f"{dict(counts)} launches (one per pass per batch), every frame bit for bit "
+            f"{dict(counts)} launches (one per pass per batch, counted at the eager batch "
+            f"and the graph's capture), every frame bit for bit "
             f"render_frame_uint8 of its time; a batch rendered with host syncs raising "
             f"(default and compact)"), dict(counts)
 
@@ -2582,6 +2609,272 @@ def bench_phase(fwd_per_step: float, bwd_per_step: float, card: str) -> tuple[st
             f"{mesh['value']}; seconds {d['seconds']}; phase 29 took "
             f"{time.perf_counter() - t0:.1f} s {card}")
     return line, counts
+
+
+def quantize_vs_plain(scene, cfg, tag: str, frames: int) -> dict:
+    """Phase 30, part 1: the tonemap-and-quantize kernel against its plain
+    version (eight torch passes) on a batch of ``frames`` frames of the fly
+    path at ``cfg``'s size, as ``render_frames_raw`` hands it over (the view
+    of its (B, 3, H, W) planes): the count of differing values (expected 0),
+    the largest difference in levels (at most 1), and the device times of
+    the kernel and of the plain version (CUDA graphs of QUANT_REPS calls)
+    beside the kernel's byte bound."""
+    from gpgpuraytrace_tpu_torch.kernels.quantize import (
+        tonemap_quantize, tonemap_quantize_reference,
+    )
+    from gpgpuraytrace_tpu_torch.kernels.trace import render_frames_raw
+
+    with torch.no_grad():
+        color = render_frames_raw(scene, fly_batch(scene, frames)[1], cfg)[0]
+        got = tonemap_quantize(color)
+        ref = tonemap_quantize_reference(color)
+    torch.cuda.synchronize()
+    diff = (got.int() - ref.int()).abs()
+    n_diff, worst = int((diff != 0).sum()), int(diff.max())
+    if worst > 1 or got.shape != color.shape or not got.is_contiguous():
+        fail(f"{tag}tonemap_quantize at {frames}x{cfg.height}x{cfg.width}: {n_diff} values "
+             f"differ from the plain version, by up to {worst} levels (at most 1)")
+    pixels = color.shape[0] * color.shape[1] * color.shape[2]
+    bound_ms, bound_by = bound(add_ops({}, OPS["quantize_pixel"], pixels), 15 * pixels)
+    return {"frames": frames, "size": f"{cfg.width}x{cfg.height}", "differ": n_diff,
+            "max_abs_err": float(worst),
+            "ms": graph_ms(lambda: tonemap_quantize(color), QUANT_REPS),
+            "plain_ms": graph_ms(lambda: tonemap_quantize_reference(color), QUANT_REPS),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def fly_graph_frames(scene, cfg, tag: str, batch: int) -> tuple[str, collections.Counter, int]:
+    """Phase 30, part 2: ``fly_frames`` through ``FlyBatch``'s graph,
+    FLY_GRAPH_FRAMES frames in batches of ``batch`` (the last one short), a
+    tweak (a deep copy with other values, as utils/tweak.py hands over)
+    before the last batch, with the launch counts set to 0 just before and
+    read just after: every frame bit for bit ``render_frame_uint8`` of its
+    time on the scene it was rendered from, the tweaked batch apart from the
+    untweaked frames, every batch after the first a replay, the counters
+    risen by the launches of a batch for each counted call. Returns (report,
+    trace launches, tonemap_quantize launches)."""
+    from gpgpuraytrace_tpu_torch.kernels.quantize import tonemap_quantize
+    from gpgpuraytrace_tpu_torch.ops.flythrough import FlyBatch, fly_frames, render_frame_uint8
+    from gpgpuraytrace_tpu_torch.utils.tweak import apply_tweaks
+
+    n = FLY_GRAPH_FRAMES
+    batches = -(-n // batch)
+    used = []
+
+    def on_batch(s):
+        if len(used) == batches - 1:
+            s = apply_tweaks(s, {"noise.height_scale": 7.0, "materials.fog_density": 0.03})[0]
+        used.append(s)
+        return s
+
+    program = FlyBatch(scene, cfg, batch)
+    reset_counts()
+    frames = list(fly_frames(scene, cfg, n, batch=batch, on_batch=on_batch, program=program))
+    torch.cuda.synchronize()
+    trace = collections.Counter(launch_counts())
+    quant = tonemap_quantize.launches
+    what = f"{tag}fly graph {cfg.march_mode} {cfg.height}x{cfg.width}, {n} frames in {batch}s"
+    per_batch = {k: v for k, v in program.launches.items() if k != "tonemap_quantize"}
+    if (program.replays != batches - 1 or program.counted != 2
+            or program.launches["tonemap_quantize"] != 1 or quant != program.counted
+            or trace != collections.Counter({k: v * program.counted
+                                             for k, v in per_batch.items()})):
+        fail(f"{what}: {program.replays} replays, {program.counted} counted calls, "
+             f"{dict(program.launches)} launches a batch, counters {dict(trace)} and "
+             f"tonemap_quantize {quant}")
+    times = torch.arange(n, dtype=torch.float32) / 30.0
+    for i, f in frames:
+        want = render_frame_uint8(used[i // batch], cfg, times[i]).cpu().numpy()
+        if f.shape != want.shape or not np.array_equal(f, want):
+            fail(f"{what}: frame {i} differs from render_frame_uint8 of its scene")
+    last = (batches - 1) * batch
+    if np.array_equal(frames[last][1], render_frame_uint8(scene, cfg, times[last]).cpu().numpy()):
+        fail(f"{what}: the tweak before the last batch did not show in it")
+    if scene.noise.height_scale.item() != 6.0:
+        fail(f"{what}: the caller's scene changed")
+    line = (f"{what}: {batches} batches, {program.replays} replays, launches a batch "
+            f"{dict(program.launches)}, every frame bit for bit render_frame_uint8, the "
+            f"tweak shown in batch {batches}")
+    return line, trace, quant
+
+
+def copy_times(dev) -> str:
+    """Phase 30, part 3: a batch's device-to-host copy alone, pageable
+    (``.cpu()``) against pinned (a pinned tensor from the caching host
+    allocator, a non-blocking copy and an event, as ``FlyBatch.host_frames``
+    copies), in turns, COPY_REPS each, host clock from a synchronised
+    start."""
+    out = []
+    for frames, (h, w) in ((4, (512, 512)), (4, HD), (8, HD)):
+        x = torch.randint(0, 256, (frames, h, w, 3), dtype=torch.uint8, device=dev)
+        times = {"pageable": [], "pinned": []}
+
+        def pageable():
+            return x.cpu()
+
+        def pinned():
+            host = torch.empty(x.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(x, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+            return host
+
+        for fn in (pageable, pinned):  # warm-up: the pinned cache holds a block after
+            if not torch.equal(fn(), x.cpu()):
+                fail(f"copy of {frames}x{h}x{w}: the host copy differs")
+        for _ in range(COPY_REPS):
+            for label, fn in (("pageable", pageable), ("pinned", pinned)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                times[label].append(1e3 * (time.perf_counter() - t0))
+        mb = x.numel() / 1e6
+        out.append(f"{frames}x{w}x{h} ({mb:.1f} MB): " + ", ".join(
+            f"{k} {statistics.median(v):.4f} ms (min {min(v):.4f}; "
+            f"{mb / statistics.median(v):.2f} GB/s)" for k, v in times.items()))
+    return "copy to the host alone (median of " f"{COPY_REPS}): " + "; ".join(out)
+
+
+def fly_graph_fps(scene, cfg) -> str:
+    """Phase 30, part 4: fly frames per second without writing (host clock,
+    FLY_GRAPH_FPS_FRAMES frames) at batch 1, 4 and 8, at ``cfg``'s size and
+    at 1920x1080, the graph (``fly_frames`` with a ``FlyBatch`` kept from a
+    warm-up, so every timed batch is a replay) against the eager batch (the
+    loop before the graph: ``render_batch_uint8`` and a pageable ``.cpu()``
+    copy per batch), FLY_ROUNDS rounds in turns; and each arm's device busy
+    share: the profiler's device time (kernels and copies) over 5 batches
+    against a batch's median host-clock time, and for the graph also its
+    replays' CUDA-event time over their host-clock time
+    (``FlyBatch.busy``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpgpuraytrace_tpu_torch.ops.flythrough import FlyBatch, fly_frames, render_batch_uint8
+
+    sizes = {f"{cfg.width}x{cfg.height}": cfg,
+             "1920x1080": dataclasses.replace(cfg, height=HD[0], width=HD[1])}
+    n = FLY_GRAPH_FPS_FRAMES
+    programs, arms = {}, {}
+    for label, c in sizes.items():
+        for b in (1, 4, 8):
+            program = programs[label, b] = FlyBatch(scene, c, b)
+            for _ in fly_frames(scene, c, 2 * b, batch=b, program=program):  # warm-up, capture
+                pass
+
+            def graph(c=c, b=b, program=program):
+                for _ in fly_frames(scene, c, n, batch=b, program=program):
+                    pass
+
+            def eager(c=c, b=b):
+                for start in range(0, n, b):
+                    times = torch.arange(start, start + b, dtype=torch.float32) / 30.0
+                    render_batch_uint8(scene, c, times).cpu().numpy()
+
+            arms[label, b] = {"graph": graph, "eager": eager}
+            eager()
+    fps = collections.defaultdict(list)
+    event_busy = collections.defaultdict(list)
+    for _ in range(FLY_ROUNDS):
+        for key, fns in arms.items():
+            for arm, fn in fns.items():
+                program = programs[key]
+                program.clear_times()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                fps[key, arm].append(n / (time.perf_counter() - t0))
+                if arm == "graph":
+                    event_busy[key].append(program.busy())
+    busy = {}
+    for (label, b), program in programs.items():
+        c = sizes[label]
+        times = torch.arange(b, dtype=torch.float32) / 30.0
+        one = {"graph": lambda: program.host_frames(scene, times, b),
+               "eager": lambda: render_batch_uint8(scene, c, times).cpu().numpy()}
+        for arm, fn in one.items():
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+            device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                            if e.device_type == torch.autograd.DeviceType.CUDA) / 5
+            busy[label, b, arm] = (device_us, 1e3 * statistics.median(walls))
+    parts = []
+    for (label, b) in programs:
+        row = []
+        for arm in ("graph", "eager"):
+            us, wall_us = busy[label, b, arm]
+            share = "the profiler saw no device time" if not us else f"{100 * us / wall_us:.1f}%"
+            row.append(f"{arm} " + " / ".join(f"{x:.2f}" for x in fps[(label, b), arm])
+                       + f" fps, busy {share} ({us:.1f} of {wall_us:.1f} us)")
+        row.append("graph replays by events busy "
+                   + " / ".join(f"{100 * x:.1f}%" for x in event_busy[label, b]))
+        parts.append(f"{label} batch {b}: " + ", ".join(row))
+    return (f"fly fps without writing (host clock, {n} frames, {FLY_ROUNDS} rounds in turns; "
+            f"busy: profiler over 5 batches against a batch's median host time): "
+            + "; ".join(parts))
+
+
+def fly_graph_phase(dev, card: str) -> tuple[str, dict, collections.Counter]:
+    """Phase 30: the flythrough batch as one CUDA graph, both terrains,
+    default and compact. Returns (report, the tonemap_quantize entry of the
+    kernels' record, the trace kernels' launches of its fly runs)."""
+    from gpgpuraytrace_tpu_torch import RenderConfig, default_scene
+
+    t0 = time.perf_counter()
+    lines = []
+    quant = []
+    trace_counts = collections.Counter()
+    quant_launches = 0
+    for vol in (False, True):
+        tag = "volumetric " if vol else ""
+        scene = default_scene(6, volumetric=vol, device=dev)
+        base = RenderConfig(num_octaves=6, volumetric=vol)
+        for c in (base, dataclasses.replace(base, march_mode="compact",
+                                            compact_budget=COMPACT_BUDGET)):
+            for size in ((512, 512), HD):
+                r = quantize_vs_plain(scene, dataclasses.replace(c, height=size[0],
+                                                                 width=size[1]), tag, 4)
+                r["config"] = f"{tag}{c.march_mode}"
+                quant.append(r)
+            for b in FLY_GRAPH_BATCHES:
+                line, counts, q = fly_graph_frames(scene, c, tag, b)
+                lines.append(line)
+                trace_counts.update(counts)
+                quant_launches += q
+    hd8 = quantize_vs_plain(default_scene(6, device=dev), RenderConfig(
+        num_octaves=6, height=HD[0], width=HD[1]), "", 8)
+    hd8["config"] = "chunked"
+    quant.append(hd8)
+    qline = "; ".join(
+        f"{r['config']} {r['frames']}x{r['size']}: {r['differ']} values differ (max "
+        f"{r['max_abs_err']:g} level), kernel {r['ms']:.5f} ms against bound {r['bound_ms']:.5f} "
+        f"({r['bound_by']}), plain {r['plain_ms']:.5f} ms" for r in quant)
+    fps_line = fly_graph_fps(default_scene(6, device=dev), RenderConfig(num_octaves=6))
+    line = (f"tonemap_quantize vs plain (CUDA graphs of {QUANT_REPS} calls): {qline} | "
+            + " | ".join(lines) + f" | {copy_times(dev)} | {fps_line} | phase 30 took "
+            f"{time.perf_counter() - t0:.1f} s {card}")
+    head = next(r for r in quant if r["config"] == "chunked" and r["size"] == "1920x1080"
+                and r["frames"] == 4)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    entry = {"name": "tonemap_quantize", "route": "cuda",
+             "source": "gpgpuraytrace_tpu_torch/kernels/csrc/quantize.cu",
+             "replaces": "gpgpuraytrace_tpu/ops/flythrough.py:51",
+             "variants": ["heightfield", "volumetric"], "frames": 4, "size": "1920x1080",
+             "launches": quant_launches,
+             "max_abs_err": max(r["max_abs_err"] for r in quant),
+             "differing_values": sum(r["differ"] for r in quant),
+             **{k: head[k] for k in keys},
+             "by_shape": [{k: r[k] for k in ("config", "frames", "size", "differ", *keys)}
+                          for r in quant]}
+    return line, entry, trace_counts
 
 
 def main() -> None:
@@ -2942,6 +3235,11 @@ def main() -> None:
     bench_line, bench_counts = bench_phase(tr["fwd"] / steps, tr["bwd"] / steps, card)
     phase(29, "bench", bench_line)
 
+    # --- 30. the flythrough batch as one CUDA graph ----------------------------
+    fly_graph_line, quant_entry, fly_graph_counts = fly_graph_phase(dev, card)
+    fly_counts.update(fly_graph_counts)
+    phase(30, "fly graph", fly_graph_line)
+
     # Bounds of phases 3, 8, 11 and 13 from phase 15's useful steps and hits.
     n_pix = cfg.height * cfg.width
     fwd_b = {tag: fwd_bound(c, results["counter", tag]["lanes"].sum().item(),
@@ -2971,7 +3269,7 @@ def main() -> None:
     def batch_entry(name: str, part: str, source: str = FWD_SOURCE,
                     kernel: str = "trace_fwd") -> dict:
         """A batched launch (phase 28, a batch of 2 frames at 512x512; its
-        launches from the flythrough runs of phases 21 and 28)."""
+        launches from the flythrough runs of phases 21, 28 and 30)."""
         h, v = batch[""][part], batch["volumetric "][part]
         keys = ("ms", "plain_ms", "bound_ms", "bound_by")
         return {"name": f"{kernel}[{name}]", "route": "cuda", "source": source,
@@ -3061,6 +3359,7 @@ def main() -> None:
         batch_entry("compact+frames:phase2", "phase2",
                     source="gpgpuraytrace_tpu_torch/kernels/csrc/trace_compact.cu",
                     kernel="trace_compact"),
+        quant_entry,
     ]}
     print(json.dumps(record))
     print(smi)

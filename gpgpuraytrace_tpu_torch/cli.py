@@ -19,9 +19,11 @@ variant; RenderConfig's defaults for the rest, compaction's budget too).
 ``fit`` checkpoints and resumes (``--save``, ``--save-every``, ``--resume``)
 and runs ``--steps-per-call`` steps per chunk (on the card one CUDA graph);
 ``fly`` renders each ``--batch`` of frames as one launch per pass (the
-kernels' frame axis) and writes them through the native writer's worker
-threads (``utils/native_io.py``), or the Python encoder when it cannot be
-built. ``bench`` prints the benchmark's JSON line (``bench.py``: fwd+bwd
+kernels' frame axis), on the card as one CUDA graph replayed per batch
+(``ops/flythrough.py:FlyBatch``), and writes them through the native
+writer's worker threads (``utils/native_io.py``), or the Python encoder when
+it cannot be built; it reports the kernel launches of a batch and the
+device's busy share of the replayed batches. ``bench`` prints the benchmark's JSON line (``bench.py``: fwd+bwd
 rays/s, its same-run parity gate, the checks of what was timed, the march
 statistics; ``--mesh N`` the row-band scaling over N cards) and exits 1 when
 the parity gate or a check fails.
@@ -163,9 +165,8 @@ def cmd_fit(args):
 
 
 def cmd_fly(args):
-    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame
     from gpgpuraytrace_tpu_torch.models.scene import default_scene
-    from gpgpuraytrace_tpu_torch.ops.flythrough import fly_frames
+    from gpgpuraytrace_tpu_torch.ops.flythrough import FlyBatch, fly_frames
     from gpgpuraytrace_tpu_torch.utils.image import write_png
     from gpgpuraytrace_tpu_torch.utils.profiling import warn_if_rough
     from gpgpuraytrace_tpu_torch.utils.tweak import TweakWatcher, apply_tweaks
@@ -203,12 +204,12 @@ def cmd_fly(args):
         writer = AsyncFrameWriter(num_threads=2, level=level)
     except RuntimeError:
         pass
-    launches = trace_frame.launches.total()
+    program = FlyBatch(scene, cfg, args.batch)
     t0 = time.perf_counter()
     n = 0
     try:
         for idx, frame in fly_frames(scene, cfg, args.frames, batch=args.batch,
-                                     on_batch=on_batch):
+                                     on_batch=on_batch, program=program):
             path = os.path.join(args.out, f"frame_{idx:04d}.{ext}")
             if writer is not None:
                 writer.push(path, frame)
@@ -220,15 +221,17 @@ def cmd_fly(args):
     dt = time.perf_counter() - t0  # the writer's queue drained
     if errs:
         raise RuntimeError(f"the native writer failed to write {errs} frames")
-    batches = -(-n // args.batch)
-    per_batch = (trace_frame.launches.total() - launches) / max(batches, 1)
+    busy = program.busy()
+    busy = "not measured" if busy is None else f"{100 * busy:.1f}%"
+    runs = f"a CUDA graph replayed {program.replays} times" if program.graphed else "eager"
     print(
         f"flythrough: {n} frames {cfg.width}x{cfg.height} in {dt:.2f}s "
         f"({n / dt:.2f} fps incl. writing, host clock; on the card the first "
-        f"batch includes the kernel build; native={writer is not None}, format={ext}"
+        f"batch includes the kernel build, the second the graph's capture; native={writer is not None}, format={ext}"
         + (f" zlib={level}" if ext == "png" else "")
-        + f", march_mode={cfg.march_mode}; batches of {args.batch}, {per_batch:g} kernel "
-        f"launches per batch)"
+        + f", march_mode={cfg.march_mode}; batches of {args.batch}, "
+        f"{program.launches.total()} kernel launches per batch, {runs}; device busy {busy} "
+        f"of the replayed batches: graph replay by CUDA events over the batch's host clock)"
     )
 
 

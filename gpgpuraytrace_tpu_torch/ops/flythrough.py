@@ -5,25 +5,35 @@ A batch of frames renders as one launch per pass (temporal ray batching, the
 JAX package's ``jit(vmap(render))``): ``flythrough_cameras`` gives the
 batch's cameras, ``kernels/trace.py:render_frames_raw`` traces the coarse
 prime pass of every frame in one launch and the fine pass in another
-(compaction: phase 1 and phase 2 once each); tonemap and quantization run on
-the batch on its device, so a batch leaves it in one device-to-host copy of
-3 bytes per pixel. Each frame is bit for bit ``render_frame_uint8`` of its
+(compaction: phase 1 and phase 2 once each), and ``quantize``
+(``kernels/quantize.py``, one kernel on the card) tonemaps and quantizes the
+batch on its device, so a batch leaves it in one device-to-host copy of 3
+bytes per pixel. Each frame is bit for bit ``render_frame_uint8`` of its
 time, the per-frame path that ``cfg.use_kernel=False`` runs.
+
+On the card ``FlyBatch`` runs a batch as one CUDA graph, as the JAX package
+runs its batch as one compiled program: ``fly_frames`` replays it for every
+batch after the first, the short last batch included (it renders a full
+batch and keeps the first frames, as the reference does).
 """
 
 from __future__ import annotations
 
+import collections
 import copy
+import operator
+import time
 from typing import Callable, Iterator
 
 import numpy as np
 import torch
 
-from gpgpuraytrace_tpu_torch.kernels.trace import render_frames_raw
+from gpgpuraytrace_tpu_torch.kernels.quantize import tonemap_quantize
+from gpgpuraytrace_tpu_torch.kernels.trace import render_frames_raw, trace_frame
 from gpgpuraytrace_tpu_torch.models.scene import Camera, RenderConfig, Scene
 from gpgpuraytrace_tpu_torch.ops.camera import Cameras
 from gpgpuraytrace_tpu_torch.ops.render import render
-from gpgpuraytrace_tpu_torch.ops.shade import tonemap
+from gpgpuraytrace_tpu_torch.utils.convert import LEAF_NAMES
 
 
 def _path(position, yaw, t):
@@ -59,9 +69,9 @@ def flythrough_cameras(scene: Scene, times: torch.Tensor) -> Cameras:
     return Cameras(position, yaw, cam.pitch.detach(), cam.fov_y.detach())
 
 
-def quantize(img: torch.Tensor) -> torch.Tensor:
-    """Tonemap and quantize linear RGB to uint8, on its device."""
-    return (torch.clamp(tonemap(img), 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+# Tonemap and quantize linear RGB (..., H, W, 3) to uint8 on its device: the
+# kernel on a CUDA tensor, its plain version on a CPU tensor.
+quantize = tonemap_quantize
 
 
 @torch.no_grad()
@@ -84,22 +94,173 @@ def render_batch_uint8(scene: Scene, cfg: RenderConfig, times: torch.Tensor) -> 
     return quantize(color)
 
 
+def launch_counts() -> collections.Counter:
+    """Kernel launches so far on the fly path, by kernel: the trace kernels'
+    instantiations (``trace_frame.launches``) and ``tonemap_quantize``."""
+    counts = collections.Counter(trace_frame.launches)
+    counts["tonemap_quantize"] = tonemap_quantize.launches
+    return counts
+
+
+class FlyBatch:
+    """A flythrough batch of ``batch`` frames as one program: ``frames(scene,
+    times)`` is ``render_batch_uint8(scene, cfg, times)`` (the counterpart of
+    the JAX package's compiled ``jit(vmap(render_one))``,
+    ``gpgpuraytrace_tpu/ops/flythrough.py:39-55``).
+
+    On a CUDA scene with ``cfg.use_kernel`` the batch runs as one CUDA graph
+    (``graphed``). The first call runs eagerly on a side stream: PyTorch's
+    warm-up before a capture, and the kernels' build. The second captures
+    the batch into the graph (which runs nothing) and replays it, as does
+    every later call. Nothing falls back: a capture that fails raises. The
+    graph reads a private copy of the scene and a (batch,) buffer of times
+    by address; before each call the caller's current leaves
+    (``utils/convert.py:LEAF_NAMES``) are copied into that copy, so a
+    replaced scene (a live tweak hands over a deep copy) and an edit in
+    place both show in the next batch, and the caller's scene is never
+    written. The times are computed on the host, as ``fly_frames`` does,
+    and copied into the buffer from pinned memory (dividing on the card
+    would multiply by the reciprocal and move the camera by an ulp). A call
+    takes exactly ``batch`` times; it returns the graph's output buffer,
+    which the next call overwrites.
+
+    ``launches`` holds the kernel launches of one batch (``launch_counts``),
+    read at the eager call and at the capture: the launch counters count a
+    capture's launches once, not per replay, so over a run they rise by
+    ``launches`` times ``counted`` (the eager calls and the capture).
+    ``replays`` counts replays. Over the ``timed`` replayed batches that went
+    through ``host_frames`` (since ``clear_times``), ``replay_ms`` sums the
+    replays' device time (CUDA events) and ``batch_ms`` the batches'
+    host-clock time from the call to their frames on the host; ``busy`` is
+    their ratio.
+
+    On the CPU, or with ``use_kernel=False``, a call is the eager
+    ``render_batch_uint8`` of the times it is given."""
+
+    def __init__(self, scene: Scene, cfg: RenderConfig, batch: int):
+        self.cfg = cfg
+        self.batch = batch
+        self.device = scene.camera.position.device
+        self.graphed = cfg.use_kernel and self.device.type == "cuda"
+        self.calls = 0
+        self.counted = 0
+        self.replays = 0
+        self.launches: collections.Counter = collections.Counter()
+        self.clear_times()
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.out: torch.Tensor | None = None
+        self._events = None
+        if self.graphed:
+            self.scene = copy.deepcopy(scene)
+            self.leaves = [operator.attrgetter(n)(self.scene) for n in LEAF_NAMES]
+            self.times = torch.zeros(batch, dtype=torch.float32, device=self.device)
+
+    def _load(self, scene: Scene, times: torch.Tensor) -> None:
+        """Copy the caller's leaves and the batch's times into the graph's."""
+        if tuple(times.shape) != (self.batch,):
+            raise ValueError(f"FlyBatch of {self.batch} frames: got times of shape "
+                             f"{tuple(times.shape)}")
+        src = [operator.attrgetter(n)(scene).detach() for n in LEAF_NAMES]
+        with torch.no_grad():
+            torch._foreach_copy_(self.leaves, src)
+            host = times.to(torch.float32)
+            if host.device.type == "cpu":
+                host = host.pin_memory()
+            self.times.copy_(host, non_blocking=True)
+
+    def _render(self, scene: Scene, times: torch.Tensor) -> torch.Tensor:
+        """``render_batch_uint8``, its launches counted."""
+        before = launch_counts()
+        out = render_batch_uint8(scene, self.cfg, times)
+        self.launches = launch_counts() - before
+        self.counted += 1
+        return out
+
+    def frames(self, scene: Scene, times: torch.Tensor) -> torch.Tensor:
+        """The batch's frames, (len(times), H, W, 3) uint8 on the device."""
+        self.calls += 1
+        if not self.graphed:
+            return self._render(scene, times)
+        self._load(scene, times)
+        stream = torch.cuda.current_stream(self.device)
+        if self.calls == 1:
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):
+                out = self._render(self.scene, self.times)
+            stream.wait_stream(side)
+            out.record_stream(stream)
+            return out
+        if self.graph is None:
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.out = self._render(self.scene, self.times)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        self.graph.replay()
+        end.record(stream)
+        self._events = (start, end)
+        self.replays += 1
+        return self.out
+
+    def host_frames(self, scene: Scene, times: torch.Tensor, n: int) -> np.ndarray:
+        """The first ``n`` frames of ``frames(scene, times)`` on the host,
+        (n, H, W, 3) uint8, copied into a tensor made for this batch (on the
+        card pinned, through torch's caching host allocator, and copied
+        without blocking, then waited for): the graph's output buffer is
+        overwritten by the next batch, a frame handed out never is."""
+        t0 = time.perf_counter()
+        self._events = None
+        out = self.frames(scene, times)[:n]
+        on_card = out.device.type == "cuda"
+        host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=on_card)
+        host.copy_(out, non_blocking=on_card)
+        if on_card:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
+        if self._events is not None:
+            self.timed += 1
+            self.replay_ms += self._events[0].elapsed_time(self._events[1])
+            self.batch_ms += 1e3 * (time.perf_counter() - t0)
+        return host.numpy()
+
+    def clear_times(self) -> None:
+        self.timed, self.replay_ms, self.batch_ms = 0, 0.0, 0.0
+
+    def busy(self) -> float | None:
+        """The device's busy share of the replayed batches: their replays'
+        device time over their host-clock time (None before a replay)."""
+        return self.replay_ms / self.batch_ms if self.timed else None
+
+
 def fly_frames(scene: Scene, cfg: RenderConfig, num_frames: int, batch: int = 4,
                fps: float = 30.0,
                on_batch: Callable[[Scene], Scene] | None = None,
+               program: FlyBatch | None = None,
                ) -> Iterator[tuple[int, np.ndarray]]:
     """Yield (frame index, (H, W, 3) uint8 numpy array), ready for a PNG.
 
-    Frames come in batches of ``batch``, each one ``render_batch_uint8``
-    (the last batch holds only the frames left); frame i shows the path at
-    i / fps seconds. ``on_batch(scene) -> scene`` runs before each batch (the
-    live-tweak hook, ``utils/tweak.py``): its scene renders that batch and
-    the ones after."""
+    Frames come in batches of ``batch``, each one call of ``program`` (a
+    ``FlyBatch(scene, cfg, batch)`` unless one is given: on the card every
+    batch after the first replays its CUDA graph); frame i shows the path at
+    i / fps seconds. The last batch may hold fewer frames: on the graph it
+    renders the full batch's times and keeps the first ones, elsewhere only
+    the frames left. ``on_batch(scene) -> scene`` runs before each batch
+    (the live-tweak hook, ``utils/tweak.py``): its scene renders that batch
+    and the ones after. A yielded frame is never written again."""
+    if program is None:
+        program = FlyBatch(scene, cfg, batch)
+    elif (program.cfg, program.batch) != (cfg, batch):
+        raise ValueError(f"program renders batches of {program.batch} under {program.cfg}, "
+                         f"not of {batch} under {cfg}")
     for start in range(0, num_frames, batch):
         if on_batch is not None:
             scene = on_batch(scene)
         n = min(batch, num_frames - start)
-        times = torch.arange(start, start + n, dtype=torch.float32) / fps
-        host = render_batch_uint8(scene, cfg, times).cpu().numpy()  # one copy per batch
+        count = batch if program.graphed else n
+        times = torch.arange(start, start + count, dtype=torch.float32) / fps
+        host = program.host_frames(scene, times, n)
         for k in range(n):
             yield start + k, host[k]

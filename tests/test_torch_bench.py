@@ -29,6 +29,7 @@ where the kernel path runs the kernels' plain versions.
 """
 
 import json
+import os
 import subprocess
 import sys
 
@@ -187,10 +188,17 @@ def test_parity_gate(monkeypatch):
 
 
 def test_cli_bench_cpu_prints_one_json_line():
+    # One intra-op thread in the child, as every test process here keeps to
+    # two. With one per core (eight on an 8-core CPU) it oversubscribes the
+    # suite's workers, and a step's time then swings several-fold between
+    # runs (T(4) / T(1) read 1.64 to 9.27 under load, where 4 is right): a
+    # burst during the T(1) runs makes the slope non-positive, and the
+    # bench refuses it.
     proc = subprocess.run(
         [sys.executable, "-m", "gpgpuraytrace_tpu_torch.cli", "bench", "--device", "cpu",
          "--size", "32x16", "--octaves", "2", "--iters", "4"],
-        cwd=REPO, capture_output=True, text=True, timeout=600)
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert len(lines) == 1

@@ -8,8 +8,11 @@ on a machine without jax run it without the suite's conftest:
 chip_smoke.py makes the same comparisons at 512x512.
 """
 
+import collections
+import copy
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -661,3 +664,126 @@ def test_cuda_batch_over_the_grid_raises(cuda):
     with pytest.raises(ValueError, match=str(ktrace.MAX_FRAMES)):
         ktrace.trace_frames(packed.expand(ktrace.MAX_FRAMES + 1, -1).contiguous(), seed, cfg,
                             cfg.height)
+
+
+def colour_batch(cuda, frames, h, w, seed=0):
+    """Seeded linear colours as the trace hands them over: (frames, h, w, 3),
+    the view of contiguous (frames, 3, h, w) planes; with zeros, large
+    values and values near the levels' rounding edges."""
+    gen = torch.Generator().manual_seed(seed)
+    planes = torch.rand(frames, 3, h, w, generator=gen) * 4.0
+    flat = planes.view(-1)
+    k = torch.arange(256, dtype=torch.float64)
+    c = (k / 255.0) ** 2.2
+    edges = torch.where(c < 1.0, c / (1.0 - c), torch.full_like(c, 1e30)).float()
+    flat[:256] = edges
+    flat[256:512] = torch.nextafter(edges, torch.full_like(edges, float("inf")))
+    flat[512:768] = torch.nextafter(edges, torch.zeros_like(edges))
+    flat[768:776] = torch.tensor([0.0, 1e-30, 1e-7, 1.0, 1e3, 1e6, 1e30, 3e38])
+    return planes.to(cuda).permute(0, 2, 3, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["planar_batch", "contiguous_frame", "planar_frame"])
+def test_cuda_tonemap_quantize_matches_plain_version(cuda, layout):
+    """The kernel against its plain version (eight torch passes) on the card,
+    byte for byte: the batch's planar view read in place, a contiguous
+    frame and one frame's planar view; one launch per call."""
+    from gpgpuraytrace_tpu_torch.kernels.quantize import (
+        tonemap_quantize, tonemap_quantize_reference,
+    )
+
+    x = colour_batch(cuda, 3, 48, 200)
+    if layout == "contiguous_frame":
+        x = x[1].contiguous()
+    elif layout == "planar_frame":
+        x = x[2]
+    before = tonemap_quantize.launches
+    got = tonemap_quantize(x)
+    torch.cuda.synchronize()
+    assert tonemap_quantize.launches == before + 1
+    assert got.shape == x.shape and got.dtype == torch.uint8 and got.is_contiguous()
+    assert torch.equal(got, tonemap_quantize_reference(x))
+    with pytest.raises(ValueError):
+        tonemap_quantize(x.double())
+    with pytest.raises(ValueError):
+        tonemap_quantize(x[..., :2])
+
+
+def fly_program(cuda, volumetric, mode, batch, size=(64, 128)):
+    from gpgpuraytrace_tpu_torch.ops.flythrough import FlyBatch
+
+    kw = {"march_mode": "compact", "compact_budget": 16} if mode == "compact" else {}
+    cfg = RenderConfig(height=size[0], width=size[1], max_steps=64, num_octaves=6,
+                       volumetric=volumetric, **kw)
+    scene = default_scene(6, volumetric=volumetric, device=cuda)
+    return scene, cfg, FlyBatch(scene, cfg, batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "compact"])
+@pytest.mark.parametrize("volumetric", [False, True], ids=["heightfield", "volumetric"])
+def test_cuda_fly_graph_replays_equal_eager_batches(cuda, volumetric, mode):
+    """FlyBatch: the warm-up, the capture and later replays, each batch bit
+    for bit eager render_batch_uint8 of its times; the launches of a batch
+    read at the capture; replays under sync debug mode "error"."""
+    from gpgpuraytrace_tpu_torch.ops.flythrough import launch_counts, render_batch_uint8
+
+    scene, cfg, program = fly_program(cuda, volumetric, mode, 4)
+    assert program.graphed
+    for call in range(4):
+        times = torch.arange(4 * call, 4 * call + 4, dtype=torch.float32) / 30.0
+        want = render_batch_uint8(scene, cfg, times).clone()
+        if call >= 2:
+            before = launch_counts()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = program.frames(scene, times)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert launch_counts() == before  # a replay counts nothing
+        else:
+            got = program.frames(scene, times)
+        assert torch.equal(got, want), call
+    assert program.calls == 4 and program.replays == 3
+    passes = {"tonemap_quantize": 1}
+    assert program.launches == collections.Counter(
+        passes | ({ktrace.phase_name(cfg, 1, 4): 1, ktrace.phase_name(cfg, 2, 4): 1}
+                  if mode == "compact" else {ktrace.variant_name(cfg, frames=4): 2}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("volumetric", [False, True], ids=["heightfield", "volumetric"])
+def test_cuda_fly_frames_tweak_short_batch_and_kept_frames(cuda, volumetric):
+    """fly_frames on the graph: 10 frames in batches of 4, a tweak (a deep
+    copy, as utils/tweak.py hands over) before batch 2 and an edit in place
+    before batch 3, each frame bit for bit render_frame_uint8 of the scene it
+    was rendered from; the short last batch; the caller's scene untouched;
+    frames handed out unchanged once every batch is done."""
+    from gpgpuraytrace_tpu_torch.ops.flythrough import fly_frames, render_frame_uint8
+    from gpgpuraytrace_tpu_torch.utils.tweak import apply_tweaks
+
+    scene, cfg, program = fly_program(cuda, volumetric, "default", 4)
+    scenes = []
+
+    def on_batch(s):
+        if len(scenes) == 1:
+            s = apply_tweaks(s, {"noise.height_scale": 4.5, "materials.fog_density": 0.03})[0]
+        elif len(scenes) == 2:
+            with torch.no_grad():
+                s.camera.pitch.add_(0.05)
+        scenes.append(copy.deepcopy(s))
+        return s
+
+    kept = [(i, f, f.copy()) for i, f in fly_frames(scene, cfg, 10, batch=4,
+                                                     on_batch=on_batch, program=program)]
+    assert [i for i, _, _ in kept] == list(range(10))
+    assert program.calls == 3 and program.replays == 2 and program.timed == 2
+    assert 0.0 < program.busy() <= 1.0
+    assert float(scene.noise.height_scale) == 6.0
+    times = torch.arange(10, dtype=torch.float32) / 30.0
+    for i, frame, first in kept:
+        assert np.array_equal(frame, first), i
+        want = render_frame_uint8(scenes[i // 4], cfg, times[i]).cpu().numpy()
+        assert np.array_equal(frame, want), i
+    assert not np.array_equal(kept[4][1], render_frame_uint8(scene, cfg, times[4]).cpu().numpy())
