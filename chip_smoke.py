@@ -135,7 +135,16 @@ each prints one line and any failure exits non-zero:
     timed graphs replayed at a fixed salt bit for bit the eager loop, one
     kernel-path step against the plain path's, the march statistics with
     the counter's executed steps; ``run_bench_mesh(1)``, one rank of
-    ``parallel/worker.py --time-k`` on NCCL; both JSON lines printed.
+    ``parallel/worker.py --time-k`` on NCCL; both JSON lines printed;
+30. the flythrough batch as one CUDA graph: ``tonemap_quantize`` against its
+    plain version at 512x512 x 4, 1920x1080 x 4 and x 8 on both terrains and
+    modes (0 values may differ), its times beside its byte bound and the
+    issue bound of its fast path's SASS instructions a pixel (read from the
+    built library); all 2^32 float32 inputs through the kernel and the plain
+    version on the card (0 may differ), with the level table's edges and
+    windows; ``fly_frames`` of 10 frames in batches of 4 and 8 with a tweak
+    before the last batch, every frame bit for bit ``render_frame_uint8``;
+    the host copy pageable vs pinned; fps and busy share, graph vs eager.
 
 Phases 15-18, 20-22 and 25-30 each drive their paths through the entry point
 a user calls (``render``, ``render_kernel_raw`` for the counter, ``fly_frames``,
@@ -147,8 +156,8 @@ not the replays (``FlyBatch.launches`` and ``counted`` say what a batch
 launched and how often it was counted).
 
 A line before the last is a JSON record of the kernels, each with its least
-time on the card (``bound_ms``, from operation counts of the source and the
-published peaks); the last line is ``{"ok": true, "device": {...}}``.
+time on the card (``bound_ms``, from operation counts of the source, or for
+tonemap_quantize its SASS, and the published peaks); the last line is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
 
@@ -267,13 +276,13 @@ OPS = {
     # conversions, 40 bf16 operations forward and 57 back, and the float
     # accumulations of the amplitude, frequency and position cotangents.
     "bwd_octave_bf16": {"fp32": 50, "int32": 49, "bf16": 97},
-    # tonemap_quantize per pixel (kernels/csrc/quantize.cu), 3 channels of:
-    # add, divide, two clamps (NaN test, max, min, select), multiply, add,
-    # two conversions, and powf counted as 28 (libdevice's float pow, its
-    # log2 and exp2 with their corrections: an estimate, not read from the
-    # SASS). Bytes bound it: a pixel's 15 bytes take 2.4x its operations' time.
-    "quantize_pixel": {"fp32": 3 * 42},
 }
+# tonemap_quantize's operations are read from the built library instead
+# (quantize_sass): its fast path's SASS instructions a pixel, issued at one
+# warp instruction a cycle on each of an SM's four sub-partitions, at the
+# 1.98 GHz of the peaks above.
+WARP_ISSUE_PER_S = 4 * 132 * 1.98e9
+FLOAT_OPS = ("FADD", "FFMA", "FMUL", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK", "FRND", "MUFU")
 BWD_OCTAVE_BEFORE = {"fp32": 360, "int32": 98}
 # Compaction's phase-1 budget on the main path (RenderConfig's default), and
 # JAX's exactness contract between the compact and the unprimed chunked march
@@ -422,6 +431,11 @@ FLY_FRAMES, FLY_ROUNDS = 24, 3
 # kind; FLY_GRAPH_FPS_FRAMES frames per fps reading.
 FLY_GRAPH_FRAMES, FLY_GRAPH_BATCHES = 10, (4, 8)
 QUANT_REPS, COPY_REPS, FLY_GRAPH_FPS_FRAMES = 20, 10, 24
+# Phase 30's exhaustive check: every float32 bit pattern through the kernel
+# and its plain version, in chunks of one frame of EXHAUSTIVE_SIDE^2 pixels
+# (3 x 2^26 values) as the fly path lays them out, (1, 3, H, W) planes viewed
+# as (1, H, W, 3); the last chunk overlaps the one before.
+EXHAUSTIVE_SIDE = 1 << 13
 # AD vs FD checks of tests/test_grad.py: (leaf, component, eps, rtol, t_cap).
 FD_CHECKS = (
     ("noise.amplitudes", 0, 3e-3, 5e-2, 0.03),
@@ -541,6 +555,34 @@ def ptxas_registers(log: str, kernel: str) -> list[int]:
     ``ptxas_lines`` names it)."""
     return [int(m.group(1)) for ln in ptxas_lines(log)
             if ln.startswith(f"{kernel}:") and (m := re.search(r"Used (\d+) registers", ln))]
+
+
+def sass_functions(lib_path: Path) -> list[str]:
+    """The library's SASS (``cuobjdump -sass``), one text per function, its
+    mangled name first."""
+    from gpgpuraytrace_tpu_torch.kernels.build import find_nvcc
+
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    return re.split(r"\n\s*Function : ", sass)
+
+
+def instructions(body: str) -> list[tuple[int, str, str]]:
+    """(address, opcode, operands) of every instruction of a function."""
+    return [(int(m.group(1), 16), m.group(3), m.group(4)) for m in re.finditer(
+        r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", body)]
+
+
+def backward_branches(insts) -> list[tuple[int, int]]:
+    """Every loop, as the (target, branch) addresses of a backward branch."""
+    loops = []
+    for addr, op, args in insts:
+        if op.startswith("BRA"):
+            m = re.search(r"0x([0-9a-f]+)", args)
+            if m and int(m.group(1), 16) <= addr:
+                loops.append((int(m.group(1), 16), addr))
+    return sorted(loops)
 
 
 def add_ops(total: dict, part: dict, times: float) -> dict:
@@ -2611,14 +2653,62 @@ def bench_phase(fwd_per_step: float, bwd_per_step: float, card: str) -> tuple[st
     return line, counts
 
 
-def quantize_vs_plain(scene, cfg, tag: str, frames: int) -> dict:
+def quantize_sass(lib_path, source=None) -> dict:
+    """``sass_per_pixel`` of the tonemap-and-quantize kernel in the built
+    library's SASS (``cuobjdump -sass``), with the pixels an iteration takes
+    read from its source (``source``, else the package's
+    ``csrc/quantize.cu``), and the function's SASS text."""
+    from gpgpuraytrace_tpu_torch.kernels.build import CSRC
+
+    m = re.search(r"kGroups = (\d+)", Path(source or CSRC / "quantize.cu").read_text())
+    bodies = [f for f in sass_functions(lib_path) if re.match(r"\S*tonemap_quantize_kernel", f)]
+    if len(bodies) != 1:
+        fail(f"the SASS holds {len(bodies)} tonemap_quantize_kernel functions, expected 1")
+    return {**sass_per_pixel(bodies[0], int(m.group(1)) if m else 0), "sass": bodies[0]}
+
+
+def sass_per_pixel(body: str, groups: int) -> dict:
+    """Static SASS instructions a pixel of a tonemap-and-quantize kernel,
+    its out-of-line subroutines (the targets of its calls) left out, and
+    the rare blocks too: those a forward branch skips that hold a call and
+    neither a store nor a float operation (the exact chain's call sites; the
+    chain and the IEEE division's slow path run in subroutines). With
+    ``groups`` 4-pixel groups an iteration (the redesigned kernel): the
+    instructions of its grid-stride loop (the backward branch of the
+    longest span) over 4 x ``groups`` pixels; without (a pixel per thread):
+    the kernel's instructions."""
+    insts = instructions(body)
+    targets = [int(m.group(1), 16) for _, op, args in insts
+               if op.startswith("CALL") and (m := re.search(r"0x([0-9a-f]+)", args))]
+    insts = [i for i in insts if i[0] < min(targets, default=1 << 62)]
+    loops = [(lo, hi) for lo, hi in backward_branches(insts) if lo < hi]
+    looped = bool(groups and loops)
+    lo, hi = (max(loops, key=lambda r: r[1] - r[0]) if looped
+              else (insts[0][0], insts[-1][0]))
+    span = [(a, op) for a, op, _ in insts if lo <= a <= hi]
+    rare = set()
+    for addr, op, args in insts:
+        m = re.search(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else None
+        target = int(m.group(1), 16) if m else 0
+        skipped = [o for a, o in span if addr < a < target]
+        if (lo <= addr < target <= hi and any(o.startswith("CALL") for o in skipped)
+                and not any(o.startswith("ST") or o.split(".")[0] in FLOAT_OPS
+                            for o in skipped)):
+            rare.update(a for a, _ in span if addr < a < target)
+    return {"instructions": len(insts), "counted": len(span), "rare": len(rare),
+            "calls": sum(o.startswith("CALL") for _, o in span),
+            "per_pixel": (len(span) - len(rare)) / (4 * groups if looped else 1)}
+
+
+def quantize_vs_plain(scene, cfg, tag: str, frames: int, sass_per_pixel: float) -> dict:
     """Phase 30, part 1: the tonemap-and-quantize kernel against its plain
     version (eight torch passes) on a batch of ``frames`` frames of the fly
     path at ``cfg``'s size, as ``render_frames_raw`` hands it over (the view
-    of its (B, 3, H, W) planes): the count of differing values (expected 0),
-    the largest difference in levels (at most 1), and the device times of
-    the kernel and of the plain version (CUDA graphs of QUANT_REPS calls)
-    beside the kernel's byte bound."""
+    of its (B, 3, H, W) planes): the count of differing values (0 allowed),
+    and the device times of the kernel and of the plain version (CUDA graphs
+    of QUANT_REPS calls) beside the kernel's two bounds: the bytes (12 read
+    and 3 written a pixel) and the issue of ``sass_per_pixel`` SASS
+    instructions a pixel."""
     from gpgpuraytrace_tpu_torch.kernels.quantize import (
         tonemap_quantize, tonemap_quantize_reference,
     )
@@ -2629,18 +2719,53 @@ def quantize_vs_plain(scene, cfg, tag: str, frames: int) -> dict:
         got = tonemap_quantize(color)
         ref = tonemap_quantize_reference(color)
     torch.cuda.synchronize()
-    diff = (got.int() - ref.int()).abs()
-    n_diff, worst = int((diff != 0).sum()), int(diff.max())
-    if worst > 1 or got.shape != color.shape or not got.is_contiguous():
+    n_diff = int((got != ref).sum())
+    if n_diff or got.shape != color.shape or not got.is_contiguous():
         fail(f"{tag}tonemap_quantize at {frames}x{cfg.height}x{cfg.width}: {n_diff} values "
-             f"differ from the plain version, by up to {worst} levels (at most 1)")
+             f"differ from the plain version (0 allowed)")
     pixels = color.shape[0] * color.shape[1] * color.shape[2]
-    bound_ms, bound_by = bound(add_ops({}, OPS["quantize_pixel"], pixels), 15 * pixels)
+    bytes_ms = 1e3 * 15 * pixels / HBM_BYTES_PER_S
+    issue_ms = 1e3 * pixels * sass_per_pixel / 32 / WARP_ISSUE_PER_S
     return {"frames": frames, "size": f"{cfg.width}x{cfg.height}", "differ": n_diff,
-            "max_abs_err": float(worst),
+            "max_abs_err": 0.0,
             "ms": graph_ms(lambda: tonemap_quantize(color), QUANT_REPS),
             "plain_ms": graph_ms(lambda: tonemap_quantize_reference(color), QUANT_REPS),
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": max(bytes_ms, issue_ms),
+            "bound_by": "bytes" if bytes_ms >= issue_ms else "operations",
+            "bytes_bound_ms": bytes_ms, "issue_bound_ms": issue_ms, "library_ms": None}
+
+
+def quantize_exhaustive(dev) -> dict:
+    """Phase 30, part 3: all 2^32 float32 bit patterns through
+    ``tonemap_quantize`` and ``tonemap_quantize_reference`` on the card, in
+    chunks of EXHAUSTIVE_SIDE^2 pixels; fails on any differing byte. With
+    the level table's counts: its edges, the chain's changes, the windows
+    where the chain steps back, the finite patterns sent to the exact chain
+    and the scan's seconds."""
+    from gpgpuraytrace_tpu_torch.kernels.quantize import (
+        level_table, tonemap_quantize, tonemap_quantize_reference,
+    )
+
+    table = level_table(dev)
+    n = 3 * EXHAUSTIVE_SIDE ** 2
+    starts = list(range(-2 ** 31, 2 ** 31 - n, n)) + [2 ** 31 - n]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    differ = 0
+    with torch.no_grad():
+        for s in starts:
+            bits = torch.arange(s, s + n, dtype=torch.int64, device=dev).to(torch.int32)
+            color = bits.view(torch.float32).view(1, 3, EXHAUSTIVE_SIDE,
+                                                  EXHAUSTIVE_SIDE).permute(0, 2, 3, 1)
+            differ += int((tonemap_quantize(color) != tonemap_quantize_reference(color)).sum())
+    seconds = time.perf_counter() - t0
+    if differ:
+        fail(f"tonemap_quantize: {differ} of the 2^32 float32 inputs differ from the plain "
+             f"version on the card")
+    return {"values": 2 ** 32, "chunks": len(starts), "differ": differ, "seconds": seconds,
+            "edges": len(set(table.edges[1:])), "changes": table.changes,
+            "windows": len(table.windows), "exact_patterns": table.exact_patterns,
+            "scan_s": table.seconds}
 
 
 def fly_graph_frames(scene, cfg, tag: str, batch: int) -> tuple[str, collections.Counter, int]:
@@ -2827,12 +2952,14 @@ def fly_graph_phase(dev, card: str) -> tuple[str, dict, collections.Counter]:
     default and compact. Returns (report, the tonemap_quantize entry of the
     kernels' record, the trace kernels' launches of its fly runs)."""
     from gpgpuraytrace_tpu_torch import RenderConfig, default_scene
+    from gpgpuraytrace_tpu_torch.kernels.build import build_library
 
     t0 = time.perf_counter()
     lines = []
     quant = []
     trace_counts = collections.Counter()
     quant_launches = 0
+    sass = quantize_sass(build_library()[0])
     for vol in (False, True):
         tag = "volumetric " if vol else ""
         scene = default_scene(6, volumetric=vol, device=dev)
@@ -2841,7 +2968,8 @@ def fly_graph_phase(dev, card: str) -> tuple[str, dict, collections.Counter]:
                                             compact_budget=COMPACT_BUDGET)):
             for size in ((512, 512), HD):
                 r = quantize_vs_plain(scene, dataclasses.replace(c, height=size[0],
-                                                                 width=size[1]), tag, 4)
+                                                                 width=size[1]), tag, 4,
+                                      sass["per_pixel"])
                 r["config"] = f"{tag}{c.march_mode}"
                 quant.append(r)
             for b in FLY_GRAPH_BATCHES:
@@ -2850,20 +2978,29 @@ def fly_graph_phase(dev, card: str) -> tuple[str, dict, collections.Counter]:
                 trace_counts.update(counts)
                 quant_launches += q
     hd8 = quantize_vs_plain(default_scene(6, device=dev), RenderConfig(
-        num_octaves=6, height=HD[0], width=HD[1]), "", 8)
+        num_octaves=6, height=HD[0], width=HD[1]), "", 8, sass["per_pixel"])
     hd8["config"] = "chunked"
     quant.append(hd8)
     qline = "; ".join(
-        f"{r['config']} {r['frames']}x{r['size']}: {r['differ']} values differ (max "
-        f"{r['max_abs_err']:g} level), kernel {r['ms']:.5f} ms against bound {r['bound_ms']:.5f} "
-        f"({r['bound_by']}), plain {r['plain_ms']:.5f} ms" for r in quant)
+        f"{r['config']} {r['frames']}x{r['size']}: {r['differ']} values differ, kernel "
+        f"{r['ms']:.5f} ms against bound {r['bound_ms']:.5f} ({r['bound_by']}; bytes "
+        f"{r['bytes_bound_ms']:.5f}, SASS issue {r['issue_bound_ms']:.5f}), plain "
+        f"{r['plain_ms']:.5f} ms" for r in quant)
+    every = quantize_exhaustive(dev)
     fps_line = fly_graph_fps(default_scene(6, device=dev), RenderConfig(num_octaves=6))
-    line = (f"tonemap_quantize vs plain (CUDA graphs of {QUANT_REPS} calls): {qline} | "
-            + " | ".join(lines) + f" | {copy_times(dev)} | {fps_line} | phase 30 took "
-            f"{time.perf_counter() - t0:.1f} s {card}")
+    line = (f"tonemap_quantize vs plain (CUDA graphs of {QUANT_REPS} calls; fast path "
+            f"{sass['per_pixel']:g} SASS instructions a pixel, static: {sass['counted']} in its "
+            f"loop less {sass['rare']} only the exact chain's inputs reach): {qline} | all "
+            f"2^32 float32 inputs in {every['chunks']} chunks: {every['differ']} differ, "
+            f"{every['seconds']:.2f} s; level table {every['edges']} edges from "
+            f"{every['changes']} changes, {every['windows']} windows, "
+            f"{every['exact_patterns']} finite patterns to the exact chain, scan "
+            f"{every['scan_s']:.3f} s | " + " | ".join(lines) + f" | {copy_times(dev)} | "
+            f"{fps_line} | phase 30 took {time.perf_counter() - t0:.1f} s {card}")
     head = next(r for r in quant if r["config"] == "chunked" and r["size"] == "1920x1080"
                 and r["frames"] == 4)
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bytes_bound_ms", "issue_bound_ms",
+            "library_ms")
     entry = {"name": "tonemap_quantize", "route": "cuda",
              "source": "gpgpuraytrace_tpu_torch/kernels/csrc/quantize.cu",
              "replaces": "gpgpuraytrace_tpu/ops/flythrough.py:51",
@@ -2871,6 +3008,7 @@ def fly_graph_phase(dev, card: str) -> tuple[str, dict, collections.Counter]:
              "launches": quant_launches,
              "max_abs_err": max(r["max_abs_err"] for r in quant),
              "differing_values": sum(r["differ"] for r in quant),
+             "sass_per_pixel": sass["per_pixel"], "exhaustive": every,
              **{k: head[k] for k in keys},
              "by_shape": [{k: r[k] for k in ("config", "frames", "size", "differ", *keys)}
                           for r in quant]}

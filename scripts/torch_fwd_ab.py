@@ -71,7 +71,8 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 from chip_smoke import (  # noqa: E402
-    EXPECTED_DIGESTS, graph_ms, host_us, output_digests, ptxas_lines,
+    EXPECTED_DIGESTS, backward_branches, graph_ms, host_us, instructions, output_digests,
+    ptxas_lines, sass_functions,
 )
 from scripts.torch_bwd_ab import Arm as BwdArm  # noqa: E402
 from gpgpuraytrace_tpu_torch.kernels import build as kbuild  # noqa: E402
@@ -223,37 +224,11 @@ def klass(op: str) -> str:
     return next((k for k, ops in CLASSES.items() if root in ops), "other")
 
 
-def sass_functions(lib_path: Path) -> list[str]:
-    """The library's SASS (``cuobjdump -sass``), one text per function, its
-    mangled name first."""
-    cuobjdump = Path(kbuild.find_nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
-                          text=True, check=True).stdout
-    return re.split(r"\n\s*Function : ", sass)
-
-
-def instructions(body: str) -> list[tuple[int, str, str]]:
-    """(address, opcode, operands) of every instruction of a function."""
-    return [(int(m.group(1), 16), m.group(3), m.group(4)) for m in re.finditer(
-        r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", body)]
-
-
 def class_counts(insts, lo: int = 0, hi: int = 1 << 62, skip=()) -> dict:
     c = collections.Counter(klass(op) for addr, op, _ in insts
                             if lo <= addr <= hi and not any(a <= addr <= b for a, b in skip))
     c["all"] = sum(c.values())
     return dict(c)
-
-
-def backward_branches(insts) -> list[tuple[int, int]]:
-    """Every loop, as the (target, branch) addresses of a backward branch."""
-    loops = []
-    for addr, op, args in insts:
-        if op.startswith("BRA"):
-            m = re.search(r"0x([0-9a-f]+)", args)
-            if m and int(m.group(1), 16) <= addr:
-                loops.append((int(m.group(1), 16), addr))
-    return sorted(loops)
 
 
 def sass_census(lib_path: Path, dump: Path) -> dict:

@@ -684,11 +684,16 @@ def colour_batch(cuda, frames, h, w, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["planar_batch", "contiguous_frame", "planar_frame"])
+@pytest.mark.parametrize("layout", ["planar_batch", "contiguous_frame", "planar_frame",
+                                    "width_not_4", "unaligned", "tall", "many_frames"])
 def test_cuda_tonemap_quantize_matches_plain_version(cuda, layout):
     """The kernel against its plain version (eight torch passes) on the card,
-    byte for byte: the batch's planar view read in place, a contiguous
-    frame and one frame's planar view; one launch per call."""
+    byte for byte: the batch's planar view read in place (the 16-byte path),
+    a contiguous frame (channels interleaved) and one frame's planar view; a
+    width that is not a multiple of 4 and planes 4 bytes off 16-byte
+    alignment (the scalar path); 70000 rows of one frame and 70000 frames of
+    one row, which the grid of one block per row and frame refused; one
+    launch per call."""
     from gpgpuraytrace_tpu_torch.kernels.quantize import (
         tonemap_quantize, tonemap_quantize_reference,
     )
@@ -698,6 +703,17 @@ def test_cuda_tonemap_quantize_matches_plain_version(cuda, layout):
         x = x[1].contiguous()
     elif layout == "planar_frame":
         x = x[2]
+    elif layout == "width_not_4":
+        x = colour_batch(cuda, 2, 16, 202)
+    elif layout == "unaligned":
+        flat = torch.empty(1 + x.numel(), device=cuda)
+        flat[1:] = x.permute(0, 3, 1, 2).flatten()
+        x = flat[1:].view(3, 3, 48, 200).permute(0, 2, 3, 1)
+        assert x.data_ptr() % 16 == 4
+    elif layout == "tall":
+        x = colour_batch(cuda, 1, 70000, 4)
+    elif layout == "many_frames":
+        x = colour_batch(cuda, 70000, 1, 4)
     before = tonemap_quantize.launches
     got = tonemap_quantize(x)
     torch.cuda.synchronize()
@@ -708,6 +724,38 @@ def test_cuda_tonemap_quantize_matches_plain_version(cuda, layout):
         tonemap_quantize(x.double())
     with pytest.raises(ValueError):
         tonemap_quantize(x[..., :2])
+
+
+@pytest.mark.cuda
+def test_cuda_level_table_made_once_and_reused_in_a_fly_graph(cuda):
+    """The quantize kernel's table of level edges: never made inside a CUDA
+    graph capture (a capture without it raises), made once on the device by
+    FlyBatch's eager first batch (255 rising edges, each in a piece of its
+    own) and reused by its capture and replays, each batch bit for bit the
+    eager render_batch_uint8."""
+    from gpgpuraytrace_tpu_torch.kernels import quantize as kq
+    from gpgpuraytrace_tpu_torch.ops.flythrough import render_batch_uint8
+
+    index = torch.cuda.current_device() if cuda.index is None else cuda.index
+    kq._TABLES.pop(index, None)
+    x = colour_batch(cuda, 1, 16, 64)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="outside a CUDA graph capture"):
+        with torch.cuda.graph(graph):
+            kq.tonemap_quantize(x)
+    made = kq.level_table.made
+    scene, cfg, program = fly_program(cuda, False, "default", 4)
+    tables = []
+    for call in range(3):
+        times = torch.arange(4 * call, 4 * call + 4, dtype=torch.float32) / 30.0
+        got = program.frames(scene, times).clone()
+        tables.append(kq._TABLES[index])
+        assert torch.equal(got, render_batch_uint8(scene, cfg, times)), call
+    assert program.replays == 2 and kq.level_table.made == made + 1
+    assert tables[0] is tables[1] is tables[2]
+    edges = tables[0].edges
+    assert edges[0] == 0 and all(a < b for a, b in zip(edges[1:], edges[2:]))
+    assert len({e >> kq.PIECE_SHIFT for e in edges[1:]}) == kq.LEVELS - 1
 
 
 def fly_program(cuda, volumetric, mode, batch, size=(64, 128)):
