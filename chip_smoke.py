@@ -135,7 +135,8 @@ each prints one line and any failure exits non-zero:
     timed graphs replayed at a fixed salt bit for bit the eager loop, one
     kernel-path step against the plain path's, the march statistics with
     the counter's executed steps; ``run_bench_mesh(1)``, one rank of
-    ``parallel/worker.py --time-k`` on NCCL; both JSON lines printed;
+    ``parallel/worker.py --time-k`` on NCCL, timed as CUDA graphs with
+    ``graph_check`` ok; both JSON lines printed;
 30. the flythrough batch as one CUDA graph: ``tonemap_quantize`` against its
     plain version at 512x512 x 4, 1920x1080 x 4 and x 8 on both terrains and
     modes (0 values may differ), its times beside its byte bound and the
@@ -144,12 +145,32 @@ each prints one line and any failure exits non-zero:
     version on the card (0 may differ), with the level table's edges and
     windows; ``fly_frames`` of 10 frames in batches of 4 and 8 with a tweak
     before the last batch, every frame bit for bit ``render_frame_uint8``;
-    the host copy pageable vs pinned; fps and busy share, graph vs eager.
+    the host copy pageable vs pinned; fps and busy share, graph vs eager;
+31. BASELINE.json config 5 (a 3840x2160 frame, 6 octaves, ``max_steps``
+    128, ``prime_ds`` 8): the 4K frame through ``render``, 2 forward
+    launches, finite, a sky-blue top; phase 27 at 4K (on an NCCL group of
+    one ``sharded_render`` bit for bit ``render``; 2 bands of 1080 rows from
+    their own row0 bit for bit the whole frame, their summed gradients the
+    whole frame's within phase 27's bounds); bands of 16 rows at row 1072
+    (across the bands' edge) and 2144 (the bottom) through the kernels
+    against the plain path with phase 3's gates, each bit for bit the whole
+    frame's rows; the coarse and fine pass and the backward on the whole 4K
+    frame against their plain versions (phase 3's and phase 8's gates),
+    then as CUDA graphs beside their bounds for this frame;
+    ``make_sharded_fit_step`` on
+    the group of one, its eager
+    warm-up and 3 replays of one CUDA graph bit for bit 4 eager steps of a
+    copy, the launches counted at the capture; a ``dist.all_reduce``
+    captured in a CUDA graph and replayed; and
+    ``scripts/torch_contract_configs.py``'s config 5 (its JSON line
+    printed): the frame's and the fwd+bwd step's ms by the slope of CUDA
+    graphs of 1 and 6 salted steps beside the eager loop's, both
+    ``graph_check`` ok, their launches per captured step.
 
-Phases 15-18, 20-22 and 25-30 each drive their paths through the entry point
+Phases 15-18, 20-22 and 25-31 each drive their paths through the entry point
 a user calls (``render``, ``render_kernel_raw`` for the counter, ``fly_frames``,
 ``fit_step``, ``fit``, ``sharded_render``, ``make_sharded_fit_step``,
-``bench.run_bench``) with the launch counts set to 0 just before and read
+``bench.run_bench``, ``torch_contract_configs.config5``) with the launch counts set to 0 just before and read
 just after. On the card ``fly_frames`` replays a CUDA graph for every batch
 after the first; a launch counter counts the eager batch and the capture,
 not the replays (``FlyBatch.launches`` and ``counted`` say what a batch
@@ -436,6 +457,16 @@ QUANT_REPS, COPY_REPS, FLY_GRAPH_FPS_FRAMES = 20, 10, 24
 # (3 x 2^26 values) as the fly path lays them out, (1, 3, H, W) planes viewed
 # as (1, H, W, 3); the last chunk overlaps the one before.
 EXHAUSTIVE_SIDE = 1 << 13
+# Phase 31: BASELINE.json config 5, the 4K frame (height, width) at 6
+# octaves, max_steps 128, prime_ds 8, in UHD_BANDS bands of 1080 rows; bands
+# of UHD_PLAIN_ROWS rows at UHD_PLAIN_ROW0S (the middle, across the two bands'
+# edge, and the bottom) through the kernels, from their own coarse pass and
+# row0, against the plain path (the whole frame's passes are held against
+# theirs too); SHARDED_FIT_CALLS calls of the sharded fit step (the eager
+# warm-up, then replays of its graph).
+UHD = (2160, 3840)
+UHD_BANDS, UHD_PLAIN_ROWS, UHD_PLAIN_ROW0S = 2, 16, (1072, 2144)
+SHARDED_FIT_CALLS = 4
 # AD vs FD checks of tests/test_grad.py: (leaf, component, eps, rtol, t_cap).
 FD_CHECKS = (
     ("noise.amplitudes", 0, 3e-3, 5e-2, 0.03),
@@ -2126,12 +2157,12 @@ def writer_phase(cfg, dev) -> str:
             + proc.stdout.strip().splitlines()[-1])
 
 
-def bands_phase(scene, cfg, tag: str, card: str) -> str:
-    """Phase 27 on one terrain: a process group of world size 1 on NCCL, its
-    sharded render bit for bit ``render`` and a sharded fit step's loss
-    ``pixel_loss``'s; then BANDS bands of 512 / BANDS rows, each traced
-    through the kernels from its own row0, bit for bit the whole frame, and
-    their summed gradients the whole frame's."""
+def bands_phase(scene, cfg, tag: str, card: str, bands: int = BANDS) -> str:
+    """Phase 27 on one terrain (and phase 31 at 4K): a process group of world
+    size 1 on NCCL, its sharded render bit for bit ``render`` and a sharded
+    fit step's loss ``pixel_loss``'s; then ``bands`` bands of height / bands
+    rows, each traced through the kernels from its own row0, bit for bit the
+    whole frame, and their summed gradients the whole frame's."""
     from gpgpuraytrace_tpu_torch import render
     from gpgpuraytrace_tpu_torch.ops import fit as fitmod
     from gpgpuraytrace_tpu_torch.parallel import mesh
@@ -2178,8 +2209,8 @@ def bands_phase(scene, cfg, tag: str, card: str) -> str:
     summed = [torch.zeros_like(p) for p in params]
     parts = []
     reset_counts()
-    for r in range(BANDS):
-        row0, h = mesh.band(cfg, r, BANDS)
+    for r in range(bands):
+        row0, h = mesh.band(cfg, r, bands)
         with torch.no_grad():
             parts.append(render(scene, cfg, row0, h))
         d = render(scene, cfg, row0, h) - target[int(row0):int(row0) + h]
@@ -2187,10 +2218,10 @@ def bands_phase(scene, cfg, tag: str, card: str) -> str:
         for acc, g in zip(summed, torch.autograd.grad(band_loss, params)):
             acc += g
     torch.cuda.synchronize()
-    expect_counts(f"{tag}{BANDS} bands", {"chunked": 4 * BANDS, "bwd": BANDS})
+    expect_counts(f"{tag}{bands} bands", {"chunked": 4 * bands, "bwd": bands})
     if not torch.equal(torch.cat(parts), whole):
         rows = (torch.cat(parts) != whole).any(dim=(1, 2)).nonzero().flatten().tolist()
-        fail(f"{tag}the {BANDS} bands differ from the whole frame in rows {rows[:20]}")
+        fail(f"{tag}the {bands} bands differ from the whole frame in rows {rows[:20]}")
     worst = 0.0
     for (n, _), a, b in zip([(n, p) for n, p in scene.named_parameters() if p.requires_grad],
                             summed, whole_grads):
@@ -2202,8 +2233,8 @@ def bands_phase(scene, cfg, tag: str, card: str) -> str:
                  f"+ atol {BAND_GRAD_ATOL} against the whole frame's")
     return (f"{tag}group of world size 1 on {backend}: sharded render bit for bit render "
             f"(2 forward launches), a sharded fit step's loss {got:.9e} vs pixel_loss "
-            f"{want:.9e} (rtol {BAND_LOSS_RTOL}); {BANDS} bands of {cfg.height // BANDS} rows "
-            f"from their own row0 ({4 * BANDS} forward, {BANDS} backward launches): bit for "
+            f"{want:.9e} (rtol {BAND_LOSS_RTOL}); {bands} bands of {cfg.height // bands} rows "
+            f"from their own row0 ({4 * bands} forward, {bands} backward launches): bit for "
             f"bit the whole frame, summed gradients at worst {worst:.4f} of rtol "
             f"{BAND_GRAD_RTOL} + atol {BAND_GRAD_ATOL} {card}")
 
@@ -2627,8 +2658,11 @@ def bench_phase(fwd_per_step: float, bwd_per_step: float, card: str) -> tuple[st
     mesh = bench.run_bench_mesh(1)
     print(json.dumps(mesh), flush=True)
     rank = mesh["detail"]["ranks"]["1"][0]
-    if rank["backend"] != "nccl" or not mesh["value"] > 0:
-        fail(f"bench --mesh 1: the rank ran {rank['backend']!r}, eff(1) {mesh['value']!r}")
+    if rank["backend"] != "nccl" or not mesh["value"] > 0 or rank["timing"] != "cuda_graph":
+        fail(f"bench --mesh 1: the rank ran {rank['backend']!r} ({rank['timing']!r}), eff(1) "
+             f"{mesh['value']!r}")
+    if bench.failures(mesh):
+        fail(f"bench --mesh 1: {bench.failures(mesh)}")
     m = d["march"]
     spread = [x["rays_per_sec"] for x in d["kernel_measurements"]]
     line = (f"fwd+bwd {result['value']:.1f} rays/s ({d['kernel_ms_per_step']:.5f} ms a step, "
@@ -2647,8 +2681,9 @@ def bench_phase(fwd_per_step: float, bwd_per_step: float, card: str) -> tuple[st
             f"{m['hit_rate']:.4f}, steps mean {m['steps_mean']:.4f}, p99 {m['steps_p99']:.1f}, "
             f"exhausted {m['exhausted_lanes']}, executed per ray {m['executed_steps_per_ray_kernel']} "
             f"(TPU tiles) / {m['executed_steps_per_ray_kernel_warp_tile']} (warp tiles); "
-            f"mesh 1 on {rank['backend']}: {mesh['detail']['rays_per_sec']['1']:.1f} rays/s, eff(1) "
-            f"{mesh['value']}; seconds {d['seconds']}; phase 29 took "
+            f"mesh 1 on {rank['backend']}: {mesh['detail']['rays_per_sec']['1']:.1f} rays/s "
+            f"(CUDA graphs; eager {mesh['detail']['rays_per_sec_eager']['1']:.1f}), graph_check "
+            f"ok, eff(1) {mesh['value']}; seconds {d['seconds']}; phase 29 took "
             f"{time.perf_counter() - t0:.1f} s {card}")
     return line, counts
 
@@ -3015,6 +3050,255 @@ def fly_graph_phase(dev, card: str) -> tuple[str, dict, collections.Counter]:
     return line, entry, trace_counts
 
 
+def uhd_band_vs_plain(scene, cfg, whole, row0: int, h: int) -> str:
+    """A band of ``h`` rows from ``row0`` of the 4K frame through the kernels
+    (its coarse pass of h / ds + 2 coarse rows, the prime map, the fine
+    pass), bit for bit the whole frame's rows, and against the plain
+    versions on the same inputs (the fine pass from the kernel's prime map)
+    with phase 3's gates."""
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_reference
+    from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
+    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+
+    ds = cfg.prime_ds
+    ccfg = coarse_prime_cfg(cfg)
+    tag = f"4K band of {h} rows at row {row0}"
+    with torch.no_grad():
+        packed_c, seed_c = pack_scene(scene, ccfg.height, ccfg.width, row0 / ds - 1.0)
+        coarse_k = trace_frame(packed_c, seed_c, ccfg, h // ds + 2)
+        coarse_r = trace_frame_reference(packed_c, seed_c, ccfg, h // ds + 2)
+        torch.cuda.synchronize()
+        _, line_c = compare_trace(f"{tag}: coarse", coarse_k, coarse_r)
+        prime = prime_from_coarse(coarse_k[1], cfg)
+        packed, seed = pack_scene(scene, cfg.height, cfg.width, float(row0))
+        fine_k = trace_frame(packed, seed, cfg, h, prime)
+        fine_r = trace_frame_reference(packed, seed, cfg, h, prime)
+        torch.cuda.synchronize()
+        _, line_f = compare_trace(f"{tag}: fine", fine_k, fine_r)
+    if not torch.equal(fine_k[0].permute(1, 2, 0), whole[row0:row0 + h]):
+        fail(f"{tag}: the kernel's band differs from the whole frame's rows")
+    return f"{line_c} | {line_f}; bit for bit the whole frame's rows"
+
+
+def uhd_kernels(scene, cfg) -> str:
+    """The forward kernel's coarse and fine pass and the backward kernel on
+    the whole 4K frame: each against its plain version on the same inputs
+    (the forward passes with phase 3's gates, the fine pass from the
+    kernel's prime map; the backward on the fine pass's (t, hit) and a
+    seeded normal cotangent with phase 8's, finite and two launches
+    bitwise equal), the plain versions' time once each and the plain
+    backward's peak memory; then each kernel as a CUDA graph of 10
+    launches, beside its bound counted for this frame: the march steps
+    from the kernel's counter (its steps per lane: phase 15's "executed per
+    lane", the work each lane's data needed, without the warp's
+    divergence), the hits from the frame; the coarse pass from its own
+    counter and hits."""
+    from gpgpuraytrace_tpu_torch.kernels.trace import (
+        render_kernel_raw, trace_bwd_reference, trace_frame, trace_frame_bwd,
+        trace_frame_reference,
+    )
+    from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
+    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+
+    def once_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    n_pix = cfg.height * cfg.width
+    ccfg = coarse_prime_cfg(cfg)
+    ch = cfg.height // cfg.prime_ds + 2
+    with torch.no_grad():
+        *_, hit, steps = render_kernel_raw(scene, cfg, debug_steps=True)
+        hits = hit.sum().item()
+        packed_c, seed_c = pack_scene(scene, ccfg.height, ccfg.width, -1.0)
+        _, _, c_hit, c_steps = trace_frame(packed_c, seed_c, ccfg, ch, debug_steps=True)
+        coarse_k = trace_frame(packed_c, seed_c, ccfg, ch)
+        coarse_r, plain_s = once_s(lambda: trace_frame_reference(packed_c, seed_c, ccfg, ch))
+        _, line_c = compare_trace(f"4K coarse {ch}x{ccfg.width}", coarse_k, coarse_r)
+        prime = prime_from_coarse(coarse_k[1], cfg)
+        packed, seed = pack_scene(scene, cfg.height, cfg.width, 0.0)
+        fine_k = trace_frame(packed, seed, cfg, cfg.height, prime)
+        fine_r, plain_fine_s = once_s(
+            lambda: trace_frame_reference(packed, seed, cfg, cfg.height, prime))
+        _, line_f = compare_trace(f"4K fine {cfg.height}x{cfg.width}", fine_k, fine_r)
+        del fine_r
+        _, t, hit_f = fine_k
+        g = torch.randn(3, cfg.height, cfg.width,
+                        generator=torch.Generator().manual_seed(0)).to(packed.device)
+        bwd_args = (packed, seed, cfg, cfg.height, t, hit_f, g)
+        pbar_k = trace_frame_bwd(*bwd_args)
+        pbar_k2 = trace_frame_bwd(*bwd_args)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pbar_r, plain_bwd_s = once_s(lambda: trace_bwd_reference(*bwd_args))
+    plain_bwd_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    if not torch.isfinite(pbar_k).all():
+        fail("4K backward: kernel output not finite")
+    if not torch.equal(pbar_k, pbar_k2):
+        fail("4K backward: two launches differ")
+    err, worst = bwd_error(pbar_k, pbar_r)
+    if worst > 1.0:
+        fail(f"4K backward vs plain: worst entry at {worst:.3f} of its tolerance (max abs "
+             f"err {err:.3e})")
+    del pbar_r
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        ms = {"coarse": graph_ms(lambda: trace_frame(packed_c, seed_c, ccfg, ch), 10),
+              "fine": graph_ms(lambda: trace_frame(packed, seed, cfg, cfg.height, prime), 10),
+              "bwd": graph_ms(lambda: trace_frame_bwd(*bwd_args), 10)}
+    c_pix = ch * ccfg.width
+    bounds = {"coarse": fwd_bound(ccfg, c_steps.sum().item(), c_hit.sum().item(), c_pix),
+              "fine": fwd_bound(cfg, steps.sum().item(), hits, n_pix),
+              "bwd": bwd_bound(cfg, hits, n_pix)}
+    return (f"{line_c} | {line_f} | 4K backward on the fine pass's (t, hit), "
+            f"{int(hit_f.sum().item())} hits: max abs err {err:.3e}, worst entry at "
+            f"{worst:.4f} of rtol {BWD_RTOL} + {BWD_ATOL_REL} x max|pbar|, two launches "
+            f"bitwise equal | plain versions once: coarse {plain_s:.3f} s, fine "
+            f"{plain_fine_s:.3f} s, backward {plain_bwd_s:.3f} s ({plain_bwd_mib:.1f} MiB "
+            f"peak above its inputs) | 4K kernels as CUDA graphs of 10 (ms, bound, bound by; "
+            f"march steps from the kernel's counter, "
+            f"{steps.double().mean().item():.4f} per lane, {int(hits)} hits): "
+            + ", ".join(f"{k} {ms[k]:.4f} ({bounds[k][0]:.4f}, {bounds[k][1]})"
+                        for k in ("coarse", "fine", "bwd")))
+
+
+def sharded_graph_phase(scene, cfg, target) -> str:
+    """On a process group of one (NCCL), from phase 27's perturbed start
+    toward ``target``: ``make_sharded_fit_step`` called
+    SHARDED_FIT_CALLS times (the eager warm-up, then replays of one captured
+    step) against as many eager steps of a copy (``ShardedFitStep.eager``),
+    losses and parameters bit for bit, the launches counted at the capture
+    and none at a replay; and a ``dist.all_reduce`` (``mesh.all_reduce``)
+    captured in a CUDA graph behind an add and replayed."""
+    from gpgpuraytrace_tpu_torch.ops import fit as fitmod
+    from gpgpuraytrace_tpu_torch.parallel import mesh
+    from gpgpuraytrace_tpu_torch.parallel.launch import free_port
+    from gpgpuraytrace_tpu_torch.parallel.sharded import make_sharded_fit_step, shard_target
+
+    start = fitmod.perturb_scene(scene, torch.Generator().manual_seed(0), rel=0.15)
+    if not mesh.initialize_distributed("cuda", f"tcp://localhost:{free_port()}", 1, 0):
+        fail("no process group was made")
+    try:
+        steps, params = [], []
+        for _ in range(2):
+            s = copy.deepcopy(start)
+            p = fitmod.partition_scene(s)
+            params.append(p)
+            steps.append(make_sharded_fit_step(s, cfg, p, fitmod.make_optimizer(p, 5e-3)))
+        graphed, twin = steps
+        local = shard_target(target, cfg)
+        losses = [graphed(local).item()]
+        reset_counts()
+        mesh.all_reduce.launches.clear()
+        losses.append(graphed(local).item())  # the capture and its first replay
+        torch.cuda.synchronize()
+        captured = {k: v for k, v in launch_counts().items() if v}
+        captured_ar = mesh.all_reduce.launches.total()
+        if not graphed.program.captured or captured != {"chunked": 2, "bwd": 1}:
+            fail(f"the sharded fit step captured {captured} (graph: "
+                 f"{graphed.program.captured}), expected 2 forward and 1 backward launches")
+        losses += [graphed(local).item() for _ in range(SHARDED_FIT_CALLS - 2)]
+        torch.cuda.synchronize()
+        if {k: v for k, v in launch_counts().items() if v} != captured:
+            fail("a replay of the sharded fit step launched through the wrappers")
+        eager = [twin.eager(local).item() for _ in range(SHARDED_FIT_CALLS)]
+        if losses != eager or not all(torch.equal(a, b) for a, b in zip(*params)):
+            fail(f"the sharded fit step's replays differ from its eager steps: losses "
+                 f"{losses} vs {eager}")
+        # One all-reduce captured behind an add and replayed twice: the
+        # eager call first creates NCCL's communicator.
+        x = torch.arange(8, dtype=torch.float32, device=target.device)
+        mesh.all_reduce(x)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        mesh.all_reduce.launches.clear()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            x.add_(1.0)
+            mesh.all_reduce(x)
+        for _ in range(2):
+            graph.replay()
+        torch.cuda.synchronize()
+        want = torch.arange(8, dtype=torch.float32, device=x.device) + 2.0
+        if not torch.equal(x, want) or mesh.all_reduce.launches.total() != 1:
+            fail(f"the captured all_reduce: {x.tolist()} after 2 replays, expected "
+                 f"{want.tolist()}; {mesh.all_reduce.launches.total()} counted at capture")
+        backend = torch.distributed.get_backend()
+        # Release both graphs before the group goes: NCCL's communicator
+        # waits for every graph that holds its collectives.
+        graphed.close()
+        del graph
+    finally:
+        torch.distributed.destroy_process_group()
+    return (f"sharded fit step on a group of one ({backend}): {SHARDED_FIT_CALLS} calls (the "
+            f"eager warm-up, then {SHARDED_FIT_CALLS - 1} replays of one CUDA graph) bit for "
+            f"bit {SHARDED_FIT_CALLS} eager steps of a copy (losses {losses[0]:.9e} -> "
+            f"{losses[-1]:.9e}, every parameter); counted at the capture {captured} and "
+            f"{captured_ar} all-reduces (a group of one skips them), nothing at a replay; a "
+            f"dist.all_reduce captured behind an add, 2 replays: {x[:3].tolist()}...")
+
+
+def config5_phase(dev, card: str) -> tuple[str, dict]:
+    """Phase 31: BASELINE.json config 5 on one card (see the module's
+    docstring); returns its line and the config-5 path's forward and
+    backward launches."""
+    from gpgpuraytrace_tpu_torch import RenderConfig, default_scene, render
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    import torch_contract_configs
+
+    t0 = time.perf_counter()
+    height, width = UHD
+    cfg = RenderConfig(height=height, width=width, max_steps=128, num_octaves=6)
+    if cfg.prime_ds != 8:
+        fail(f"config 5 resolves prime_ds to {cfg.prime_ds}, expected 8")
+    scene = default_scene(6, device=dev)
+    serve_launches, mean = serve_frames(scene, cfg, (scene.camera.yaw.item(),))
+    with torch.no_grad():
+        whole = render(scene, cfg)
+    lines = [f"the 4K frame ({width}x{height}, prime_ds {cfg.prime_ds}): {serve_launches} "
+             f"forward launches, finite, sky-blue top, mean colour {mean}"]
+    lines.append(bands_phase(scene, cfg, "4K ", card, bands=UHD_BANDS))
+    for row0 in UHD_PLAIN_ROW0S:
+        lines.append(uhd_band_vs_plain(scene, cfg, whole, row0, UHD_PLAIN_ROWS))
+    lines.append(uhd_kernels(scene, cfg))
+    lines.append(sharded_graph_phase(scene, cfg, whole))
+    reset_counts()
+    result = torch_contract_configs.config5(height, width, 6, device=dev)
+    torch.cuda.synchronize()
+    counts = {"forward": trace_frame.launches.total(),
+              "backward": trace_frame_bwd.launches.total()}
+    print(json.dumps(result), flush=True)
+    if not result["ok"]:
+        fail(f"config 5: {json.dumps(result)}")
+    want = {"frame": {"forward": {"chunked": 2.0}, "backward": {}, "all_reduce": {}},
+            "fwd_bwd": {"forward": {"chunked": 2.0}, "backward": {"bwd": 1.0},
+                        "all_reduce": {}}}
+    got = {"frame": result["frame_launches"], "fwd_bwd": result["fwd_bwd_launches"]}
+    timing = (result["frame_timing"], result["fwd_bwd_timing"])
+    if got != want or timing != ("cuda_graph", "cuda_graph"):
+        fail(f"config 5: launches per captured step {got} ({timing}), expected {want}")
+    fc, sc = result["frame_graph_check"], result["fwd_bwd_graph_check"]
+    lines.append(
+        f"config 5 (scripts/torch_contract_configs.py, K {result['K']}): frame "
+        f"{result['frame_ms']:.4f} ms as CUDA graphs ({result['mrays_per_sec']:.1f} Mrays/s), "
+        f"eager {result['frame_ms_eager']:.4f} ms; fwd+bwd {result['fwd_bwd_ms_per_step']:.4f} "
+        f"ms a step as CUDA graphs ({result['fwd_bwd_mrays_per_sec']:.1f} Mrays/s), eager "
+        f"{result['fwd_bwd_ms_per_step_eager']:.4f} ms; graph_check ok (frame "
+        f"{fc[str(result['K'])]['graph']}, step {sc[str(result['K'])]['graph']}); "
+        f"launches per captured step {got}; sharded_render bit for bit render on "
+        f"{result['group']['backend']}, mean pixel {result['mean_pixel']:.6f}; peak memory "
+        f"frame {result['frame_peak_memory_bytes'] / 2**20:.1f} MiB, step "
+        f"{result['fwd_bwd_peak_memory_bytes'] / 2**20:.1f} MiB")
+    lines.append(f"phase 31 took {time.perf_counter() - t0:.1f} s {card}")
+    return " | ".join(lines), {"forward": counts["forward"] + serve_launches,
+                                "backward": counts["backward"]}
+
+
 def main() -> None:
     # --- 1. host -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3378,6 +3662,10 @@ def main() -> None:
     fly_counts.update(fly_graph_counts)
     phase(30, "fly graph", fly_graph_line)
 
+    # --- 31. BASELINE.json config 5: the 4K row-band frame and step ------------
+    config5_line, config5_counts = config5_phase(dev, card)
+    phase(31, "config 5", config5_line)
+
     # Bounds of phases 3, 8, 11 and 13 from phase 15's useful steps and hits.
     n_pix = cfg.height * cfg.width
     fwd_b = {tag: fwd_bound(c, results["counter", tag]["lanes"].sum().item(),
@@ -3420,10 +3708,12 @@ def main() -> None:
     paths = {"fwd": {"serving": serve_launches, "training": tr["fwd"],
                      "volumetric serving": vserve_launches,
                      "volumetric training": vtr["fwd"],
-                     "bench": bench_counts["forward"]},
+                     "bench": bench_counts["forward"],
+                     "config 5": config5_counts["forward"]},
              "bwd": {"serving": 0, "training": tr["bwd"], "volumetric serving": 0,
                      "volumetric training": vtr["bwd"],
-                     "bench": bench_counts["backward"]}}
+                     "bench": bench_counts["backward"],
+                     "config 5": config5_counts["backward"]}}
     record = {"kernels": [
         {
             "name": "trace_fwd",

@@ -42,8 +42,13 @@ printing the JSON) or when anything raises.
 
 ``run_bench_mesh(n)`` (``bench.py:539-617``): the row-band training step over
 1, 2, 4, ... n ranks (``parallel/worker.py --time-k``, one rank per card over
-NCCL, or gloo ranks on the CPU when asked), and the parallel efficiency
-eff(n) = rps(n) / (n · rps(1)). Fewer cards than n raise.
+NCCL, or gloo ranks on the CPU when asked), as CUDA graphs of 1 and K steps
+with their all-reduces captured, and the parallel efficiency eff(n) =
+rps(n) / (n · rps(1)), the eager loop's beside it. Fewer cards than n raise,
+and so do bands a primed config cannot split into whole coarse rows (4K
+over 4 ranks at ``prime_ds`` 8), before any rank starts.
+
+    python -m gpgpuraytrace_tpu_torch.bench --mesh 2 --size 3840x2160   # config 5 at N = 2
 """
 
 from __future__ import annotations
@@ -57,15 +62,16 @@ import time
 
 import torch
 
-from gpgpuraytrace_tpu_torch.kernels.trace import (
-    render_kernel_raw, tile_steps, trace_frame, trace_frame_bwd, warp_steps,
-)
+from gpgpuraytrace_tpu_torch.kernels.trace import render_kernel_raw, tile_steps, warp_steps
 from gpgpuraytrace_tpu_torch.models.scene import RenderConfig, check_device, default_scene
 from gpgpuraytrace_tpu_torch.ops.fit import partition_scene
+from gpgpuraytrace_tpu_torch.ops.march import check_prime_band
 from gpgpuraytrace_tpu_torch.ops.render import render
+from gpgpuraytrace_tpu_torch.parallel.mesh import band
+from gpgpuraytrace_tpu_torch.parallel.sharded import step_launches
 from gpgpuraytrace_tpu_torch.utils.profiling import march_stats
 from gpgpuraytrace_tpu_torch.utils.timing import (
-    SALT_BUILD, SALT_CHECK, FwdBwdSteps, grad_sum, lower_middle, measure, sync,
+    SALT_CHECK, FwdBwdSteps, grad_sum, lower_middle, measure, measure_kernel,
 )
 
 MAX_STEPS = 128
@@ -73,7 +79,6 @@ MAX_STEPS = 128
 # harness, and of the plain path's one measurement (a plain step takes
 # seconds at 512x512).
 BENCH_K, MESH_K, PLAIN_K = 40, 8, 4
-MEASUREMENTS = 3  # the headline's measurements, its lower middle (bench.py _BEST_OF)
 # The parity gate: its frame and octaves as bench.py runs it (bench.py:339,
 # scripts/tpu_parity.py:112-113), and its contract (:88-102).
 PARITY_SIZE, PARITY_OCTAVES, PARITY_MAX_STEPS = 128, 6, 96
@@ -105,81 +110,6 @@ def bench_steps(scene, cfg: RenderConfig) -> FwdBwdSteps:
         return loss, torch.autograd.grad(loss, params, materialize_grads=True)
 
     return FwdBwdSteps(params, loss_and_grads, names)
-
-
-def _counts() -> dict:
-    return {"forward": dict(trace_frame.launches), "backward": dict(trace_frame_bwd.launches)}
-
-
-def _per_step(before: dict, after: dict, n: int) -> dict:
-    return {part: {k: (v - before[part].get(k, 0)) / n for k, v in after[part].items()
-                   if v != before[part].get(k, 0)} for part in after}
-
-
-def graph_check(steps: FwdBwdSteps, graphs: dict) -> dict:
-    """What the timed graphs compute: each graph of n steps replayed at
-    ``SALT_CHECK`` against ``steps.run(n)`` at the same salt, eager, their
-    accumulators (as hex) bit for bit."""
-    out = {"salt": SALT_CHECK}
-    for n, graph in graphs.items():
-        accs = []
-        for call in (graph.replay, lambda: steps.run(n)):
-            steps.salt.fill_(SALT_CHECK)
-            call()
-            accs.append(steps.acc.item().hex())
-        out[str(n)] = {"graph": accs[0], "eager": accs[1]}
-    out["ok"] = all(out[str(n)]["graph"] == out[str(n)]["eager"] for n in graphs)
-    return out
-
-
-def measure_kernel(steps: FwdBwdSteps, k: int, rays: int) -> dict:
-    """The kernel path's measurements on ``steps``. On the card: the first
-    step, a K-step warm-up on a side stream, CUDA graphs of 1 and K steps
-    (one memory pool) and the kernels' launches per step counted at the
-    K-step capture, then ``MEASUREMENTS`` measurements of the graphs and as
-    many of the eager loop, in turns, and ``graph_check`` of both graphs. On
-    the CPU: the eager loop's measurements only (and no launch: the
-    wrappers run the kernels' plain versions there)."""
-    device = steps.device
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
-    before = _counts()
-    build_s = steps.timed(lambda: steps.run(1), SALT_BUILD)
-    launches = _per_step(before, _counts(), 1)
-
-    def eager(n: int, salt: float) -> float:
-        return steps.timed(lambda: steps.run(n), salt)
-
-    out = {"build_s": build_s}
-    if device.type != "cuda":
-        runs = [measure(eager, k, rays) for _ in range(MEASUREMENTS)]
-        out.update(timing="eager", measurements=runs, eager=runs, launches_per_step=launches,
-                   peak_memory_bytes=None, graph_check=None)
-        return out
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        steps.run(k)  # warm-up before the capture (PyTorch's CUDA graph rule)
-    torch.cuda.current_stream(device).wait_stream(side)
-    sync(device)
-    one = steps.capture(1)
-    before = _counts()
-    graph_k = steps.capture(k, pool=one.pool())
-    launches = _per_step(before, _counts(), k)
-    graphs = {1: one, k: graph_k}
-
-    def replay(n: int, salt: float) -> float:
-        return steps.timed(graphs[n].replay, salt)
-
-    runs, eager_runs = [], []
-    for _ in range(MEASUREMENTS):
-        runs.append(measure(replay, k, rays))
-        eager_runs.append(measure(eager, k, rays))
-    out.update(timing="cuda_graph", measurements=runs, eager=eager_runs,
-               launches_per_step=launches,
-               peak_memory_bytes=torch.cuda.max_memory_allocated(device),
-               graph_check=graph_check(steps, graphs))
-    return out
 
 
 def grad_bound(name: str, ref: torch.Tensor) -> torch.Tensor:
@@ -376,7 +306,7 @@ def run_bench(size=(512, 512), octaves: int = 6, iters: int = BENCH_K,
     seconds["parity"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     kernel_steps = bench_steps(default_scene(octaves, device=device), bench_config(h, w, octaves))
-    kern = measure_kernel(kernel_steps, k, h * w)
+    kern = measure_kernel(kernel_steps, k, h * w, step_launches)
     seconds["kernel"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     plain_steps = bench_steps(default_scene(octaves, device=device),
@@ -438,15 +368,38 @@ def mesh_sweep(n: int) -> list[int]:
     return sweep
 
 
+def check_mesh_bands(cfg: RenderConfig, sweep: list[int]) -> None:
+    """Every rank's band of every world size in ``sweep``: the height splits
+    evenly and, on a primed config, each band is whole coarse rows
+    (``ops/march.py:check_prime_band``). Raises ``ValueError`` before any
+    rank starts."""
+    for m in sweep:
+        for r in range(m):
+            row0, h = band(cfg, r, m)
+            try:
+                check_prime_band(cfg, row0, h)
+            except ValueError as e:
+                raise ValueError(f"a mesh of {m} ranks at {cfg.width}x{cfg.height}: {e}; "
+                                 f"prime_ds {cfg.prime_ds} needs bands of a multiple of "
+                                 f"{cfg.prime_ds} rows") from e
+
+
 def run_bench_mesh(n_devices: int, size=(512, 512), octaves: int = 6, iters: int = MESH_K,
                    device="cuda") -> dict:
-    """The scaling harness (``bench.py:run_bench_mesh``): for each world size
+    """The scaling harness (``bench.py:run_bench_mesh``, its ``_MESH_CODE``
+    timing one jitted ``fori_loop`` of K sharded steps): for each world size
     m of ``mesh_sweep(n_devices)`` a job of m ranks of ``parallel/worker.py
     --time-k`` (``parallel/launch.py:launch_local_processes``), rank r on card
-    r over NCCL, or on gloo with ``device="cpu"``; rps(m) is the slowest
-    rank's fwd+bwd rays/s of the whole frame, and eff(m) = rps(m) / (m ·
-    rps(1)). Fewer cards than ``n_devices`` raise; so does a height that
-    does not split into m bands for every m."""
+    r over NCCL, or on gloo with ``device="cpu"``. rps(m) is the slowest
+    rank's fwd+bwd rays/s of the whole frame, each rank's the lower middle
+    of its measurements of CUDA graphs of 1 and K steps (the all-reduces
+    captured with the kernels; on gloo the eager loop), and eff(m) = rps(m)
+    / (m · rps(1)); the eager loop's rps and eff beside them under their own
+    keys. ``detail.checks`` holds each rank's ``graph_check``, so
+    ``failures`` reports a rank whose graphs differ from its eager loop.
+    Fewer cards than ``n_devices`` raise; so does, before any rank starts, a
+    height that does not split into m bands for every m, or bands that are
+    not whole coarse rows of the config's ``prime_ds`` (``check_mesh_bands``)."""
     from gpgpuraytrace_tpu_torch.parallel.launch import launch_local_processes
 
     dev = check_device(device)
@@ -455,11 +408,9 @@ def run_bench_mesh(n_devices: int, size=(512, 512), octaves: int = 6, iters: int
                            f"{torch.cuda.device_count()}: one rank runs on each card")
     h, w = size
     sweep = mesh_sweep(n_devices)
-    for m in sweep:
-        if h % m:
-            raise ValueError(f"height {h} must split evenly over {m} ranks")
+    check_mesh_bands(bench_config(h, w, octaves), sweep)
     k = max(iters, 4)
-    ranks, rps = {}, {}
+    ranks, rps, rps_eager = {}, {}, {}
     for m in sweep:
         outputs = launch_local_processes(
             WORKER, m, ["--device", dev.type, "--size", f"{w}x{h}", "--octaves", str(octaves),
@@ -472,7 +423,9 @@ def run_bench_mesh(n_devices: int, size=(512, 512), octaves: int = 6, iters: int
                                + "\n".join(o[-2000:] for o in outputs))
         ranks[m] = timed
         rps[m] = min(t["rays_per_sec"] for t in timed)
+        rps_eager[m] = min(t["eager_rays_per_sec"] for t in timed)
     eff = {m: rps[m] / (m * rps[1]) for m in sweep}
+    eff_eager = {m: rps_eager[m] / (m * rps_eager[1]) for m in sweep}
     return {
         "metric": f"scaling_efficiency_mesh{n_devices}_{w}x{h}",
         "value": eff[n_devices],
@@ -482,6 +435,13 @@ def run_bench_mesh(n_devices: int, size=(512, 512), octaves: int = 6, iters: int
                    "efficiency": {str(m): v for m, v in eff.items()},
                    "ms_per_step": {str(m): max(t["ms_per_step"] for t in ranks[m])
                                    for m in sweep},
+                   "timing": {str(m): sorted({t["timing"] for t in ranks[m]}) for m in sweep},
+                   "rays_per_sec_eager": {str(m): v for m, v in rps_eager.items()},
+                   "efficiency_eager": {str(m): v for m, v in eff_eager.items()},
+                   "eager_ms_per_step": {str(m): max(t["eager_ms_per_step"] for t in ranks[m])
+                                         for m in sweep},
+                   "checks": {f"graph_vs_eager_mesh{m}_rank{t['rank']}": t["graph_check"]
+                              for m in sweep for t in ranks[m]},
                    "K": k, "ranks": {str(m): v for m, v in ranks.items()}},
         "backend": dev.type,
         "device": device_info(torch.device("cuda", 0) if dev.type == "cuda" else dev),

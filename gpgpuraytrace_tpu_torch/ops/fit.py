@@ -13,6 +13,7 @@ steps its parameters.
 from __future__ import annotations
 
 import copy
+import functools
 import os
 from typing import Callable
 
@@ -21,6 +22,7 @@ import torch
 from gpgpuraytrace_tpu_torch.models.scene import RenderConfig, Scene
 from gpgpuraytrace_tpu_torch.ops.render import render
 from gpgpuraytrace_tpu_torch.utils.checkpoint import load_fit_state, save_fit_state
+from gpgpuraytrace_tpu_torch.utils.graphs import CapturedProgram
 from gpgpuraytrace_tpu_torch.utils.profiling import warn_if_rough
 
 DEFAULT_TRAINABLE = ("noise.amplitudes", "camera.")
@@ -77,52 +79,49 @@ def fit_step(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
     return loss.detach()
 
 
+def fit_steps(args: tuple, n: int) -> torch.Tensor:
+    """``n`` steps of ``fit_step(*args)``: their (n,) losses."""
+    return torch.stack([fit_step(*args) for _ in range(n)])
+
+
 class StepChunk:
     """``k`` whole training steps (``fit_step``) per call, returning their
     (k,) losses on the device (the counterpart of the JAX package's
     ``lax.scan`` chunk in ``make_fit_step``).
 
-    On a CUDA scene with k > 1 the steps run as one CUDA graph. The first
-    call runs its k steps eagerly on a side stream: PyTorch's warm-up before
-    a capture, and the kernels' build. The second captures k steps into the
-    graph (which runs nothing) and replays it, as does every later call,
-    each returning a device-side clone of the graph's (k,) losses. The graph
-    holds the scene's parameters, Adam's state and ``target`` by address:
-    they are updated in place, never replaced. The kernels' launch counters
-    count the captured launches once, at capture, not per replay. On the
-    CPU, and for k = 1, a call is a plain loop of k steps. ``eager(n)``
-    runs n steps without the graph (a shorter tail chunk)."""
+    On a CUDA scene with k > 1 the steps run as one CUDA graph
+    (``utils/graphs.py:CapturedProgram``). The first call runs its k steps
+    eagerly on a side stream: PyTorch's warm-up before a capture, and the
+    kernels' build. The second captures k steps into the graph (which runs
+    nothing) and replays it, as does every later call, each returning a
+    device-side clone of the graph's (k,) losses. The graph holds the
+    scene's parameters, Adam's state and ``target`` by address: they are
+    updated in place, never replaced. The kernels' launch counters count
+    the captured launches once, at capture, not per replay. On the CPU, and
+    for k = 1, a call is a plain loop of k steps. ``eager(n)`` runs n steps
+    without the graph (a shorter tail chunk)."""
 
     def __init__(self, scene: Scene, cfg: RenderConfig, target: torch.Tensor,
                  opt: torch.optim.Optimizer, k: int):
         self.args = (scene, cfg, target, opt)
         self.k = k
         self.graphed = k > 1 and target.device.type == "cuda"
-        self.calls = 0
-        self.graph: torch.cuda.CUDAGraph | None = None
-        self.losses: torch.Tensor | None = None
+        self.program = (CapturedProgram(functools.partial(fit_steps, self.args, k),
+                                        target.device) if self.graphed else None)
+
+    @property
+    def graph(self) -> torch.cuda.CUDAGraph | None:
+        """The captured graph (None before the capture, and off the card)."""
+        return self.program.graph if self.graphed else None
 
     def eager(self, n: int) -> torch.Tensor:
-        return torch.stack([fit_step(*self.args) for _ in range(n)])
+        return fit_steps(self.args, n)
 
     def __call__(self) -> torch.Tensor:
-        self.calls += 1
         if not self.graphed:
             return self.eager(self.k)
-        if self.calls == 1:
-            side = torch.cuda.Stream(self.args[2].device)
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                losses = self.eager(self.k)
-            torch.cuda.current_stream().wait_stream(side)
-            losses.record_stream(torch.cuda.current_stream())
-            return losses
-        if self.graph is None:
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self.losses = self.eager(self.k)
-        self.graph.replay()
-        return self.losses.clone()
+        losses = self.program()
+        return losses.clone() if self.program.captured else losses
 
 
 def fit(scene: Scene, cfg: RenderConfig, target: torch.Tensor, steps: int = 200,

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import collections
 import copy
+import functools
 import operator
 import time
 from typing import Callable, Iterator
@@ -34,6 +35,7 @@ from gpgpuraytrace_tpu_torch.models.scene import Camera, RenderConfig, Scene
 from gpgpuraytrace_tpu_torch.ops.camera import Cameras
 from gpgpuraytrace_tpu_torch.ops.render import render
 from gpgpuraytrace_tpu_torch.utils.convert import LEAF_NAMES
+from gpgpuraytrace_tpu_torch.utils.graphs import CapturedProgram
 
 
 def _path(position, yaw, t):
@@ -102,6 +104,25 @@ def launch_counts() -> collections.Counter:
     return counts
 
 
+class _Tally:
+    """The kernel launches of one batch (``launch_counts``) and the number
+    of batches counted."""
+
+    def __init__(self):
+        self.launches: collections.Counter = collections.Counter()
+        self.counted = 0
+
+
+def _render_counted(tally: _Tally, cfg: RenderConfig, scene: Scene,
+                    times: torch.Tensor) -> torch.Tensor:
+    """``render_batch_uint8``, its launches counted in ``tally``."""
+    before = launch_counts()
+    out = render_batch_uint8(scene, cfg, times)
+    tally.launches = launch_counts() - before
+    tally.counted += 1
+    return out
+
+
 class FlyBatch:
     """A flythrough batch of ``batch`` frames as one program: ``frames(scene,
     times)`` is ``render_batch_uint8(scene, cfg, times)`` (the counterpart of
@@ -109,10 +130,11 @@ class FlyBatch:
     ``gpgpuraytrace_tpu/ops/flythrough.py:39-55``).
 
     On a CUDA scene with ``cfg.use_kernel`` the batch runs as one CUDA graph
-    (``graphed``). The first call runs eagerly on a side stream: PyTorch's
-    warm-up before a capture, and the kernels' build. The second captures
-    the batch into the graph (which runs nothing) and replays it, as does
-    every later call. Nothing falls back: a capture that fails raises. The
+    (``graphed``, ``utils/graphs.py:CapturedProgram``). The first call runs
+    eagerly on a side stream: PyTorch's warm-up before a capture, and the
+    kernels' build. The second captures the batch into the graph (which
+    runs nothing) and replays it, as does every later call. Nothing falls
+    back: a capture that fails raises. The
     graph reads a private copy of the scene and a (batch,) buffer of times
     by address; before each call the caller's current leaves
     (``utils/convert.py:LEAF_NAMES``) are copied into that copy, so a
@@ -143,17 +165,25 @@ class FlyBatch:
         self.device = scene.camera.position.device
         self.graphed = cfg.use_kernel and self.device.type == "cuda"
         self.calls = 0
-        self.counted = 0
         self.replays = 0
-        self.launches: collections.Counter = collections.Counter()
+        self.tally = _Tally()
         self.clear_times()
-        self.graph: torch.cuda.CUDAGraph | None = None
-        self.out: torch.Tensor | None = None
         self._events = None
         if self.graphed:
             self.scene = copy.deepcopy(scene)
             self.leaves = [operator.attrgetter(n)(self.scene) for n in LEAF_NAMES]
             self.times = torch.zeros(batch, dtype=torch.float32, device=self.device)
+            self.program = CapturedProgram(
+                functools.partial(_render_counted, self.tally, cfg, self.scene, self.times),
+                self.device)
+
+    @property
+    def launches(self) -> collections.Counter:
+        return self.tally.launches
+
+    @property
+    def counted(self) -> int:
+        return self.tally.counted
 
     def _load(self, scene: Scene, times: torch.Tensor) -> None:
         """Copy the caller's leaves and the batch's times into the graph's."""
@@ -168,41 +198,24 @@ class FlyBatch:
                 host = host.pin_memory()
             self.times.copy_(host, non_blocking=True)
 
-    def _render(self, scene: Scene, times: torch.Tensor) -> torch.Tensor:
-        """``render_batch_uint8``, its launches counted."""
-        before = launch_counts()
-        out = render_batch_uint8(scene, self.cfg, times)
-        self.launches = launch_counts() - before
-        self.counted += 1
-        return out
-
     def frames(self, scene: Scene, times: torch.Tensor) -> torch.Tensor:
         """The batch's frames, (len(times), H, W, 3) uint8 on the device."""
         self.calls += 1
         if not self.graphed:
-            return self._render(scene, times)
+            return _render_counted(self.tally, self.cfg, scene, times)
         self._load(scene, times)
+        if self.program.calls == 0:
+            return self.program()  # the eager warm-up
+        self.program.capture()
         stream = torch.cuda.current_stream(self.device)
-        if self.calls == 1:
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(stream)
-            with torch.cuda.stream(side):
-                out = self._render(self.scene, self.times)
-            stream.wait_stream(side)
-            out.record_stream(stream)
-            return out
-        if self.graph is None:
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self.out = self._render(self.scene, self.times)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record(stream)
-        self.graph.replay()
+        out = self.program()
         end.record(stream)
         self._events = (start, end)
         self.replays += 1
-        return self.out
+        return out
 
     def host_frames(self, scene: Scene, times: torch.Tensor, n: int) -> np.ndarray:
         """The first ``n`` frames of ``frames(scene, times)`` on the host,

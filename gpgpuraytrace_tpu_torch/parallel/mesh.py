@@ -12,6 +12,7 @@ runs a group of world size 1.
 
 from __future__ import annotations
 
+import collections
 import os
 
 import torch
@@ -78,6 +79,18 @@ def world() -> tuple[int, int]:
     if not dist.is_initialized():
         return 0, 1
     return dist.get_rank(), dist.get_world_size()
+
+
+def all_reduce(t: torch.Tensor) -> None:
+    """Sum ``t`` over every rank, in place (``dist.all_reduce``), counted in
+    ``all_reduce.launches``. As with the kernels' launch counters, a CUDA
+    graph's capture counts its all-reduces once and a replay counts
+    nothing."""
+    all_reduce.launches["sum"] += 1
+    dist.all_reduce(t)
+
+
+all_reduce.launches = collections.Counter()
 
 
 def band(cfg: RenderConfig, rank: int | None = None,

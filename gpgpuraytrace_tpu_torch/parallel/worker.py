@@ -8,25 +8,36 @@ locally through ``parallel/launch.py``; alone it runs a group of one. On
 whole frame rendered by this rank, takes the band-wise loss and gradient
 toward the frame of the scene with its amplitudes scaled by 1.2, and runs
 ``--fit-steps`` sharded Adam steps (lr 5e-3) from amplitudes scaled by 1.3
-toward the scene's own frame. It prints the loss's hex, which every rank
-must print alike. ``--out DIR`` writes ``DIR/rank{r}.npz``: the gathered
-frame, the band, the loss, the gradient of each trainable parameter and
-the fit's losses.
+toward the scene's own frame (``make_sharded_fit_step``: on the card the
+first step eager, every later one a replay of its CUDA graph), and as many
+eager steps (``ShardedFitStep.eager``) from a copy, which must give the
+same losses and parameters bit for bit. It prints the loss's hex and the
+last fit loss's, which every rank must print alike. ``--out DIR`` writes
+``DIR/rank{r}.npz``: the gathered frame, the band, the loss, the gradient
+of each trainable parameter, the fit's losses and its fitted parameters.
 
-``--time-k K`` (the counterpart of the reference worker's ``WORKER_TIME_K``)
-then times the row-band training step, ``sharded_loss_and_grad`` toward a
-zero target with every float parameter trainable (each step its band's
-forward and backward and, above one rank, one ``all_reduce`` per
-parameter and one for the loss), at the worker's config, by the bench's slope
-(``utils/timing.py``): a warm-up run of K steps, T(K) and T(1) each the
-least of 2 runs. Every rank runs the same constant salts, so the ranks step
-in lockstep. ``--world-size N`` joins a group of N ranks even when N is 1
-(``bench.run_bench_mesh`` times one rank on NCCL so); without it the
-environment decides, and a single process runs alone. Each rank prints one
-``TIMED {json}`` line: rank, world, config, ms per step, the whole frame's
-rays/s, the first step's seconds (the kernels' build or load), the device,
-the group's backend and the last run's accumulator as hex (equal on every
-rank).
+``--time-k K`` (the counterpart of the reference worker's ``WORKER_TIME_K``
+and of ``bench.py``'s ``_MESH_CODE``, which time one jitted ``fori_loop`` of
+K sharded steps) then times the row-band training step,
+``sharded_loss_and_grad`` toward a zero target with every float parameter
+trainable (each step its band's forward and backward and, above one rank,
+one ``all_reduce`` per parameter and one for the loss), at the worker's
+config, through the bench's timing loop (``utils/timing.py:measure_kernel``):
+on the card CUDA graphs of 1 and K steps, the all-reduces captured with the
+kernels, beside the eager loop; on gloo the eager loop alone. Every rank
+runs the same constant salts and captures the same graphs in the same
+order, so the ranks step in lockstep. ``--world-size N`` joins a group of N
+ranks even when N is 1 (``bench.run_bench_mesh`` times one rank on NCCL
+so); without it the environment decides, and a single process runs alone.
+Each rank prints one ``TIMED {json}`` line: rank, world, config, ``timing``
+("cuda_graph" or "eager"), ms per step and the whole frame's rays/s (the
+lower middle of the measurements: the graphs' on the card) with the eager
+loop's beside them, ``graph_check`` (each graph replayed at a fixed salt
+equal to the eager loop bit for bit on this rank; None on gloo), the
+forward, backward and all-reduce launches per captured step (counted at
+capture; on gloo the all-reduces only), peak memory, the first step's
+seconds (the kernels' build or load), the device, the group's backend and
+the last run's accumulator as hex (equal on every rank).
 """
 
 from __future__ import annotations
@@ -46,9 +57,9 @@ from gpgpuraytrace_tpu_torch.ops.render import render
 from gpgpuraytrace_tpu_torch.parallel.launch import distributed_context
 from gpgpuraytrace_tpu_torch.parallel.mesh import band, rank_device, world
 from gpgpuraytrace_tpu_torch.parallel.sharded import (
-    make_sharded_fit_step, shard_target, sharded_loss_and_grad, sharded_render,
+    make_sharded_fit_step, shard_target, sharded_loss_and_grad, sharded_render, step_launches,
 )
-from gpgpuraytrace_tpu_torch.utils.timing import SALT_BUILD, FwdBwdSteps, measure
+from gpgpuraytrace_tpu_torch.utils.timing import FwdBwdSteps, lower_middle, measure_kernel
 
 
 def scaled(scene, factor: float):
@@ -72,36 +83,57 @@ def run(device, cfg: RenderConfig, fit_steps: int) -> dict:
     params = partition_scene(scene)
     names = [n for n, p in scene.named_parameters() if p.requires_grad]
     loss, grads = sharded_loss_and_grad(scene, params, cfg, shard_target(target, cfg))
-    bad = scaled(scene, 1.3)
-    bad_params = partition_scene(bad)
-    step = make_sharded_fit_step(bad, cfg, bad_params, make_optimizer(bad_params, 5e-3))
     fit_target = shard_target(whole, cfg)
+    fits = []
+    for _ in range(2):
+        bad = scaled(scene, 1.3)
+        bad_params = partition_scene(bad)
+        fits.append((bad_params, make_sharded_fit_step(bad, cfg, bad_params,
+                                                        make_optimizer(bad_params, 5e-3))))
+    (bad_params, step), (twin_params, twin) = fits
     fit_losses = [step(fit_target).item() for _ in range(fit_steps)]
+    eager_losses = [twin.eager(fit_target).item() for _ in range(fit_steps)]
+    graph_equals_eager = fit_losses == eager_losses and all(
+        torch.equal(a, b) for a, b in zip(bad_params, twin_params))
+    replays = max(step.program.calls - 1, 0) if step.graphed else 0
+    step.close()  # before the group goes: NCCL waits for graphs holding its collectives
     return {"frame": frame.cpu().numpy(), "band": frame[int(row0):int(row0) + h].cpu().numpy(),
             "bitwise": torch.equal(frame, whole), "loss": loss.item(),
             "grads": {n: g.cpu().numpy() for n, g in zip(names, grads)},
-            "fit_losses": np.asarray(fit_losses)}
+            "fit_losses": np.asarray(fit_losses),
+            "fit_params": {n: p.detach().cpu().numpy() for n, p in zip(names, bad_params)},
+            "fit_replays": replays,
+            "fit_graph_equals_eager": graph_equals_eager}
+
+
+def sharded_steps(scene, cfg: RenderConfig) -> FwdBwdSteps:
+    """Salted steps of ``sharded_loss_and_grad`` toward a zero target, every
+    float parameter trainable (the reference's ``run_fb``,
+    ``scripts/contract_configs.py:342-367``)."""
+    params = partition_scene(scene, trainable=lambda name: True)
+    device = params[0].device
+    target = shard_target(torch.zeros((cfg.height, cfg.width, 3), device=device), cfg)
+    return FwdBwdSteps(params, lambda: sharded_loss_and_grad(scene, params, cfg, target))
 
 
 def timed_step(device, cfg: RenderConfig, k: int) -> dict:
     """The ``TIMED`` record of this rank (see the module's docstring)."""
     import torch.distributed as dist
 
-    scene = default_scene(cfg.num_octaves, device=device)
-    params = partition_scene(scene, trainable=lambda name: True)
-    target = shard_target(torch.zeros((cfg.height, cfg.width, 3), device=device), cfg)
-    steps = FwdBwdSteps(params, lambda: sharded_loss_and_grad(scene, params, cfg, target))
-    build_s = steps.timed(lambda: steps.run(1), SALT_BUILD)
-
-    def timed_run(n: int, salt: float) -> float:
-        return steps.timed(lambda: steps.run(n), salt)
-
-    s = measure(timed_run, k, cfg.height * cfg.width, reps=2)
+    steps = sharded_steps(default_scene(cfg.num_octaves, device=device), cfg)
+    m = measure_kernel(steps, k, cfg.height * cfg.width, step_launches)
+    head, eager = lower_middle(m["measurements"]), lower_middle(m["eager"])
     rank, world_size = world()
     return {"rank": rank, "world": world_size,
             "config": f"{cfg.width}x{cfg.height}x{cfg.num_octaves}oct",
-            "ms_per_step": s["ms_per_step"], "rays_per_sec": s["rays_per_sec"],
-            "build_s": build_s, "device": str(device),
+            "timing": m["timing"], "K": k,
+            "ms_per_step": head["ms_per_step"], "rays_per_sec": head["rays_per_sec"],
+            "eager_ms_per_step": eager["ms_per_step"],
+            "eager_rays_per_sec": eager["rays_per_sec"],
+            "measurements": m["measurements"], "eager_measurements": m["eager"],
+            "graph_check": m["graph_check"], "launches_per_step": m["launches_per_step"],
+            "peak_memory_bytes": m["peak_memory_bytes"],
+            "build_s": m["build_s"], "device": str(device),
             "backend": dist.get_backend() if dist.is_initialized() else None,
             "acchex": steps.acc.item().hex()}
 
@@ -130,13 +162,19 @@ def main(argv=None) -> None:
         if a.out:
             np.savez(os.path.join(a.out, f"rank{rank}.npz"), frame=r["frame"],
                      band=r["band"], loss=r["loss"], fit_losses=r["fit_losses"],
-                     **{f"grad.{n}": g for n, g in r["grads"].items()})
+                     **{f"grad.{n}": g for n, g in r["grads"].items()},
+                     **{f"fit.{n}": v for n, v in r["fit_params"].items()})
         fit = r["fit_losses"]
         print(f"rank {rank}/{world_size}: render {r['frame'].shape} (band {r['band'].shape[0]} "
               f"rows, {'bit for bit' if r['bitwise'] else 'within rtol 1e-5'} the whole "
               f"frame), loss {r['loss']:.6f} losshex={r['loss'].hex()}, fit "
-              + (f"{fit[0]:.4e} -> {fit[-1]:.4e} over {len(fit)} steps" if len(fit) else "none")
+              + (f"{fit[0]:.4e} -> {fit[-1]:.4e} over {len(fit)} steps "
+                 f"({r['fit_replays']} of them CUDA graph replays, "
+                 f"{'bit for bit' if r['fit_graph_equals_eager'] else 'NOT equal to'} "
+                 f"{len(fit)} eager steps) fithex={fit[-1].hex()}" if len(fit) else "none")
               + ", OK", flush=True)
+        if not r["fit_graph_equals_eager"]:
+            raise AssertionError("the sharded fit step's replays differ from its eager steps")
         if a.time_k > 0:
             print("TIMED " + json.dumps(timed_step(device, cfg, max(a.time_k, 2))),
                   flush=True)

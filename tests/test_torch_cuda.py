@@ -835,3 +835,40 @@ def test_cuda_fly_frames_tweak_short_batch_and_kept_frames(cuda, volumetric):
         want = render_frame_uint8(scenes[i // 4], cfg, times[i]).cpu().numpy()
         assert np.array_equal(frame, want), i
     assert not np.array_equal(kept[4][1], render_frame_uint8(scene, cfg, times[4]).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_fit_step_graph_on_two_nccl_ranks(cuda):
+    """2 NCCL ranks of ``parallel/worker.py``, one per card: on each rank the
+    sharded fit step's CUDA graph replays (band forward and backward, the
+    all-reduces, Adam) equal its eager steps of a copy bit for bit, every
+    rank prints one loss hex and one fit loss hex, and the timed mode's
+    graphs of 1 and K steps hold their all-reduces (one per parameter and
+    one for the loss, counted at capture) and equal the eager loop."""
+    import json
+    import re
+
+    from gpgpuraytrace_tpu_torch.parallel import launch
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards: NCCL puts one rank on each card")
+    outputs = launch.launch_local_processes(
+        "gpgpuraytrace_tpu_torch.parallel.worker", 2,
+        ["--device", "cuda", "--size", "128x64", "--octaves", "3", "--max-steps", "64",
+         "--fit-steps", "3", "--time-k", "4"], timeout_s=600)
+    for key in ("losshex", "fithex"):
+        hexes = {re.search(key + r"=(\S+?),", out).group(1) for out in outputs}
+        assert len(hexes) == 1, (key, hexes)
+    assert all("(2 of them CUDA graph replays, bit for bit 3 eager steps)" in out
+               for out in outputs), outputs
+    timed = [json.loads(line[len("TIMED "):]) for out in outputs
+             for line in out.splitlines() if line.startswith("TIMED ")]
+    n_params = len(list(default_scene(3, device="cpu").parameters()))
+    assert [t["rank"] for t in timed] == [0, 1]
+    for t in timed:
+        assert t["timing"] == "cuda_graph" and t["backend"] == "nccl"
+        assert t["graph_check"]["ok"], t["graph_check"]
+        assert t["launches_per_step"] == {"forward": {"chunked": 2.0},
+                                          "backward": {"bwd": 1.0},
+                                          "all_reduce": {"sum": float(n_params + 1)}}
+    assert timed[0]["acchex"] == timed[1]["acchex"]

@@ -14,11 +14,24 @@ rtol 1e-4, atol 1e-7; 10 sharded Adam steps lower the loss. Against JAX's
 tests/test_torch_bwd.py's end-to-end gradient tolerance: amplitudes at rtol
 5e-3, atol 1e-5, every leaf at rtol 2.5e-2 plus 1e-3 of its largest
 component; the loss at rtol 1e-4.
+
+One gloo job of 2 ranks at 128x64 (bands of 32 rows, primed), 32 march
+steps: 3 steps of the port's ``make_sharded_fit_step`` (Adam, lr 5e-3, from
+amplitudes scaled by 1.3 toward the scene's own frame) against 3 steps of
+the JAX package's ``make_sharded_fit_step`` with optax Adam on 2 of
+conftest's virtual devices, at tests/test_torch_checkpoint.py's tolerance
+against JAX's chunked fit (losses at rtol 1e-4, every trainable component
+within 0.1·lr); the same job's ``--time-k`` records on gloo (the eager loop,
+with the keys the card's graphs fill). ``bench.run_bench_mesh`` refuses 4K
+over 4 ranks (bands of 540 rows at ``prime_ds`` 8) before any rank starts.
 """
 
 import dataclasses
+import json
 import os
 import re
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -30,13 +43,14 @@ from gpgpuraytrace_tpu.models.scene import default_scene as jax_default_scene
 from gpgpuraytrace_tpu.ops.fit import partition_scene as jax_partition_scene
 from gpgpuraytrace_tpu.ops.render import render_jax
 from gpgpuraytrace_tpu.parallel.mesh import make_mesh
+from gpgpuraytrace_tpu.parallel.sharded import make_sharded_fit_step as jax_fit_step
 from gpgpuraytrace_tpu.parallel.sharded import shard_target as jax_shard_target
 from gpgpuraytrace_tpu.parallel.sharded import sharded_loss_and_grad as jax_sharded
-from gpgpuraytrace_tpu_torch import RenderConfig, default_scene, render
+from gpgpuraytrace_tpu_torch import RenderConfig, bench, default_scene, render
 from gpgpuraytrace_tpu_torch.ops.fit import make_optimizer, partition_scene, pixel_loss
 from gpgpuraytrace_tpu_torch.parallel import launch, mesh
 from gpgpuraytrace_tpu_torch.parallel.sharded import (
-    make_sharded_fit_step, shard_target, sharded_render,
+    band_loss_and_grad, make_sharded_fit_step, shard_target, sharded_render,
 )
 from gpgpuraytrace_tpu_torch.parallel.worker import scaled
 
@@ -253,3 +267,108 @@ def test_launch_runs_on_the_card_unless_asked(monkeypatch, argv, device):
                         lambda module, n, args: calls.append((module, n, args)) or [])
     launch.main(["--num-processes", "3", *argv, "--", "--size", "64"])
     assert calls == [(WORKER, 3, ["--device", device, "--size", "64"])]
+
+
+# The 2-rank job at 128x64: bands of 32 rows, whole coarse rows at prime_ds 8.
+FIT_RANKS, FIT_STEPS, FIT_LR, FIT_K = 2, 3, 5e-3, 4
+FIT_CFG = JaxConfig(height=64, width=128, max_steps=32, num_octaves=2, use_pallas=False)
+
+
+@pytest.fixture(scope="module")
+def fit_job(tmp_path_factory):
+    """The 2-rank job's results ({rank: npz}) and each rank's TIMED record."""
+    out = tmp_path_factory.mktemp("fit_ranks")
+    outputs = launch.launch_local_processes(
+        WORKER, FIT_RANKS, ["--device", "cpu", "--size", "128x64", "--octaves", "2",
+                            "--max-steps", "32", "--fit-steps", str(FIT_STEPS),
+                            "--time-k", str(FIT_K), "--out", str(out)], timeout_s=600)
+    timed = [json.loads(line[len("TIMED "):]) for o in outputs for line in o.splitlines()
+             if line.startswith("TIMED ")]
+    return {r: np.load(os.path.join(out, f"rank{r}.npz")) for r in range(FIT_RANKS)}, timed
+
+
+def test_sharded_fit_steps_match_jax_fit_step(fit_job):
+    """k steps of the port's make_sharded_fit_step on 2 gloo ranks against k
+    steps of the JAX package's on 2 virtual devices (optax Adam)."""
+    import optax
+
+    assert RenderConfig(height=64, width=128, max_steps=32, num_octaves=2).prime_ds == 8
+    jmesh = make_mesh(jax.devices()[:FIT_RANKS])
+    scene = jax_default_scene(num_octaves=2)
+    target = render_jax(scene, FIT_CFG)
+    bad = dataclasses.replace(scene, noise=dataclasses.replace(
+        scene.noise, amplitudes=scene.noise.amplitudes * 1.3))
+    leaves, merge = jax_partition_scene(bad)
+    tx = optax.adam(FIT_LR)
+    opt_state = tx.init(leaves)
+    step = jax_fit_step(FIT_CFG, jmesh, merge, tx)
+    target_s = jax_shard_target(target, jmesh)
+    losses = []
+    for _ in range(FIT_STEPS):
+        leaves, opt_state, loss = step(leaves, opt_state, target_s)
+        losses.append(float(loss))
+    results, _ = fit_job
+    for r in range(FIT_RANKS):
+        np.testing.assert_allclose(results[r]["fit_losses"], losses, rtol=1e-4)
+        for name, ref in zip(TRAINABLE, leaves):
+            np.testing.assert_allclose(results[r][f"fit.{name}"], np.asarray(ref), rtol=0,
+                                       atol=0.1 * FIT_LR, err_msg=name)
+        np.testing.assert_array_equal(results[r]["fit_losses"], results[0]["fit_losses"])
+
+
+def test_worker_timed_mode_on_gloo_is_the_eager_loop(fit_job):
+    """``--time-k`` on gloo: timing "eager", the eager loop's numbers beside
+    the headline (the same loop here), no graph to check, and one all-reduce
+    per parameter and one for the loss per step."""
+    _, timed = fit_job
+    n_params = len(list(default_scene(num_octaves=2, device="cpu").parameters()))
+    assert [t["rank"] for t in timed] == list(range(FIT_RANKS))
+    for t in timed:
+        assert t["timing"] == "eager" and t["K"] == FIT_K and t["backend"] == "gloo"
+        assert t["eager_ms_per_step"] == t["ms_per_step"] > 0
+        assert t["eager_rays_per_sec"] == t["rays_per_sec"] > 0
+        assert len(t["measurements"]) == 3 and t["eager_measurements"] == t["measurements"]
+        assert t["graph_check"] is None and t["peak_memory_bytes"] is None
+        assert t["launches_per_step"] == {"forward": {}, "backward": {},
+                                          "all_reduce": {"sum": n_params + 1}}
+    assert timed[0]["acchex"] == timed[1]["acchex"]
+
+
+def test_band_script_times_each_band_alone():
+    """``scripts/torch_mesh_bands.py`` on the CPU: one line per band of each
+    world size, the bands tiling the frame, the eager loop with no graph to
+    check, and no launch counted (the plain versions, no collective); the
+    bands' losses sum to the whole frame's."""
+    proc = subprocess.run(
+        [sys.executable, os.path.join("scripts", "torch_mesh_bands.py"), "--device", "cpu",
+         "--size", "64x32", "--octaves", "2", "--ranks", "2", "--k", "4"],
+        cwd=launch.REPO, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    *bands, tail = [json.loads(line) for line in proc.stdout.strip().splitlines()]
+    assert [(b["world"], b["rank"], b["row0"], b["rows"]) for b in bands] == [
+        (2, 0, 0.0, 16), (2, 1, 16.0, 16)]
+    for b in bands:
+        assert b["timing"] == "eager" and b["K"] == 4 and b["graph_check"] is None
+        assert b["ms_per_step"] == b["eager_ms_per_step"] > 0
+        assert b["launches_per_step"] == {"forward": {}, "backward": {}, "all_reduce": {}}
+    assert tail == {"device": {"name": "cpu", "power_limit": None, "count": 1}}
+    cfg = RenderConfig(height=16, width=32, max_steps=8, num_octaves=2)
+    scene = default_scene(2, device="cpu")
+    params = partition_scene(scene)
+    target = torch.zeros((16, 32, 3))
+    whole, whole_grads = band_loss_and_grad(scene, params, cfg, target, 0.0, 16)
+    parts = [band_loss_and_grad(scene, params, cfg, target[r * 8:(r + 1) * 8], r * 8.0, 8)
+             for r in range(2)]
+    torch.testing.assert_close(parts[0][0] + parts[1][0], whole, rtol=1e-5, atol=0)
+    for a, b, w in zip(parts[0][1], parts[1][1], whole_grads):
+        torch.testing.assert_close(a + b, w, rtol=1e-4, atol=1e-6 * w.abs().max().item())
+
+
+def test_mesh_of_4k_over_4_ranks_raises_before_a_rank_starts(monkeypatch):
+    """540-row bands are not whole coarse rows at prime_ds 8: the harness
+    raises naming prime_ds, and launches no rank."""
+    monkeypatch.setattr(launch, "launch_local_processes", lambda *a, **k: pytest.fail("ran"))
+    with pytest.raises(ValueError, match=r"a mesh of 4 ranks at 3840x2160: prime_ds=8 "
+                                         r"must divide the band's local height 540"):
+        bench.run_bench_mesh(4, size=(2160, 3840), device="cpu")
