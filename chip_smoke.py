@@ -2904,9 +2904,7 @@ def fly_graph_fps(scene, cfg) -> str:
     loop before the graph: ``render_batch_uint8`` and a pageable ``.cpu()``
     copy per batch), FLY_ROUNDS rounds in turns; and each arm's device busy
     share: the profiler's device time (kernels and copies) over 5 batches
-    against a batch's median host-clock time, and for the graph also its
-    replays' CUDA-event time over their host-clock time
-    (``FlyBatch.busy``)."""
+    against a batch's median host-clock time."""
     from torch.profiler import ProfilerActivity, profile
 
     from gpgpuraytrace_tpu_torch.ops.flythrough import FlyBatch, fly_frames, render_batch_uint8
@@ -2933,18 +2931,13 @@ def fly_graph_fps(scene, cfg) -> str:
             arms[label, b] = {"graph": graph, "eager": eager}
             eager()
     fps = collections.defaultdict(list)
-    event_busy = collections.defaultdict(list)
     for _ in range(FLY_ROUNDS):
         for key, fns in arms.items():
             for arm, fn in fns.items():
-                program = programs[key]
-                program.clear_times()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 fn()
                 fps[key, arm].append(n / (time.perf_counter() - t0))
-                if arm == "graph":
-                    event_busy[key].append(program.busy())
     busy = {}
     for (label, b), program in programs.items():
         c = sizes[label]
@@ -2974,8 +2967,6 @@ def fly_graph_fps(scene, cfg) -> str:
             share = "the profiler saw no device time" if not us else f"{100 * us / wall_us:.1f}%"
             row.append(f"{arm} " + " / ".join(f"{x:.2f}" for x in fps[(label, b), arm])
                        + f" fps, busy {share} ({us:.1f} of {wall_us:.1f} us)")
-        row.append("graph replays by events busy "
-                   + " / ".join(f"{100 * x:.1f}%" for x in event_busy[label, b]))
         parts.append(f"{label} batch {b}: " + ", ".join(row))
     return (f"fly fps without writing (host clock, {n} frames, {FLY_ROUNDS} rounds in turns; "
             f"busy: profiler over 5 batches against a batch's median host time): "

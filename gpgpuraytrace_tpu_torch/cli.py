@@ -23,7 +23,7 @@ kernels' frame axis), on the card as one CUDA graph replayed per batch
 (``ops/flythrough.py:FlyBatch``), and writes them through the native
 writer's worker threads (``utils/native_io.py``), or the Python encoder when
 it cannot be built; it reports the kernel launches of a batch and the
-device's busy share of the replayed batches. ``bench`` prints the benchmark's JSON line (``bench.py``: fwd+bwd
+graph's replays. ``bench`` prints the benchmark's JSON line (``bench.py``: fwd+bwd
 rays/s, its same-run parity gate, the checks of what was timed, the march
 statistics; ``--mesh N`` the row-band scaling over N cards) and exits 1 when
 the parity gate or a check fails.
@@ -221,8 +221,6 @@ def cmd_fly(args):
     dt = time.perf_counter() - t0  # the writer's queue drained
     if errs:
         raise RuntimeError(f"the native writer failed to write {errs} frames")
-    busy = program.busy()
-    busy = "not measured" if busy is None else f"{100 * busy:.1f}%"
     runs = f"a CUDA graph replayed {program.replays} times" if program.graphed else "eager"
     print(
         f"flythrough: {n} frames {cfg.width}x{cfg.height} in {dt:.2f}s "
@@ -230,8 +228,7 @@ def cmd_fly(args):
         f"batch includes the kernel build, the second the graph's capture; native={writer is not None}, format={ext}"
         + (f" zlib={level}" if ext == "png" else "")
         + f", march_mode={cfg.march_mode}; batches of {args.batch}, "
-        f"{program.launches.total()} kernel launches per batch, {runs}; device busy {busy} "
-        f"of the replayed batches: graph replay by CUDA events over the batch's host clock)"
+        f"{program.launches.total()} kernel launches per batch, {runs})"
     )
 
 

@@ -23,7 +23,6 @@ import collections
 import copy
 import functools
 import operator
-import time
 from typing import Callable, Iterator
 
 import numpy as np
@@ -36,6 +35,7 @@ from gpgpuraytrace_tpu_torch.ops.camera import Cameras
 from gpgpuraytrace_tpu_torch.ops.render import render
 from gpgpuraytrace_tpu_torch.utils.convert import LEAF_NAMES
 from gpgpuraytrace_tpu_torch.utils.graphs import CapturedProgram
+from gpgpuraytrace_tpu_torch.utils.profiling import span
 
 
 def _path(position, yaw, t):
@@ -150,11 +150,10 @@ class FlyBatch:
     read at the eager call and at the capture: the launch counters count a
     capture's launches once, not per replay, so over a run they rise by
     ``launches`` times ``counted`` (the eager calls and the capture).
-    ``replays`` counts replays. Over the ``timed`` replayed batches that went
-    through ``host_frames`` (since ``clear_times``), ``replay_ms`` sums the
-    replays' device time (CUDA events) and ``batch_ms`` the batches'
-    host-clock time from the call to their frames on the host; ``busy`` is
-    their ratio.
+    ``replays`` counts replays. Under a profiler ``host_frames`` is the span
+    ``fly.batch`` (``utils/profiling.py:span``), holding ``fly.load`` (the
+    copies in), the graph's own spans, ``fly.to_host`` (the host tensor and
+    the copy's enqueue) and ``fly.wait`` (the host waiting for the frames).
 
     On the CPU, or with ``use_kernel=False``, a call is the eager
     ``render_batch_uint8`` of the times it is given."""
@@ -167,8 +166,6 @@ class FlyBatch:
         self.calls = 0
         self.replays = 0
         self.tally = _Tally()
-        self.clear_times()
-        self._events = None
         if self.graphed:
             self.scene = copy.deepcopy(scene)
             self.leaves = [operator.attrgetter(n)(self.scene) for n in LEAF_NAMES]
@@ -190,8 +187,8 @@ class FlyBatch:
         if tuple(times.shape) != (self.batch,):
             raise ValueError(f"FlyBatch of {self.batch} frames: got times of shape "
                              f"{tuple(times.shape)}")
-        src = [operator.attrgetter(n)(scene).detach() for n in LEAF_NAMES]
-        with torch.no_grad():
+        with span("gpgpuraytrace_tpu_torch.fly.load"), torch.no_grad():
+            src = [operator.attrgetter(n)(scene).detach() for n in LEAF_NAMES]
             torch._foreach_copy_(self.leaves, src)
             host = times.to(torch.float32)
             if host.device.type == "cpu":
@@ -206,14 +203,7 @@ class FlyBatch:
         self._load(scene, times)
         if self.program.calls == 0:
             return self.program()  # the eager warm-up
-        self.program.capture()
-        stream = torch.cuda.current_stream(self.device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record(stream)
         out = self.program()
-        end.record(stream)
-        self._events = (start, end)
         self.replays += 1
         return out
 
@@ -223,29 +213,19 @@ class FlyBatch:
         card pinned, through torch's caching host allocator, and copied
         without blocking, then waited for): the graph's output buffer is
         overwritten by the next batch, a frame handed out never is."""
-        t0 = time.perf_counter()
-        self._events = None
-        out = self.frames(scene, times)[:n]
-        on_card = out.device.type == "cuda"
-        host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=on_card)
-        host.copy_(out, non_blocking=on_card)
-        if on_card:
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-            done.synchronize()
-        if self._events is not None:
-            self.timed += 1
-            self.replay_ms += self._events[0].elapsed_time(self._events[1])
-            self.batch_ms += 1e3 * (time.perf_counter() - t0)
-        return host.numpy()
-
-    def clear_times(self) -> None:
-        self.timed, self.replay_ms, self.batch_ms = 0, 0.0, 0.0
-
-    def busy(self) -> float | None:
-        """The device's busy share of the replayed batches: their replays'
-        device time over their host-clock time (None before a replay)."""
-        return self.replay_ms / self.batch_ms if self.timed else None
+        with span("gpgpuraytrace_tpu_torch.fly.batch"):
+            out = self.frames(scene, times)[:n]
+            on_card = out.device.type == "cuda"
+            with span("gpgpuraytrace_tpu_torch.fly.to_host"):
+                host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=on_card)
+                host.copy_(out, non_blocking=on_card)
+                if on_card:
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(self.device))
+            with span("gpgpuraytrace_tpu_torch.fly.wait"):
+                if on_card:
+                    done.synchronize()
+            return host.numpy()
 
 
 def fly_frames(scene: Scene, cfg: RenderConfig, num_frames: int, batch: int = 4,

@@ -9,6 +9,8 @@ from typing import Callable
 
 import torch
 
+from gpgpuraytrace_tpu_torch.utils.profiling import span
+
 
 class CapturedProgram:
     """``fn() -> tensor`` on the card as one CUDA graph, by PyTorch's rule
@@ -28,7 +30,12 @@ class CapturedProgram:
     collector runs. ``capture()`` captures without replaying, for a caller
     that times the replay alone. ``close()`` releases the graph; a graph
     that holds NCCL collectives must be released before its process group
-    is destroyed (NCCL's communicator waits for every such graph to go)."""
+    is destroyed (NCCL's communicator waits for every such graph to go).
+
+    Under a profiler the warm-up, the capture and each replay are spans
+    (``utils/profiling.py:span``): ``graph.replay`` holds the replay's
+    ``cudaGraphLaunch`` alone, whose correlation id the graph's device
+    operations carry in the trace."""
 
     def __init__(self, fn: Callable[[], torch.Tensor], device: torch.device):
         self.fn = fn
@@ -54,20 +61,23 @@ class CapturedProgram:
         # "thread_local": another thread may make calls that a capture
         # forbids, as NCCL's watchdog thread does when it queries the events
         # of earlier collectives.
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+        with (span("gpgpuraytrace_tpu_torch.graph.capture"),
+              torch.cuda.graph(self.graph, capture_error_mode="thread_local")):
             self.out = self.fn()
 
     def __call__(self):
         self.calls += 1
         stream = torch.cuda.current_stream(self.device)
         if self.calls == 1:
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(stream)
-            with torch.cuda.stream(side):
-                out = self.fn()
-            stream.wait_stream(side)
-            out.record_stream(stream)
+            with span("gpgpuraytrace_tpu_torch.graph.warmup"):
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(stream)
+                with torch.cuda.stream(side):
+                    out = self.fn()
+                stream.wait_stream(side)
+                out.record_stream(stream)
             return out
         self.capture()
-        self.graph.replay()
+        with span("gpgpuraytrace_tpu_torch.graph.replay"):
+            self.graph.replay()
         return self.out

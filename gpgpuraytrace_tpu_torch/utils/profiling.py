@@ -12,6 +12,12 @@ timer and profiler traces (counterpart of
   a warning where the march is known to skip ridges.
 * ``Timer``: min-of-N time of a call, by CUDA events on the card.
 * ``trace``: a ``torch.profiler`` trace of the block it wraps.
+* ``span``: a named host range of the port's own code in any such trace
+  (whoever runs the profiler: ``trace``, a benchmark). It costs one flag
+  check when no profiler records. Its events share the device operations'
+  clock in the exported trace, so a span ties host work to what the card did
+  meanwhile. Names start with ``gpgpuraytrace_tpu_torch.``; no span sits in
+  code that a CUDA graph captures (it would run once, at the capture).
 """
 
 from __future__ import annotations
@@ -35,6 +41,17 @@ from gpgpuraytrace_tpu_torch.ops.render import prime_map_torch
 # variant at about 4.0 mis-renders 27.5% of pixels (BASELINE.md robustness
 # table, measured on the JAX package).
 ROUGHNESS_WARN_THRESHOLD = 2.5
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A host range named ``name`` (``torch.profiler.record_function``) while
+    a torch profiler records; otherwise one shared context that does
+    nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager

@@ -168,7 +168,7 @@ def config4(frames: int = 48, batch: int = 4, device="cuda") -> dict:
         "ms_per_frame_render_only": ms_per_batch / batch,
         "mrays_per_sec_render_only": s["rays_per_sec"] / 1e6,
         "fps_with_async_png_io": n / io_s, "frames_written": wrote, "write_errors": errs,
-        "launches_per_batch": dict(program.launches), "busy": program.busy(),
+        "launches_per_batch": dict(program.launches),
         "ok": errs == 0 and wrote == frames,
     }
 

@@ -14,8 +14,7 @@ batches of 1, 4 and 8: "per call" is a fresh ``fly_frames`` call each time,
 as a user makes one (on a tree with ``ops/flythrough.py:FlyBatch`` its
 warm-up batch and its graph's capture included); "kept" (only on such a
 tree) hands every call one ``FlyBatch`` warmed up before, so every timed
-batch replays its graph, with the device's busy share of those replays
-(``FlyBatch.busy``). One process per tree runs first to build its kernels.
+batch replays its graph. One process per tree runs first to build its kernels.
 Prints one JSON line per turn and writes them all to ``--out``.
 """
 
@@ -57,9 +56,7 @@ for size in ((512, 512), (1080, 1920)):
         if graph:
             program = flythrough.FlyBatch(scene, cfg, b)
             fps(cfg, b, program=program)
-            program.clear_times()
             row["kept"] = statistics.median(fps(cfg, b, program=program) for _ in range(REPS))
-            row["kept_busy"] = program.busy()
         res[key] = row
 print(json.dumps(res))
 """
