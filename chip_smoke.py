@@ -165,9 +165,18 @@ each prints one line and any failure exits non-zero:
     ``scripts/torch_contract_configs.py``'s config 5 (its JSON line
     printed): the frame's and the fwd+bwd step's ms by the slope of CUDA
     graphs of 1 and 6 salted steps beside the eager loop's, both
-    ``graph_check`` ok, their launches per captured step.
+    ``graph_check`` ok, their launches per captured step;
+32. the scene-packing kernels (``kernels/pack.py``): over 3000 seeded scenes
+    and batches of 1 to 5 cameras, and at each benchmark cell's shape
+    (512x512, a 1080p batch of 4, the 4K frame's four 540-row bands at
+    prime_ds 4), ``pack_kernel``'s fine and coarse rows bit for bit the plain
+    packing's ops (``utils/packing.py:_pack_scenes``) run on the card, and
+    ``pack_vjp_kernel``'s gradients against autograd through those ops; both
+    kernels and the plain ops as CUDA graphs beside their byte bounds; their
+    launches on the fit loop (``fit`` in chunks), the fly batch
+    (``fly_frames``) and phase 31's sharded step.
 
-Phases 15-18, 20-22 and 25-31 each drive their paths through the entry point
+Phases 15-18, 20-22 and 25-32 each drive their paths through the entry point
 a user calls (``render``, ``render_kernel_raw`` for the counter, ``fly_frames``,
 ``fit_step``, ``fit``, ``sharded_render``, ``make_sharded_fit_step``,
 ``bench.run_bench``, ``torch_contract_configs.config5``) with the launch counts set to 0 just before and read
@@ -467,6 +476,17 @@ EXHAUSTIVE_SIDE = 1 << 13
 UHD = (2160, 3840)
 UHD_BANDS, UHD_PLAIN_ROWS, UHD_PLAIN_ROW0S = 2, 16, (1072, 2144)
 SHARDED_FIT_CALLS = 4
+# Phase 32: the scene-packing kernels. PACK_TRIALS scenes and batches of 1 to
+# PACK_MAX_FRAMES cameras drawn from PACK_SEED, the rows of each against the
+# plain ops on the card, the VJP of every PACK_VJP_EVERY-th; the VJP's
+# relative error per leaf against autograd through the plain ops, for one
+# camera and for a batch (measured against its frames' terms before a shared
+# leaf sums them); CUDA graphs of PACK_REPS calls for the times; fly1080's
+# batch of PACK_FLY_FRAMES frames and fit4k.x4's bands at prime_ds
+# PACK_BAND_DS.
+PACK_TRIALS, PACK_MAX_FRAMES, PACK_VJP_EVERY, PACK_SEED = 3000, 5, 7, 2147480011
+PACK_VJP_RTOL = {"one": 1e-6, "batch": 1e-6}
+PACK_REPS, PACK_FLY_FRAMES, PACK_BAND_DS = 100, 4, 4
 # AD vs FD checks of tests/test_grad.py: (leaf, component, eps, rtol, t_cap).
 FD_CHECKS = (
     ("noise.amplitudes", 0, 3e-3, 5e-2, 0.03),
@@ -540,14 +560,17 @@ def bwd_error(got: torch.Tensor, ref: torch.Tensor, rtol: float = BWD_RTOL,
 
 
 def reset_counts() -> None:
-    """Set the forward, backward and tonemap-and-quantize kernels' launch
-    counts to 0."""
+    """Set the forward, backward, tonemap-and-quantize and scene-packing
+    kernels' launch counts to 0."""
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_frames, pack_vjp
     from gpgpuraytrace_tpu_torch.kernels.quantize import tonemap_quantize
     from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
 
     trace_frame.launches.clear()
     trace_frame_bwd.launches.clear()
     tonemap_quantize.launches = 0
+    pack_frames.launches = 0
+    pack_vjp.launches = 0
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -778,7 +801,7 @@ def output_digests(k, dev) -> dict[str, str]:
     arguments of trace_phase1, trace_phase2 and trace_frame_bwd."""
     from gpgpuraytrace_tpu_torch import RenderConfig, default_scene
     from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
-    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
 
     out = {}
     with torch.no_grad():
@@ -893,7 +916,7 @@ def forward_vs_plain(scene, cfg, tag: str) -> tuple[float, str, float, float, di
     exceeds it), the fine pass as a graph too."""
     from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_reference
     from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
-    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
 
     ccfg = coarse_prime_cfg(cfg)
     ch = cfg.height // cfg.prime_ds + 2
@@ -943,7 +966,7 @@ def ragged_vs_plain(scene, cfg, tag: str) -> str:
     for bit (a pixel's arithmetic does not depend on the launch), and the
     two together hold phase 3's gates against the plain version."""
     from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_reference
-    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
 
     kern, ref = [], []
     with torch.no_grad():
@@ -1051,7 +1074,7 @@ def backward_vs_plain(scene, cfg) -> dict:
     from gpgpuraytrace_tpu_torch.kernels.trace import (
         render_kernel_raw, trace_bwd_reference, trace_frame_bwd,
     )
-    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
 
     _, t_fwd, hit_fwd = render_kernel_raw(scene, cfg)
     hit_fwd = hit_fwd.float()
@@ -1160,7 +1183,7 @@ def train_report(r: dict, steps: int) -> str:
 def fine_inputs(scene, cfg):
     """(packed, seed, prime map or None) of the main path's fine pass."""
     from gpgpuraytrace_tpu_torch.kernels.trace import _prime_map
-    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
 
     with torch.no_grad():
         prime = _prime_map(scene, cfg, 0.0, cfg.height)
@@ -1863,7 +1886,7 @@ def bf16_bwd_phase(scene, cfg, tag: str) -> dict:
         render_kernel_raw, trace_bwd_reference, trace_frame_bwd,
     )
     from gpgpuraytrace_tpu_torch.ops import fit as fitmod
-    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
 
     bcfg = dataclasses.replace(cfg, march_bf16=True)
     f32 = dataclasses.replace(cfg, march_bf16=False)
@@ -2265,7 +2288,7 @@ def batch_digests(scene, cfg, tag: str) -> str:
         trace_frame, trace_frames, trace_phase1, trace_phase1s, trace_phase2, trace_phase2s,
     )
     from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
-    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene, pack_scenes
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene, pack_scenes
 
     n_max = max(BATCHES)
     times, cams = fly_batch(scene, n_max)
@@ -2331,7 +2354,7 @@ def batch_vs_plain(scene, cfg, tag: str) -> dict:
         _prime_maps, trace_frames, trace_frames_reference, trace_phase1s,
         trace_phase1s_reference, trace_phase2s, trace_phase2s_reference,
     )
-    from gpgpuraytrace_tpu_torch.utils.packing import pack_scenes
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scenes
 
     b = 2
     _, cams = fly_batch(scene, b)
@@ -2460,7 +2483,7 @@ def batch_hd(scene, cfg, tag: str) -> str:
         render_frames_raw, render_kernel_raw, trace_frame, trace_frames,
     )
     from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
-    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene, pack_scenes
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene, pack_scenes
 
     hd = dataclasses.replace(cfg, height=HD[0], width=HD[1])
     times, cams = fly_batch(scene, 4)
@@ -2519,7 +2542,7 @@ def launcher_host_us(scene, cfg) -> str:
         _check_inputs, _kernel_config, _library, _tile_scratch,
         trace_frame, trace_frames,
     )
-    from gpgpuraytrace_tpu_torch.utils.packing import pack_scenes
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scenes
 
     dev = torch.device("cuda")
     _, cams = fly_batch(scene, 4)
@@ -3049,7 +3072,7 @@ def uhd_band_vs_plain(scene, cfg, whole, row0: int, h: int) -> str:
     with phase 3's gates."""
     from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_reference
     from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
-    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
 
     ds = cfg.prime_ds
     ccfg = coarse_prime_cfg(cfg)
@@ -3089,7 +3112,7 @@ def uhd_kernels(scene, cfg) -> str:
         trace_frame_reference,
     )
     from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
-    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
 
     def once_s(fn):
         torch.cuda.synchronize()
@@ -3157,14 +3180,16 @@ def uhd_kernels(scene, cfg) -> str:
                         for k in ("coarse", "fine", "bwd")))
 
 
-def sharded_graph_phase(scene, cfg, target) -> str:
+def sharded_graph_phase(scene, cfg, target) -> tuple[str, dict]:
     """On a process group of one (NCCL), from phase 27's perturbed start
     toward ``target``: ``make_sharded_fit_step`` called
     SHARDED_FIT_CALLS times (the eager warm-up, then replays of one captured
     step) against as many eager steps of a copy (``ShardedFitStep.eager``),
     losses and parameters bit for bit, the launches counted at the capture
     and none at a replay; and a ``dist.all_reduce`` (``mesh.all_reduce``)
-    captured in a CUDA graph behind an add and replayed."""
+    captured in a CUDA graph behind an add and replayed. Returns (report,
+    the pack and VJP kernels' launches counted at the capture)."""
+    from gpgpuraytrace_tpu_torch.kernels import pack as kpack
     from gpgpuraytrace_tpu_torch.ops import fit as fitmod
     from gpgpuraytrace_tpu_torch.parallel import mesh
     from gpgpuraytrace_tpu_torch.parallel.launch import free_port
@@ -3189,12 +3214,15 @@ def sharded_graph_phase(scene, cfg, target) -> str:
         torch.cuda.synchronize()
         captured = {k: v for k, v in launch_counts().items() if v}
         captured_ar = mesh.all_reduce.launches.total()
+        pack = {"pack": kpack.pack_frames.launches, "pack_vjp": kpack.pack_vjp.launches}
         if not graphed.program.captured or captured != {"chunked": 2, "bwd": 1}:
             fail(f"the sharded fit step captured {captured} (graph: "
                  f"{graphed.program.captured}), expected 2 forward and 1 backward launches")
         losses += [graphed(local).item() for _ in range(SHARDED_FIT_CALLS - 2)]
         torch.cuda.synchronize()
-        if {k: v for k, v in launch_counts().items() if v} != captured:
+        if ({k: v for k, v in launch_counts().items() if v} != captured
+                or pack != {"pack": kpack.pack_frames.launches,
+                            "pack_vjp": kpack.pack_vjp.launches}):
             fail("a replay of the sharded fit step launched through the wrappers")
         eager = [twin.eager(local).item() for _ in range(SHARDED_FIT_CALLS)]
         if losses != eager or not all(torch.equal(a, b) for a, b in zip(*params)):
@@ -3228,14 +3256,15 @@ def sharded_graph_phase(scene, cfg, target) -> str:
             f"eager warm-up, then {SHARDED_FIT_CALLS - 1} replays of one CUDA graph) bit for "
             f"bit {SHARDED_FIT_CALLS} eager steps of a copy (losses {losses[0]:.9e} -> "
             f"{losses[-1]:.9e}, every parameter); counted at the capture {captured} and "
-            f"{captured_ar} all-reduces (a group of one skips them), nothing at a replay; a "
-            f"dist.all_reduce captured behind an add, 2 replays: {x[:3].tolist()}...")
+            f"{captured_ar} all-reduces (a group of one skips them) and {pack}, nothing at a "
+            f"replay; a dist.all_reduce captured behind an add, 2 replays: "
+            f"{x[:3].tolist()}..."), pack
 
 
 def config5_phase(dev, card: str) -> tuple[str, dict]:
     """Phase 31: BASELINE.json config 5 on one card (see the module's
     docstring); returns its line and the config-5 path's forward and
-    backward launches."""
+    backward launches, and the pack kernels' at the sharded step's capture."""
     from gpgpuraytrace_tpu_torch import RenderConfig, default_scene, render
     from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
 
@@ -3257,7 +3286,8 @@ def config5_phase(dev, card: str) -> tuple[str, dict]:
     for row0 in UHD_PLAIN_ROW0S:
         lines.append(uhd_band_vs_plain(scene, cfg, whole, row0, UHD_PLAIN_ROWS))
     lines.append(uhd_kernels(scene, cfg))
-    lines.append(sharded_graph_phase(scene, cfg, whole))
+    sharded_line, pack = sharded_graph_phase(scene, cfg, whole)
+    lines.append(sharded_line)
     reset_counts()
     result = torch_contract_configs.config5(height, width, 6, device=dev)
     torch.cuda.synchronize()
@@ -3287,7 +3317,275 @@ def config5_phase(dev, card: str) -> tuple[str, dict]:
         f"{result['fwd_bwd_peak_memory_bytes'] / 2**20:.1f} MiB")
     lines.append(f"phase 31 took {time.perf_counter() - t0:.1f} s {card}")
     return " | ".join(lines), {"forward": counts["forward"] + serve_launches,
-                                "backward": counts["backward"]}
+                                "backward": counts["backward"], "pack": pack}
+
+
+def pack_shapes() -> list[tuple[str, object, object, tuple[float, ...]]]:
+    """Phase 32's shapes, one a benchmark cell: (name, RenderConfig, the
+    cameras' maker from a scene, the rows' row0s)."""
+    from gpgpuraytrace_tpu_torch import RenderConfig
+
+    return [
+        ("fit512", RenderConfig(num_octaves=6), lambda s: s.camera, (0.0,)),
+        ("fly1080", RenderConfig(height=HD[0], width=HD[1], num_octaves=6),
+         lambda s: fly_batch(s, PACK_FLY_FRAMES)[1], (0.0,)),
+        ("4k.band", RenderConfig(height=UHD[0], width=UHD[1], num_octaves=6,
+                                 prime_ds=PACK_BAND_DS),
+         lambda s: s.camera, tuple(float(r) for r in range(0, UHD[0], UHD[0] // 4))),
+    ]
+
+
+def pack_plain(scene, cams, cfg, row0):
+    """The plain packing's ops (``utils/packing.py:_pack_scenes``) run on the
+    card: (the fine rows, the coarse prime pass's rows), each (B, n)."""
+    from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg
+    from gpgpuraytrace_tpu_torch.utils import packing as pk
+
+    ccfg = coarse_prime_cfg(cfg)
+    return tuple(pk._pack_scenes(scene, cams, h, w, r)[0].reshape(-1, pk.AMPS + cfg.num_octaves)
+                 for h, w, r in ((cfg.height, cfg.width, row0),
+                                 (ccfg.height, ccfg.width, row0 / cfg.prime_ds - 1.0)))
+
+
+def pack_rows_differ(scene, cams, cfg, row0) -> int:
+    """The values in which ``pack_frames``' fine and coarse rows (one launch)
+    differ from the plain ops' on the card."""
+    from gpgpuraytrace_tpu_torch.kernels import trace as ktrace
+
+    with torch.no_grad():
+        got = ktrace._packs(scene, cams, cfg, row0)[:2]
+        want = pack_plain(scene, cams, cfg, row0)
+    return sum(int((a != b).sum()) + int(a.shape != b.shape) for a, b in zip(got, want))
+
+
+def pack_vjp_error(scene, cams, cfg, row0, g) -> tuple[float, float]:
+    """The VJP kernel's gradients against autograd through the plain ops on
+    the card, for the cotangent ``g`` of the fine rows: (the largest over the
+    float leaves of the error's norm over the norm of the sum of each frame's
+    term's magnitude, the largest absolute error). For one frame the first is
+    the plain relative error; a leaf the frames share sums their terms, which
+    may cancel, so its error is measured against what they sum to before
+    they cancel."""
+    from gpgpuraytrace_tpu_torch.kernels import pack as kpack
+    from gpgpuraytrace_tpu_torch.kernels import trace as ktrace
+
+    leaves = kpack._leaves(scene, cams)
+    before = kpack.pack_vjp.launches
+    got = torch.autograd.grad(ktrace._packs(scene, cams, cfg, row0)[0], leaves, g)
+    if kpack.pack_vjp.launches != before + 1:
+        fail(f"pack_vjp: {kpack.pack_vjp.launches - before} launches for one backward")
+    plain = pack_plain(scene, cams, cfg, row0)[0]
+    want = torch.autograd.grad(plain, leaves, g, retain_graph=True)
+    scale = [torch.zeros_like(x) for x in leaves]
+    for b in range(g.shape[0]):
+        gb = torch.zeros_like(g)
+        gb[b] = g[b]
+        for s, d in zip(scale, torch.autograd.grad(plain, leaves, gb, retain_graph=True)):
+            s.add_(d.abs())
+    rel = max(float((a - w).norm()) / max(float(s.norm()), 1e-30)
+              for a, w, s in zip(got, want, scale))
+    return rel, max(float((a - w).abs().max()) for a, w in zip(got, want))
+
+
+def pack_trial(scene, base, shapes, t: int, gen):
+    """Trial ``t``: the card scene's float leaves drawn anew in place (each
+    of ``base``'s values scaled by U(0.5, 1.5), the sun direction N(0, 1)),
+    and cameras of 1 to PACK_MAX_FRAMES frames from ``gen``: position and
+    yaw a value per frame (one shared in every other one-frame trial), pitch
+    and fov_y per frame or shared in turn. Returns (cameras, RenderConfig,
+    row0) of one of ``shapes``."""
+    from gpgpuraytrace_tpu_torch.kernels import pack as kpack
+    from gpgpuraytrace_tpu_torch.ops.camera import Cameras
+
+    with torch.no_grad():
+        for name, x, x0 in zip(kpack.FLOAT_LEAVES, kpack._leaves(scene, scene.camera), base):
+            new = (torch.randn(3, generator=gen) if name == "materials.sun_dir"
+                   else x0 * (0.5 + torch.rand(x0.shape, generator=gen)))
+            x.copy_(new)
+    b = 1 + t % PACK_MAX_FRAMES
+    framed = b > 1 or t % 4 == 1
+    lead = (b,) if framed else ()
+    u = torch.rand(4, b, generator=gen)
+    pos = 20.0 * torch.randn(*lead, 3, generator=gen)
+    yaw = (12.4 * u[0] - 6.2).reshape(lead)
+    pitch = 2.4 * u[1] - 1.2
+    fov = 0.2 + 1.4 * u[2]
+    pitch = pitch.reshape(lead) if framed and t % 2 else pitch[0]
+    fov = fov.reshape(lead) if framed and (t // 2) % 2 else fov[0]
+    dev = scene.noise.amplitudes.device
+    cams = Cameras(*(x.contiguous().to(dev) for x in (pos, yaw, pitch, fov)))
+    _, cfg, _, row0s = shapes[t % len(shapes)]
+    return cams, cfg, row0s[(t // len(shapes)) % len(row0s)]
+
+
+def pack_phase(dev, card: str, sharded: dict) -> tuple[str, list[dict]]:
+    """Phase 32: the scene-packing kernels (``kernels/pack.py``) against the
+    plain packing's ops run on the card, at each cell's shape and over
+    PACK_TRIALS seeded scenes and batches, their times beside the plain
+    ops', and their launches on the main paths that run them; ``sharded``
+    holds the launches phase 31's sharded fit step counted at its capture.
+    Returns (report, the kernels' record entries)."""
+    from gpgpuraytrace_tpu_torch import default_scene, render
+    from gpgpuraytrace_tpu_torch.kernels import pack as kpack
+    from gpgpuraytrace_tpu_torch.kernels import trace as ktrace
+    from gpgpuraytrace_tpu_torch.ops import fit as fitmod
+    from gpgpuraytrace_tpu_torch.ops.camera import Cameras
+    from gpgpuraytrace_tpu_torch.ops.flythrough import FlyBatch, fly_frames
+    from gpgpuraytrace_tpu_torch.utils import packing as pk
+
+    t0 = time.perf_counter()
+    shapes = pack_shapes()
+
+    # The seeded trials: the rows bit for bit, every PACK_VJP_EVERY-th VJP.
+    scene = default_scene(6, device=dev)
+    for p in scene.parameters():
+        p.requires_grad_(True)
+    base = [x.detach().cpu() for x in kpack._leaves(scene, scene.camera)]
+    gen = torch.Generator().manual_seed(PACK_SEED)
+    differ, worst = 0, {"one": 0.0, "batch": 0.0}
+    worst_abs, vjp_trials = 0.0, 0
+    for t in range(PACK_TRIALS):
+        cams, cfg, row0 = pack_trial(scene, base, shapes, t, gen)
+        n = pack_rows_differ(scene, cams, cfg, row0)
+        if n:
+            fail(f"pack_kernel, trial {t} ({cfg.height}x{cfg.width} at row {row0}, cameras "
+                 f"{tuple(cams.yaw.shape)}): {n} values differ from the plain ops on the card")
+        differ += n
+        if t % PACK_VJP_EVERY == 0:
+            cams = Cameras(*(x.requires_grad_(True) for x in
+                             (cams.position, cams.yaw, cams.pitch, cams.fov_y)))
+            frames = cams.yaw.shape[0] if cams.yaw.dim() else 1
+            g = torch.randn(frames, pk.AMPS + cfg.num_octaves, generator=gen).to(dev)
+            rel, err = pack_vjp_error(scene, cams, cfg, row0, g)
+            kind = "one" if frames == 1 else "batch"
+            worst[kind] = max(worst[kind], rel)
+            worst_abs = max(worst_abs, err)
+            vjp_trials += 1
+    if any(worst[k] > PACK_VJP_RTOL[k] for k in worst):
+        fail(f"pack_vjp_kernel against autograd through the plain ops over {vjp_trials} "
+             f"trials: relative errors {worst}, limits {PACK_VJP_RTOL}")
+
+    # Each cell's shape: rows bit for bit, the VJP, the times as CUDA graphs.
+    by_shape = []
+    for name, cfg, cameras, row0s in shapes:
+        scene = default_scene(6, device=dev)
+        for p in scene.parameters():
+            p.requires_grad_(True)
+        cams = cameras(scene)
+        cams = Cameras(*(x.detach().clone().requires_grad_(True) for x in
+                         (cams.position, cams.yaw, cams.pitch, cams.fov_y)))
+        leaves = kpack._leaves(scene, cams)
+        frames, octaves, strides = kpack._layout(leaves, scene.noise.seed)
+        n_row = pk.AMPS + octaves
+        g = torch.randn(frames, n_row, generator=torch.Generator().manual_seed(PACK_SEED)).to(dev)
+        errs = [pack_vjp_error(scene, cams, cfg, r, g) for r in row0s]
+        n_diff = sum(pack_rows_differ(scene, cams, cfg, r) for r in row0s)
+        rel, err = max(e[0] for e in errs), max(e[1] for e in errs)
+        if n_diff or rel > PACK_VJP_RTOL["one" if frames == 1 else "batch"]:
+            fail(f"{name}: the pack kernel's rows differ from the plain ops on the card in "
+                 f"{n_diff} values, its VJP's relative error {rel:.3e}")
+        row0 = row0s[len(row0s) // 2]
+        pcfg = kpack.PackConfig(frames=frames, num_octaves=octaves)
+        needs = [True] * len(leaves)
+
+        def no_grad(fn):
+            def run():
+                with torch.no_grad():
+                    return fn()
+            return run
+
+        times = {
+            "pack_ms": graph_ms(no_grad(lambda: ktrace._packs(scene, cams, cfg, row0)), PACK_REPS),
+            "vjp_ms": graph_ms(lambda: kpack.pack_vjp(leaves, strides, pcfg, g, needs),
+                               PACK_REPS),
+            "pack_and_vjp_ms": graph_ms(lambda: torch.autograd.grad(
+                ktrace._packs(scene, cams, cfg, row0)[0], leaves, g), PACK_REPS),
+            "plain_ms": graph_ms(no_grad(lambda: pack_plain(scene, cams, cfg, row0)), PACK_REPS),
+            "plain_fine_ms": graph_ms(no_grad(lambda: pack_plain(scene, cams, cfg, row0)[0]),
+                                      PACK_REPS),
+            "plain_fine_and_pullback_ms": graph_ms(lambda: torch.autograd.grad(
+                pack_plain(scene, cams, cfg, row0)[0], leaves, g), PACK_REPS),
+        }
+        # Least time: the bytes each kernel must move, the leaves read once.
+        leaf_bytes = 4 * sum(x.numel() for x in leaves)
+        row_bytes = 4 * frames * n_row
+        by_shape.append({"shape": name, "size": f"{cfg.width}x{cfg.height}", "frames": frames,
+                         "row0s": list(row0s), "differ": n_diff, "vjp_rel_err": rel,
+                         "vjp_max_abs_err": err,
+                         "pack_bound_ms": 1e3 * (leaf_bytes + 2 * row_bytes) / HBM_BYTES_PER_S,
+                         "vjp_bound_ms": 1e3 * (2 * leaf_bytes + row_bytes) / HBM_BYTES_PER_S,
+                         **times})
+
+    # The launches on the main paths, each counter set to 0 just before.
+    def counts():
+        return kpack.pack_frames.launches, kpack.pack_vjp.launches
+
+    paths = {"sharded": sharded}
+    _, cfg, _, _ = shapes[0]
+    target_scene = default_scene(6, device=dev)
+    with torch.no_grad():
+        target = render(target_scene, cfg)
+    start = fitmod.perturb_scene(target_scene, torch.Generator().manual_seed(0), rel=0.15)
+    reset_counts()
+    fitmod.fit(start, cfg, target, steps=3 * FIT_K, learning_rate=5e-3, log_every=0,
+               steps_per_call=FIT_K)
+    torch.cuda.synchronize()
+    paths["training"] = dict(zip(("pack", "pack_vjp"), counts()))
+    # The eager chunk and the capture count a step each; the replays none.
+    if counts() != (2 * FIT_K, 2 * FIT_K):
+        fail(f"fit of {3 * FIT_K} steps in chunks of {FIT_K}: pack and VJP launches "
+             f"{counts()}, expected {2 * FIT_K} each")
+    _, cfg, _, _ = shapes[1]
+    scene = default_scene(6, device=dev)
+    program = FlyBatch(scene, cfg, PACK_FLY_FRAMES)
+    reset_counts()
+    for _ in fly_frames(scene, cfg, 3 * PACK_FLY_FRAMES, batch=PACK_FLY_FRAMES,
+                        program=program):
+        pass
+    torch.cuda.synchronize()
+    paths["flythrough"] = dict(zip(("pack", "pack_vjp"), counts()))
+    if counts() != (program.counted, 0) or program.counted != 2:
+        fail(f"fly_frames of 3 batches: pack and VJP launches {counts()}, expected "
+             f"({program.counted}, 0) and 2 counted batches")
+    if sharded != {"pack": 1, "pack_vjp": 1}:
+        fail(f"the sharded fit step's capture counted {sharded}, expected one of each")
+
+    head = by_shape[0]
+    entries = []
+    for kernel, key, bound, plain, replaces in (
+            ("pack", "pack_ms", "pack_bound_ms", "plain_ms", "(the XLA fusion)"),
+            ("pack_vjp", "vjp_ms", "vjp_bound_ms", None, "(JAX's autodiff of it)")):
+        launches = {p: c[kernel] for p, c in paths.items()}
+        plain_ms = (head["plain_ms"] if plain else
+                    head["plain_fine_and_pullback_ms"] - head["plain_fine_ms"])
+        entries.append({
+            "name": kernel, "route": "cuda",
+            "source": "gpgpuraytrace_tpu_torch/kernels/csrc/pack.cu",
+            "replaces": f"gpgpuraytrace_tpu/utils/packing.py:47 {replaces}",
+            "variants": [s[0] for s in shapes], "frames": head["frames"], "size": head["size"],
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": 0.0 if kernel == "pack" else max(worst_abs, *(
+                s["vjp_max_abs_err"] for s in by_shape)),
+            "ms": head[key], "plain_ms": plain_ms, "bound_ms": head[bound], "bound_by": "bytes",
+            "library_ms": None, "trials": PACK_TRIALS if kernel == "pack" else vjp_trials,
+            "by_shape": [{k: s[k] for k in ("shape", "size", "frames", key, bound)}
+                         for s in by_shape]})
+    shape_lines = "; ".join(
+        f"{s['shape']} ({s['size']}, {s['frames']} frame(s), rows {s['row0s']}): "
+        f"{s['differ']} values differ, VJP rel {s['vjp_rel_err']:.3e}; pack {s['pack_ms']:.5f} ms (plain "
+        f"{s['plain_ms']:.5f}), VJP {s['vjp_ms']:.5f} (plain pullback "
+        f"{s['plain_fine_and_pullback_ms'] - s['plain_fine_ms']:.5f}), pack + VJP through "
+        f"autograd {s['pack_and_vjp_ms']:.5f} (plain {s['plain_fine_and_pullback_ms']:.5f}); "
+        f"bounds {s['pack_bound_ms']:.2e} / {s['vjp_bound_ms']:.2e} ms (bytes)"
+        for s in by_shape)
+    line = (f"{PACK_TRIALS} seeded scenes and batches of 1 to {PACK_MAX_FRAMES} cameras: fine "
+            f"and coarse rows bit for bit the plain ops on the card ({differ} values differ); "
+            f"VJP against autograd through them over {vjp_trials} of the trials: relative "
+            f"error one camera {worst['one']:.3e}, a batch {worst['batch']:.3e} (limits "
+            f"{PACK_VJP_RTOL}), max abs {worst_abs:.3e} | {shape_lines} | CUDA graphs of "
+            f"{PACK_REPS} calls | launches on the main paths {paths} | phase 32 took "
+            f"{time.perf_counter() - t0:.1f} s {card}")
+    return line, entries
 
 
 def main() -> None:
@@ -3657,6 +3955,10 @@ def main() -> None:
     config5_line, config5_counts = config5_phase(dev, card)
     phase(31, "config 5", config5_line)
 
+    # --- 32. the scene-packing kernels -------------------------------------------
+    pack_line, pack_entries = pack_phase(dev, card, config5_counts["pack"])
+    phase(32, "scene packing", pack_line)
+
     # Bounds of phases 3, 8, 11 and 13 from phase 15's useful steps and hits.
     n_pix = cfg.height * cfg.width
     fwd_b = {tag: fwd_bound(c, results["counter", tag]["lanes"].sum().item(),
@@ -3779,6 +4081,7 @@ def main() -> None:
                     source="gpgpuraytrace_tpu_torch/kernels/csrc/trace_compact.cu",
                     kernel="trace_compact"),
         quant_entry,
+        *pack_entries,
     ]}
     print(json.dumps(record))
     print(smi)

@@ -10,10 +10,11 @@ Layout:
   ops/       plain PyTorch path: noise, camera, field, march, shade, render;
              the fit loop, the flythrough and the finite-difference
              gradient check
-  kernels/   the CUDA trace kernels (forward, compaction's two phases,
-             backward), their build, wrappers and plain versions
-  utils/     scalar packing, scene <-> numpy conversion, image writers,
-             march statistics and timers, live tweaks
+  kernels/   the CUDA kernels (the scene's packing and its pullback, the
+             trace's forward, compaction's two phases and backward, tonemap
+             and quantize), their build, wrappers and plain versions
+  utils/     scalar packing's plain version, scene <-> numpy conversion,
+             image writers, march statistics and timers, live tweaks
 """
 
 from gpgpuraytrace_tpu_torch.models.scene import (  # noqa: F401

@@ -66,19 +66,23 @@ channel pulls back through the bf16 field, as JAX's does. The pieces:
   same packed scalar vector; ``trace_frames_reference``,
   ``trace_phase1s_reference`` and ``trace_phase2s_reference`` run them frame
   by frame over a batch.
-* ``render_kernel_raw`` renders a frame through ``trace_frame`` (coarse
-  depth-prime pass, prime map, full pass; or compaction's two phases) and
-  returns its (t, hit) too, and the per-lane step counts with
+* ``render_kernel_raw`` renders a frame through ``trace_frame`` (the
+  scene packed once by ``kernels/pack.py:pack_frames``, whose one launch
+  writes the coarse pass's rows and the full pass's; coarse depth-prime
+  pass, prime map, full pass; or compaction's two phases) and returns its
+  (t, hit) too, and the per-lane step counts with
   ``debug_steps``; it builds no autograd graph. ``tile_steps`` and
   ``warp_steps`` reduce those counts to what a (tile_h, 128) TPU tile and a
   warp of the CUDA kernel execute; ``warp_tile_pixels`` is the kernel's
   map from a warp's tile to its pixels.
 * ``render_frames_raw`` renders a batch of frames of one scene, one per
-  camera, through ``trace_frames``: both passes of the batch (or
-  compaction's two phases) one launch each.
+  camera, through ``trace_frames``: the packing of every frame, then both
+  passes of the batch (or compaction's two phases), one launch each.
 * ``render_kernel`` is the differentiable render of the kernel path: its
-  backward is ``trace_frame_bwd`` (``cfg.kernel_bwd``) or autograd through
-  the plain re-shade at the saved (t, hit).
+  backward is ``trace_frame_bwd`` (``cfg.kernel_bwd``), whose packed-vector
+  cotangent ``kernels/pack.py``'s VJP kernel pulls back onto the scene's
+  leaves in one launch, or autograd through the plain re-shade at the saved
+  (t, hit).
 """
 
 from __future__ import annotations
@@ -91,6 +95,8 @@ import operator
 
 import torch
 
+from gpgpuraytrace_tpu_torch.kernels import pack as kpack
+from gpgpuraytrace_tpu_torch.kernels.pack import MAX_FRAMES
 from gpgpuraytrace_tpu_torch.models.scene import (
     MARCH_CHUNK_DEFAULT, RenderConfig, Scene,
 )
@@ -114,9 +120,6 @@ WARP = 32  # threads of a warp
 # The pixels a warp of the forward kernel traces: a (rows, cols) tile
 # (csrc/trace_fwd.cu:kTileRows, kTileCols; ``warp_tile_pixels`` maps them).
 WARP_TILE = (4, 8)
-# The most frames one batched launch takes: the CUDA grid's y
-# (csrc/trace_march.cuh:kMaxFrames).
-MAX_FRAMES = 65535
 
 
 class TraceConfig(ctypes.Structure):
@@ -256,7 +259,7 @@ def trace_frame(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
     """Trace ``local_height`` rows of the frame ``cfg`` describes.
 
     ``packed`` (1, AMPS + octaves) float32 and ``seed`` (1, 1) int32 come from
-    ``utils.packing.pack_scene`` (its ``row0`` places the band);
+    ``kernels/pack.py:pack_scene`` (its ``row0`` places the band);
     ``t0_prime`` is the (local_height, width) march-start map when
     ``cfg.prime_ds`` is set. Returns (color (3, h, w), t (h, w),
     hit (h, w) float 0/1), and with ``debug_steps`` a fourth result: the
@@ -287,7 +290,7 @@ def trace_frames(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
                  local_height: int, t0_prime: torch.Tensor | None = None,
                  debug_steps: bool = False):
     """``trace_frame`` over a batch of B frames of one scene, one launch for
-    them all: ``packed`` (B, AMPS + octaves) from ``utils.packing.pack_scenes``
+    them all: ``packed`` (B, AMPS + octaves) from ``kernels/pack.py:pack_scenes``
     (a row per frame; ``seed`` (1, 1) theirs), ``t0_prime`` (B,
     local_height, width); results with a leading B, (color (B, 3, h, w), t,
     hit (B, h, w)[, steps]), frame b bit for bit ``trace_frame`` of row b.
@@ -1104,20 +1107,37 @@ def trace_bwd_reference(packed: torch.Tensor, seed: torch.Tensor,
     return th_bar + th_bar2
 
 
-def _prime_map(scene: Scene, cfg: RenderConfig, row0, local_height: int):
-    """The kernel path's depth-prime map (None when ``cfg`` does not prime):
-    the coarse pass at 1/ds resolution with one halo row above and below the
-    band (row row0/ds - 1, height h/ds + 2), traced by ``trace_frame`` and
-    turned into the prime map."""
-    if not cfg.prime_ds:
+def _packs(scene: Scene, cameras, cfg: RenderConfig, row0=0.0):
+    """``kernels/pack.py:pack_frames`` for ``cfg``: (the rows of the frame
+    or band at ``row0``, the rows of its coarse prime pass or None when
+    ``cfg`` does not prime, seed), one launch for both on the card."""
+    coarse = None
+    if cfg.prime_ds:
+        ccfg = coarse_prime_cfg(cfg)
+        coarse = (ccfg.height, ccfg.width, row0 / cfg.prime_ds - 1.0)
+    return kpack.pack_frames(scene, cameras, cfg.height, cfg.width, row0, coarse)
+
+
+@torch.no_grad()
+def _prime(coarse, seed, cfg: RenderConfig, row0, local_height: int):
+    """The kernel path's depth-prime map (None when ``cfg`` does not prime,
+    so ``coarse`` is None): the coarse pass at 1/ds resolution with one halo
+    row above and below the band (row row0/ds - 1, height h/ds + 2, its rows
+    ``coarse`` from ``_packs``), traced by ``trace_frame`` and turned into
+    the prime map."""
+    if coarse is None:
         return None
     check_prime_band(cfg, row0, local_height)
-    ds = cfg.prime_ds
-    with torch.no_grad():
-        _, t_c, _ = render_kernel_raw(
-            scene, coarse_prime_cfg(cfg), row0 / ds - 1.0, local_height // ds + 2
-        )
-        return prime_from_coarse(t_c, cfg)
+    _, t_c, _ = trace_frame(coarse, seed, coarse_prime_cfg(cfg),
+                            local_height // cfg.prime_ds + 2)
+    return prime_from_coarse(t_c, cfg)
+
+
+@torch.no_grad()
+def _prime_map(scene: Scene, cfg: RenderConfig, row0, local_height: int):
+    """``_prime`` of the scene packed here."""
+    _, coarse, seed = _packs(scene, scene.camera, cfg, row0)
+    return _prime(coarse, seed, cfg, row0, local_height)
 
 
 @torch.no_grad()
@@ -1127,28 +1147,34 @@ def render_kernel_raw(scene: Scene, cfg: RenderConfig, row0=0.0,
     (color (h, W, 3), t (h, W), hit bool (h, W)), plus the fine pass's
     per-lane step counts (``trace_frame``) with ``debug_steps``.
 
-    With ``cfg.prime_ds`` it first traces the coarse depth-prime pass
-    (``_prime_map``) and then traces the band from it: two launches per
-    frame."""
+    The scene packs once (``_packs``: the coarse and the fine rows); with
+    ``cfg.prime_ds`` it first traces the coarse depth-prime pass
+    (``_prime``) and then traces the band from it: two launches of the
+    trace kernel per frame."""
     h = cfg.height if local_height is None else local_height
-    t0p = _prime_map(scene, cfg, row0, h)
-    packed, seed = pk.pack_scene(scene, cfg.height, cfg.width, row0)
+    packed, coarse, seed = _packs(scene, scene.camera, cfg, row0)
+    t0p = _prime(coarse, seed, cfg, row0, h)
     color, t, hit_f, *steps = trace_frame(packed, seed, cfg, h, t0p, debug_steps)
     return (color.permute(1, 2, 0), t, hit_f > 0.5, *steps)
 
 
 @torch.no_grad()
-def _prime_maps(scene: Scene, cameras: Cameras, cfg: RenderConfig):
-    """``_prime_map`` of whole frames for a batch of cameras: the coarse
-    passes of all frames in one ``trace_frames`` launch, then their (B, h, w)
-    prime maps (None when ``cfg`` does not prime)."""
-    if not cfg.prime_ds:
+def _primes(coarse, seed, cfg: RenderConfig):
+    """``_prime`` of whole frames for a batch: the coarse passes of all
+    frames (their rows ``coarse``) in one ``trace_frames`` launch, then their
+    (B, h, w) prime maps (None when ``cfg`` does not prime)."""
+    if coarse is None:
         return None
     check_prime_band(cfg, 0.0, cfg.height)
-    ccfg = coarse_prime_cfg(cfg)
-    packed, seed = pk.pack_scenes(scene, cameras, ccfg.height, ccfg.width, -1.0)
-    _, t_c, _ = trace_frames(packed, seed, ccfg, cfg.height // cfg.prime_ds + 2)
+    _, t_c, _ = trace_frames(coarse, seed, coarse_prime_cfg(cfg), cfg.height // cfg.prime_ds + 2)
     return prime_from_coarse(t_c, cfg)
+
+
+@torch.no_grad()
+def _prime_maps(scene: Scene, cameras: Cameras, cfg: RenderConfig):
+    """``_primes`` of the batch packed here."""
+    _, coarse, seed = _packs(scene, cameras, cfg)
+    return _primes(coarse, seed, cfg)
 
 
 @torch.no_grad()
@@ -1158,11 +1184,12 @@ def render_frames_raw(scene: Scene, cameras: Cameras, cfg: RenderConfig):
     (B, H, W, 3), t (B, H, W), hit bool (B, H, W)), frame b bit for bit
     ``render_kernel_raw`` of the scene with camera b. The counterpart of the
     body of the JAX package's ``_make_batch_render`` (``jit(vmap(render))``):
-    the coarse prime pass of every frame in one launch, the prime maps, then
-    the fine pass of every frame in one launch (compaction: phase 1 and
-    phase 2 once each). ``cfg.supersample`` k > 1 traces at k× resolution
-    and box-downsamples each frame's colour as ``ops/render.py:render`` does;
-    t and hit stay at the traced resolution. Builds no autograd graph."""
+    every frame's coarse and fine rows in one pack launch, the coarse prime
+    pass of every frame in one launch, the prime maps, then the fine pass of
+    every frame in one launch (compaction: phase 1 and phase 2 once each).
+    ``cfg.supersample`` k > 1 traces at k× resolution and box-downsamples
+    each frame's colour as ``ops/render.py:render`` does; t and hit stay at
+    the traced resolution. Builds no autograd graph."""
     ss = cfg.supersample
     if ss > 1:
         from gpgpuraytrace_tpu_torch.ops.render import box_downsample
@@ -1171,8 +1198,8 @@ def render_frames_raw(scene: Scene, cameras: Cameras, cfg: RenderConfig):
                                      supersample=1)
         color, t, hit = render_frames_raw(scene, cameras, hi_cfg)
         return torch.stack([box_downsample(c, ss) for c in color]), t, hit
-    t0p = _prime_maps(scene, cameras, cfg)
-    packed, seed = pk.pack_scenes(scene, cameras, cfg.height, cfg.width)
+    packed, coarse, seed = _packs(scene, cameras, cfg)
+    t0p = _primes(coarse, seed, cfg)
     color, t, hit_f = trace_frames(packed, seed, cfg, cfg.height, t0p)
     return color.permute(0, 2, 3, 1), t, hit_f > 0.5
 
@@ -1190,7 +1217,8 @@ class _KernelRender(torch.autograd.Function):
     pulls the cotangent back at the saved (t, hit): onto ``packed`` by
     ``trace_frame_bwd`` (cfg.kernel_bwd), else onto ``leaves`` by autograd
     through ``render_from_checkpoint``. Either way autograd carries it on to
-    the scene's parameters (through ``pack_scene``, or directly)."""
+    the scene's parameters (through ``kernels/pack.py``'s VJP, or
+    directly)."""
 
     @staticmethod
     def forward(ctx, scene, cfg, row0, local_height, t0p, seed, packed, *leaves):
@@ -1226,9 +1254,10 @@ def render_kernel(scene: Scene, cfg: RenderConfig, row0=0.0,
                   local_height: int | None = None) -> torch.Tensor:
     """Differentiable render through the trace kernels: (h, W, 3) linear RGB
     (counterpart of ``render_pallas``). The forward is ``render_kernel_raw``'s
-    two launches; the prime map carries no gradient."""
+    two launches after one pack launch; the prime map carries no gradient,
+    the packed rows carry it to the scene's leaves (one VJP launch)."""
     h = cfg.height if local_height is None else local_height
-    t0p = _prime_map(scene, cfg, row0, h)
-    packed, seed = pk.pack_scene(scene, cfg.height, cfg.width, row0)
+    packed, coarse, seed = _packs(scene, scene.camera, cfg, row0)
+    t0p = _prime(coarse, seed, cfg, row0, h)
     leaves = () if cfg.kernel_bwd else _float_leaves(scene)
     return _KernelRender.apply(scene, cfg, row0, h, t0p, seed, packed, *leaves)

@@ -1,17 +1,24 @@
 """Scene -> flat float32 scalar vector read by the trace kernel
 (counterpart of ``gpgpuraytrace_tpu/utils/packing.py``, same offsets).
 
-The camera basis is derived once per frame here; the kernel reads every
-scene scalar from this vector, which stays on the device. ``pack_scenes``
+The trace kernels read every scene scalar from this vector, a row per frame.
+On the card the rows are packed by a kernel (``kernels/pack.py``, from
+``csrc/pack.cu``), which derives each frame's camera basis, ``tan(fov/2)``
+and the normalised sun direction on the device and pulls the rows' cotangent
+back onto the leaves. The functions here are that kernel's plain version and
+run on CPU tensors only: a leaf on another device raises. ``pack_scenes``
 packs one scene for a batch of cameras: a row per frame.
 """
 
 from __future__ import annotations
 
+import operator
+
 import torch
 
 from gpgpuraytrace_tpu_torch.models.scene import Camera, Scene
 from gpgpuraytrace_tpu_torch.ops.camera import Cameras, camera_basis
+from gpgpuraytrace_tpu_torch.utils.convert import LEAF_NAMES
 
 POS = 0  # 3: camera position
 FWD = 3  # 3: camera forward
@@ -56,6 +63,19 @@ def pack_scenes(scene: Scene, cameras: Camera | Cameras, height: int, width: int
     camera (the camera columns are computed for all frames at once, entry by
     entry as for one; the scene's other scalars are packed once); a single
     ``Camera`` gives (AMPS + octaves,)."""
+    leaves = [cameras.position, cameras.yaw, cameras.pitch, cameras.fov_y]
+    leaves += [operator.attrgetter(name)(scene) for name in LEAF_NAMES
+               if not name.startswith("camera.")]
+    if any(x.device.type != "cpu" for x in leaves):
+        raise ValueError("utils/packing.py packs CPU tensors only; a CUDA scene packs with "
+                         "kernels/pack.py's pack_frames, pack_scene or pack_scenes")
+    return _pack_scenes(scene, cameras, height, width, row0)
+
+
+def _pack_scenes(scene: Scene, cameras: Camera | Cameras, height: int, width: int, row0):
+    """``pack_scenes``' arithmetic, op by op on the leaves' device; the port
+    packs CUDA leaves with the kernel, which tests/test_torch_cuda.py holds
+    to this on the card bit for bit."""
     fwd, right, up = camera_basis(cameras)
     tan = torch.tan(0.5 * cameras.fov_y)
     lead = torch.broadcast_shapes(cameras.position.shape[:-1], fwd.shape[:-1], tan.shape)

@@ -67,6 +67,7 @@ sys.path.insert(0, str(REPO))
 
 from chip_smoke import EXPECTED_DIGESTS, digest, ptxas_lines  # noqa: E402
 from gpgpuraytrace_tpu_torch.kernels import build as kbuild  # noqa: E402
+from gpgpuraytrace_tpu_torch.kernels import pack as kpack  # noqa: E402
 from gpgpuraytrace_tpu_torch.kernels import trace as ktrace  # noqa: E402
 from gpgpuraytrace_tpu_torch.models.scene import RenderConfig, default_scene  # noqa: E402
 from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse  # noqa: E402
@@ -81,7 +82,10 @@ import json, time
 import torch
 from gpgpuraytrace_tpu_torch import RenderConfig, default_scene
 from gpgpuraytrace_tpu_torch.kernels.trace import render_kernel_raw, trace_frame_bwd
-from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+try:  # a tree with the pack kernel packs CUDA scenes there
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
+except ImportError:
+    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
 
 res = {}
 for terrain, vol in (("heightfield", False), ("volumetric", True)):
@@ -230,11 +234,11 @@ def inputs(dev) -> dict:
     with torch.no_grad():
         for terrain, vol in TERRAINS.items():
             scene = default_scene(6, volumetric=vol, device=dev)
-            packed, seed = (x.detach() for x in pk.pack_scene(scene, 512, 512, 0.0))
+            packed, seed = (x.detach() for x in kpack.pack_scene(scene, 512, 512, 0.0))
             for bf16 in (False, True):
                 cfg = RenderConfig(num_octaves=6, volumetric=vol, march_bf16=bf16)
                 ccfg = coarse_prime_cfg(cfg)
-                cp, cs = (x.detach() for x in pk.pack_scene(scene, ccfg.height, ccfg.width,
+                cp, cs = (x.detach() for x in kpack.pack_scene(scene, ccfg.height, ccfg.width,
                                                              -1.0))
                 coarse = ktrace.trace_frame(cp, cs, ccfg, cfg.height // cfg.prime_ds + 2)
                 prime = prime_from_coarse(coarse[1], cfg)

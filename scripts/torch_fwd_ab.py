@@ -76,10 +76,10 @@ from chip_smoke import (  # noqa: E402
 )
 from scripts.torch_bwd_ab import Arm as BwdArm  # noqa: E402
 from gpgpuraytrace_tpu_torch.kernels import build as kbuild  # noqa: E402
+from gpgpuraytrace_tpu_torch.kernels import pack as kpack  # noqa: E402
 from gpgpuraytrace_tpu_torch.kernels import trace as ktrace  # noqa: E402
 from gpgpuraytrace_tpu_torch.models.scene import RenderConfig, default_scene  # noqa: E402
 from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse  # noqa: E402
-from gpgpuraytrace_tpu_torch.utils import packing as pk  # noqa: E402
 
 TERRAINS = {"heightfield": False, "volumetric": True}
 REPS = 50
@@ -202,7 +202,7 @@ class Arm:
 
 def coarse_inputs(scene, cfg):
     ccfg = coarse_prime_cfg(cfg)
-    packed, seed = pk.pack_scene(scene, ccfg.height, ccfg.width, -1.0)
+    packed, seed = kpack.pack_scene(scene, ccfg.height, ccfg.width, -1.0)
     return packed.detach(), seed, ccfg, cfg.height // cfg.prime_ds + 2
 
 
@@ -317,7 +317,7 @@ def issue_bound(arm: Arm, census: dict, dev) -> dict:
             cfg = RenderConfig(num_octaves=6, volumetric=vol)
             cp, cs, ccfg, ch = coarse_inputs(scene, cfg)
             prime = prime_from_coarse(arm.fwd(cp, cs, ccfg, ch)[1], cfg)
-            packed, seed = (x.detach() for x in pk.pack_scene(scene, 512, 512, 0.0))
+            packed, seed = (x.detach() for x in kpack.pack_scene(scene, 512, 512, 0.0))
             steps = arm.fwd(packed, seed, cfg, 512, prime, debug=True)[3]
             warp_steps = tile_max(steps, *tile).sum().item()
             per_step = census["step"][terrain]["all"]
@@ -355,7 +355,7 @@ def time_arms(arms: dict[str, Arm], dev, rounds: int) -> dict:
             scene = default_scene(6, volumetric=vol, device=dev)
             cfg = RenderConfig(num_octaves=6, volumetric=vol)
             cp, cs, ccfg, ch = coarse_inputs(scene, cfg)
-            packed, seed = (x.detach() for x in pk.pack_scene(scene, 512, 512, 0.0))
+            packed, seed = (x.detach() for x in kpack.pack_scene(scene, 512, 512, 0.0))
             first = next(iter(arms.values()))
             prime = prime_from_coarse(first.fwd(cp, cs, ccfg, ch)[1], cfg)
             work[terrain, "coarse"] = (cp, cs, ccfg, ch, None)
@@ -394,7 +394,7 @@ def compact_work(arms: dict[str, Arm], dev) -> dict:
     with torch.no_grad():
         for terrain, vol in TERRAINS.items():
             scene = default_scene(6, volumetric=vol, device=dev)
-            packed, seed = (x.detach() for x in pk.pack_scene(scene, 512, 512, 0.0))
+            packed, seed = (x.detach() for x in kpack.pack_scene(scene, 512, 512, 0.0))
             for bf16 in (False, True):
                 cfg = RenderConfig(num_octaves=6, volumetric=vol, march_bf16=bf16,
                                    march_mode="compact")

@@ -90,7 +90,10 @@ def launch_host_us(*args, n=200, reps=5):
 
 from gpgpuraytrace_tpu_torch.kernels.trace import _prime_map, trace_frame
 from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg
-from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+try:  # a tree with the pack kernel packs CUDA scenes there
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
+except ImportError:
+    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
 
 with torch.no_grad():
     packed, seed = pack_scene(scene, 512, 512, 0.0)

@@ -17,11 +17,11 @@ import pytest
 import torch
 
 from gpgpuraytrace_tpu_torch.kernels import trace as ktrace
+from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
 from gpgpuraytrace_tpu_torch.models.scene import RenderConfig, default_scene
 from gpgpuraytrace_tpu_torch.ops import noise as tn
 from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
 from gpgpuraytrace_tpu_torch.utils import packing as pk
-from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
 
 torch.set_num_threads(2)
 
@@ -528,9 +528,9 @@ def fly_batch(cuda, cfg, frames, row0=-1.0, height=None, width=None):
     """The scene, (packed (frames, n), seed) of the fly path's first
     ``frames`` cameras at (height, width) from ``row0``, and each frame's
     one-frame packed row."""
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scenes
     from gpgpuraytrace_tpu_torch.models.scene import Scene
     from gpgpuraytrace_tpu_torch.ops.flythrough import flythrough_camera, flythrough_cameras
-    from gpgpuraytrace_tpu_torch.utils.packing import pack_scenes
 
     height, width = height or cfg.height, width or cfg.width
     scene = default_scene(cfg.num_octaves, volumetric=cfg.volumetric, device=cuda)
@@ -920,3 +920,200 @@ def test_cuda_sharded_fit_step_graph_on_two_nccl_ranks(cuda):
                                           "backward": {"bwd": 1.0},
                                           "all_reduce": {"sum": float(n_params + 1)}}
     assert timed[0]["acchex"] == timed[1]["acchex"]
+
+
+def ulps(a, b):
+    """Units in the last place between float32 tensors, elementwise."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def posed_scenes(octaves, volumetric, n, seed):
+    """``n`` CPU scenes at seeded yaw, pitch, fov_y and sun direction."""
+    gen = torch.Generator().manual_seed(seed)
+    for _ in range(n):
+        scene = default_scene(octaves, volumetric=volumetric, device="cpu")
+        u = torch.rand(3, generator=gen)
+        with torch.no_grad():
+            scene.camera.yaw.fill_(float(u[0]) * 6.2 - 3.1)
+            scene.camera.pitch.fill_(float(u[1]) * 1.2 - 0.6)
+            scene.camera.fov_y.fill_(0.5 + float(u[2]))
+            scene.materials.sun_dir.copy_(torch.randn(3, generator=gen))
+        yield scene
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row0", [0.0, 128.0], ids=["frame", "band"])
+@pytest.mark.parametrize("octaves, volumetric", [(3, False), (6, False), (6, True)])
+def test_cuda_pack_kernel_matches_plain_version(cuda, octaves, volumetric, row0):
+    """The pack kernel's rows of a 512x512 frame or of the band at row 128,
+    and of its coarse prime pass, over 16 seeded poses and sun directions,
+    one launch per call: bit for bit the plain packing's ops run on the card
+    (``utils/packing.py:_pack_scenes``, what the port ran before the kernel),
+    and within 6 ulp of the plain version on the leaves' CPU copies: CUDA's
+    sinf, cosf and rsqrtf are within 2 ulp and tanf 4, and a slot is at most
+    a product of three of them (up's y component, cos(pitch) cos(yaw)^2 +
+    cos(pitch) sin(yaw)^2); 3 read on the card. A batch of 4 fly cameras
+    (pitch shared, then per frame): row b bit for bit the launch of camera b
+    alone."""
+    from gpgpuraytrace_tpu_torch.kernels import pack as kpack
+    from gpgpuraytrace_tpu_torch.ops.camera import Cameras
+    from gpgpuraytrace_tpu_torch.ops.flythrough import flythrough_cameras
+
+    cfg = RenderConfig(height=512, width=512, num_octaves=octaves, volumetric=volumetric,
+                       step_relax=None)
+    ccfg = coarse_prime_cfg(cfg)
+    worst = torch.zeros(pk.AMPS + octaves, dtype=torch.int64)
+    for scene in posed_scenes(octaves, volumetric, 16, octaves + int(row0)):
+        want = ktrace._packs(scene, scene.camera, cfg, row0)
+        card = copy.deepcopy(scene).to(cuda)
+        before = kpack.pack_frames.launches
+        got = ktrace._packs(card, card.camera, cfg, row0)
+        assert kpack.pack_frames.launches == before + 1
+        with torch.no_grad():
+            ops = [pk._pack_scenes(card, card.camera, *dims)[0].reshape(1, -1)
+                   for dims in ((cfg.height, cfg.width, row0),
+                                (ccfg.height, ccfg.width, row0 / cfg.prime_ds - 1.0))]
+        for a, b, c in zip(got[:2], want[:2], ops):
+            assert torch.equal(a, c)
+            worst = torch.maximum(worst, ulps(a.detach().cpu(), b)[0])
+    print("ulps by slot", worst.tolist())
+    assert int(worst.max()) <= 6, worst.tolist()
+    card = copy.deepcopy(scene).to(cuda)
+    cams = flythrough_cameras(card, torch.arange(4, dtype=torch.float32) / 30.0)
+    for pitch in (cams.pitch, cams.pitch + 0.01 * torch.arange(4, device=cuda)):
+        cams = Cameras(cams.position, cams.yaw, pitch, cams.fov_y)
+        rows = ktrace._packs(card, cams, cfg, row0)
+        for b in range(4):
+            one = Cameras(cams.position[b:b + 1], cams.yaw[b:b + 1],
+                          pitch[b:b + 1] if pitch.dim() else pitch, cams.fov_y)
+            for a, c in zip(rows[:2], ktrace._packs(card, one, cfg, row0)[:2]):
+                assert torch.equal(a[b], c[0]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row0", [0.0, 128.0], ids=["frame", "band"])
+def test_cuda_pack_vjp_matches_autograd_of_plain_packing(cuda, row0):
+    """The VJP kernel against autograd through the plain packing on the
+    leaves' CPU copies, every float leaf requiring grad, seeded cotangents
+    of the 512x512 frame's (or the band's) rows over 8 poses: relative error
+    at most 1e-6 per leaf, one launch per backward; and a batch of 3
+    cameras, yaw and position per frame, pitch and fov_y shared, whose
+    shared leaves sum their frames' terms (3.7e-7 and 2.6e-7 read on the
+    card)."""
+    from gpgpuraytrace_tpu_torch.kernels import pack as kpack
+    from gpgpuraytrace_tpu_torch.ops.camera import Cameras
+
+    def batch(camera):
+        fields = [x.detach() for x in (camera.position, camera.yaw, camera.pitch, camera.fov_y)]
+        fields[:2] = [torch.stack([x + 0.1 * i for i in range(3)]) for x in fields[:2]]
+        return Cameras(*(x.requires_grad_(True) for x in fields))
+
+    def rel(a, b):
+        return float((a.cpu() - b).norm() / b.norm())
+
+    cfg = RenderConfig(height=512, width=512, num_octaves=6)
+    errs = collections.defaultdict(float)
+    for k, scene in enumerate(posed_scenes(6, False, 8, 100 + int(row0))):
+        card = copy.deepcopy(scene).to(cuda)
+        for s in (scene, card):
+            for p in s.parameters():
+                p.requires_grad_(True)
+        for kind, want_cam, got_cam in (("one", scene.camera, card.camera),
+                                         ("batch", batch(scene.camera), batch(card.camera))):
+            want_leaves = kpack._leaves(scene, want_cam)
+            got_leaves = kpack._leaves(card, got_cam)
+            want_rows = ktrace._packs(scene, want_cam, cfg, row0)[0]
+            g = torch.randn(want_rows.shape, generator=torch.Generator().manual_seed(k))
+            want = torch.autograd.grad(want_rows, want_leaves, g)
+            before = kpack.pack_vjp.launches
+            got = torch.autograd.grad(ktrace._packs(card, got_cam, cfg, row0)[0], got_leaves,
+                                      g.to(cuda))
+            assert kpack.pack_vjp.launches == before + 1
+            for name, a, b in zip(kpack.FLOAT_LEAVES, got, want):
+                assert a.shape == b.shape, name
+                errs[kind] = max(errs[kind], rel(a, b))
+    print(dict(errs))
+    assert errs["one"] <= 1e-6 and errs["batch"] <= 1e-6, errs
+
+
+@pytest.mark.cuda
+def test_cuda_pack_kernels_in_a_graph_read_leaves_updated_in_place(cuda):
+    """Both pack kernels captured in one CUDA graph (the rows, and the
+    gradients of every float leaf): three replays, each after the leaves
+    were changed in place, equal eager calls bit for bit; the capture counts
+    one launch of each, the replays none."""
+    from gpgpuraytrace_tpu_torch.kernels import pack as kpack
+
+    cfg = RenderConfig(height=512, width=512, num_octaves=6)
+    scene = default_scene(6, device=cuda)
+    for p in scene.parameters():
+        p.requires_grad_(True)
+    leaves = kpack._leaves(scene, scene.camera)
+    g = torch.randn(1, pk.AMPS + 6, generator=torch.Generator().manual_seed(0)).to(cuda)
+
+    def step():
+        packed, coarse, _ = ktrace._packs(scene, scene.camera, cfg, 0.0)
+        return (packed.detach(), coarse, *torch.autograd.grad(packed, leaves, g))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (kpack.pack_frames.launches, kpack.pack_vjp.launches)
+    with torch.cuda.graph(graph):
+        captured = step()
+    assert (kpack.pack_frames.launches, kpack.pack_vjp.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    for k in range(3):
+        with torch.no_grad():
+            scene.camera.yaw.add_(0.1)
+            scene.camera.pitch.sub_(0.05)
+            scene.camera.fov_y.add_(0.02)
+            scene.noise.amplitudes.mul_(1.1)
+            scene.materials.sun_dir.add_(torch.tensor([0.1, -0.05, 0.02], device=cuda))
+        counts = (kpack.pack_frames.launches, kpack.pack_vjp.launches)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert (kpack.pack_frames.launches, kpack.pack_vjp.launches) == counts
+        for a, b in zip(captured, step()):
+            assert torch.equal(a, b), k
+
+
+@pytest.mark.cuda
+def test_cuda_step_chunk_packs_and_pulls_back_once_a_step(cuda):
+    """A StepChunk of 4 steps: its eager warm-up and its capture raise the
+    pack and VJP launch counters by exactly 4 each (one of each per step),
+    its replays by nothing; a FlyBatch of 4 frames packs once a batch and
+    never pulls back."""
+    from gpgpuraytrace_tpu_torch.kernels import pack as kpack
+    from gpgpuraytrace_tpu_torch.ops.fit import (
+        StepChunk, make_optimizer, partition_scene, perturb_scene,
+    )
+    from gpgpuraytrace_tpu_torch.ops.render import render
+
+    def counts():
+        return kpack.pack_frames.launches, kpack.pack_vjp.launches
+
+    cfg = RenderConfig(height=64, width=64, max_steps=32, num_octaves=3)
+    scene = default_scene(3, device=cuda)
+    with torch.no_grad():
+        target = render(scene, cfg)
+    start = perturb_scene(scene, torch.Generator().manual_seed(0), 0.15)
+    chunk = StepChunk(start, cfg, target, make_optimizer(partition_scene(start), 5e-3), 4)
+    for call, rise in enumerate((4, 4, 0, 0)):
+        before = counts()
+        chunk()
+        torch.cuda.synchronize()
+        assert counts() == (before[0] + rise, before[1] + rise), call
+    scene, cfg, program = fly_program(cuda, False, "default", 4)
+    for call, rise in enumerate((1, 1, 0)):
+        before = counts()
+        program.frames(scene, torch.arange(4 * call, 4 * call + 4, dtype=torch.float32) / 30.0)
+        torch.cuda.synchronize()
+        assert counts() == (before[0] + rise, before[1]), call
