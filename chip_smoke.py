@@ -156,7 +156,18 @@ each prints one line and any failure exits non-zero:
     against the plain path with phase 3's gates, each bit for bit the whole
     frame's rows; the coarse and fine pass and the backward on the whole 4K
     frame against their plain versions (phase 3's and phase 8's gates),
-    then as CUDA graphs beside their bounds for this frame;
+    then as CUDA graphs beside their bounds for this frame; one rank's rows
+    of the 4K fit over 4 ranks at prime_ds 4 as its 15 stripes of 36 rows
+    (one batch of the one camera: its packed rows, a ROW0 per frame, bit for
+    bit the plain packing's ops; its passes against their plain versions;
+    its render bit for bit each stripe's; its backward, one launch pair, bit
+    for bit the stripes' one-frame launches and against its plain version,
+    its packed cotangent through the VJP kernel within 1e-6 of autograd
+    through the plain packing; its times beside the one-frame launches;
+    the rank's step through its stripes, ``band_loss_and_grad`` captured as
+    one CUDA graph, its launches counted at the capture, its gradients
+    against the plain backward at its (t, hit) with phase 8's gates, its loss
+    and gradients against the plain path's own march);
     ``make_sharded_fit_step`` on
     the group of one, its eager
     warm-up and 3 replays of one CUDA graph bit for bit 4 eager steps of a
@@ -476,6 +487,18 @@ EXHAUSTIVE_SIDE = 1 << 13
 UHD = (2160, 3840)
 UHD_BANDS, UHD_PLAIN_ROWS, UHD_PLAIN_ROW0S = 2, 16, (1072, 2144)
 SHARDED_FIT_CALLS = 4
+# Phase 31's stripes: rank UHD_STRIPE_RANK of UHD_STRIPE_WORLD at the
+# benchmark's 4K prime_ds (PACK_BAND_DS below), its rows as stripes
+# (parallel/mesh.py:stripes), CUDA graphs of UHD_STRIPE_REPS calls for the
+# times.
+UHD_STRIPE_RANK, UHD_STRIPE_WORLD, UHD_STRIPE_REPS = 1, 4, 10
+# The rank's step against the plain path's own march, leaf by leaf: |got -
+# plain| / |plain| at most UHD_STRIPE_PLAIN_RTOL, four times the largest
+# reading. The two marches stop up to 12% apart in t on grazing pixels at 4K,
+# which moves the gradient by up to 1.17% (camera.fov_y) for the stripes and
+# 1.25% for rank 1's contiguous band alike, over 11x phase 8's gates for
+# either; the plain backward at the kernel's own (t, hit) is held to those.
+UHD_STRIPE_PLAIN_RTOL = 0.05
 # Phase 32: the scene-packing kernels. PACK_TRIALS scenes and batches of 1 to
 # PACK_MAX_FRAMES cameras drawn from PACK_SEED, the rows of each against the
 # plain ops on the card, the VJP of every PACK_VJP_EVERY-th; the VJP's
@@ -578,8 +601,9 @@ def ptxas_lines(log: str) -> list[str]:
     (the forward kernel as trace_fwd_kernel<mode, bf16, debug, octaves>,
     octaves 0 for the loop over a runtime count, and without octaves for a
     build before the unrolled twins; phase 2 as <bf16, octaves>, or <bf16>
-    before its ray groups; the backward kernel as <bf16>; an instantiation
-    with the frame axis ends ", frames>")."""
+    before its ray groups; the backward kernel as <bf16>, its second stage
+    as <> or <frames>; an instantiation with the frame axis ends ",
+    frames>")."""
     modes = ("chunked", "fixed", "lod", "compact")
     name, out = "", []
     for line in log.splitlines():
@@ -593,6 +617,8 @@ def ptxas_lines(log: str) -> list[str]:
                 frames = ", frames" if m.group(6) == "1" else ""
                 name += (f"<{modes[int(m.group(2))]}, bf16={m.group(3)}, debug={m.group(4)}"
                          f"{octaves}{frames}>")
+            elif m and m.group(7) and name == "trace_bwd_sum":
+                name += "<frames>" if m.group(7) == "1" else "<>"
             elif m and m.group(7):
                 octaves = f", octaves={m.group(8)}" if m.group(8) else ""
                 frames = ", frames" if m.group(9) == "1" else ""
@@ -3180,6 +3206,183 @@ def uhd_kernels(scene, cfg) -> str:
                         for k in ("coarse", "fine", "bwd")))
 
 
+def uhd_stripes(dev) -> str:
+    """One rank's rows of the benchmark's 4K fit over UHD_STRIPE_WORLD ranks
+    (prime_ds PACK_BAND_DS): its stripes (``mesh.stripes``) as one batch of
+    the one camera. The packed rows, a ROW0 per frame, one launch, bit for bit
+    the plain packing's ops on the card; the coarse and fine passes of the
+    batch, one launch each, against their plain versions (phase 3's gates,
+    the fine pass from the kernel's prime map); ``render`` of the stripes bit
+    for bit each stripe's own render, concatenated; the backward of the
+    batch (one launch pair, a seeded normal cotangent in the (B, h, W, 3)
+    layout) bit for bit each stripe's one-frame launch and against its plain
+    version (phase 8's gates), its packed cotangent through the VJP kernel
+    against autograd through the plain packing's ops (PACK_VJP_RTOL); then
+    the batch's passes and backward as CUDA graphs beside the stripes'
+    one-frame launches."""
+    from gpgpuraytrace_tpu_torch import RenderConfig, default_scene, render
+    from gpgpuraytrace_tpu_torch.kernels import pack as kpack
+    from gpgpuraytrace_tpu_torch.kernels import trace as ktrace
+    from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
+    from gpgpuraytrace_tpu_torch.parallel import mesh
+
+    cfg = RenderConfig(height=UHD[0], width=UHD[1], max_steps=128, num_octaves=6,
+                       prime_ds=PACK_BAND_DS)
+    ccfg = coarse_prime_cfg(cfg)
+    row0s, s = mesh.stripes(cfg, UHD_STRIPE_RANK, UHD_STRIPE_WORLD)
+    k, hc = len(row0s), s // cfg.prime_ds + 2
+    tag = f"4K rank {UHD_STRIPE_RANK} of {UHD_STRIPE_WORLD}: {k} stripes of {s} rows"
+    scene = default_scene(6, device=dev)
+    differ = pack_rows_differ(scene, scene.camera, cfg, row0s)
+    if differ:
+        fail(f"{tag}: the packed rows differ from the plain ops on the card in {differ} values")
+    reset_counts()
+    with torch.no_grad():
+        packed, coarse, seed = ktrace._packs(scene, scene.camera, cfg, row0s)
+        coarse_k = ktrace.trace_frames(coarse, seed, ccfg, hc)
+        coarse_r = ktrace.trace_frames_reference(coarse, seed, ccfg, hc)
+        _, line_c = compare_trace(f"{tag}: coarse", coarse_k, coarse_r)
+        prime = prime_from_coarse(coarse_k[1], cfg)
+        fine_k = ktrace.trace_frames(packed, seed, cfg, s, prime)
+        fine_r = ktrace.trace_frames_reference(packed, seed, cfg, s, prime)
+        _, line_f = compare_trace(f"{tag}: fine", fine_k, fine_r)
+        del coarse_r, fine_r
+        expect_counts(f"{tag}: the batch's passes", {"chunked+frames": 2})
+        reset_counts()
+        striped = render(scene, cfg, row0s, k * s)
+        expect_counts(f"{tag}: render of the stripes", {"chunked+frames": 2})
+        if kpack.pack_frames.launches != 1:
+            fail(f"{tag}: render packed the stripes in {kpack.pack_frames.launches} launches")
+        if not torch.equal(striped, torch.cat([render(scene, cfg, r, s) for r in row0s])):
+            fail(f"{tag}: the striped render differs from each stripe's render")
+        _, t, hit = fine_k
+        g = torch.randn((k, s, cfg.width, 3),
+                        generator=torch.Generator().manual_seed(0)).to(dev).permute(0, 3, 1, 2)
+        reset_counts()
+        pbar = ktrace.trace_frames_bwd(packed, seed, cfg, s, t, hit, g)
+        expect_counts(f"{tag}: the batch's backward", {"bwd+frames": 1})
+        ones = torch.cat([ktrace.trace_frame_bwd(packed[b:b + 1], seed, cfg, s, t[b], hit[b],
+                                                 g[b]) for b in range(k)])
+        if not torch.equal(pbar, ones):
+            fail(f"{tag}: the batch's backward differs from the stripes' one-frame launches")
+    ref = ktrace.trace_frames_bwd_reference(packed, seed, cfg, s, t, hit, g)
+    err, worst = bwd_error(pbar, ref)
+    if not torch.isfinite(pbar).all() or worst > 1.0:
+        fail(f"{tag}: backward vs plain: worst entry at {worst:.3f} of its tolerance (max abs "
+             f"err {err:.3e})")
+    del ref
+    for p in scene.parameters():
+        p.requires_grad_(True)
+    rel, abs_err = pack_vjp_error(scene, scene.camera, cfg, row0s, pbar)
+    if rel > PACK_VJP_RTOL["batch"]:
+        fail(f"{tag}: the packed cotangent through pack_vjp_kernel at {rel:.3e} of autograd "
+             f"through the plain ops (limit {PACK_VJP_RTOL['batch']})")
+    with torch.no_grad():
+        ms = {"coarse": graph_ms(lambda: ktrace.trace_frames(coarse, seed, ccfg, hc),
+                                 UHD_STRIPE_REPS),
+              "fine": graph_ms(lambda: ktrace.trace_frames(packed, seed, cfg, s, prime),
+                               UHD_STRIPE_REPS),
+              "bwd": graph_ms(lambda: ktrace.trace_frames_bwd(packed, seed, cfg, s, t, hit, g),
+                              UHD_STRIPE_REPS)}
+        one = {"coarse": graph_ms(lambda: [ktrace.trace_frame(coarse[b:b + 1], seed, ccfg, hc)
+                                           for b in range(k)], UHD_STRIPE_REPS),
+               "fine": graph_ms(lambda: [ktrace.trace_frame(packed[b:b + 1], seed, cfg, s,
+                                                            prime[b]) for b in range(k)],
+                                UHD_STRIPE_REPS),
+               "bwd": graph_ms(lambda: [ktrace.trace_frame_bwd(packed[b:b + 1], seed, cfg, s,
+                                                               t[b], hit[b], g[b])
+                                        for b in range(k)], UHD_STRIPE_REPS)}
+    step_line = uhd_stripe_step(scene, cfg, row0s, s, tag)
+    return (f"{line_c} | {line_f} | {tag}: one pack launch, rows bit for bit the plain ops; "
+            f"render bit for bit each stripe's; backward one launch pair, bit for bit the "
+            f"stripes' one-frame launches, max abs err {err:.3e} against its plain version, "
+            f"worst entry at {worst:.4f} of its tolerance; its packed cotangent through "
+            f"pack_vjp_kernel at {rel:.3e} of autograd through the plain ops (max abs "
+            f"{abs_err:.3e}) | as CUDA graphs of {UHD_STRIPE_REPS} (ms, the batch against "
+            f"{k} one-frame launches): "
+            + ", ".join(f"{x} {ms[x]:.4f} / {one[x]:.4f}" for x in ("coarse", "fine", "bwd"))
+            + f" | {step_line}")
+
+
+def uhd_stripe_step(scene, cfg, row0s, s: int, tag: str) -> str:
+    """The rank's training step through its stripes as ``fit4k.x4`` runs it:
+    ``parallel/sharded.py:band_loss_and_grad`` of the rank's h rows (autograd
+    through the kernel path's render of the stripes, its backward and the
+    pack VJP), from phase 27's perturbed start toward the unperturbed
+    scene's rows, as one CUDA graph (``CapturedProgram``: the eager warm-up,
+    then the capture). The launches counted at the capture alone (one pack,
+    the batch's coarse and fine passes, one backward launch pair, one VJP);
+    the replay's loss and gradients bit for bit the warm-up's; each leaf's
+    gradient within phase 8's gates of the plain backward at the kernel's own
+    (t, hit) (``kernel_bwd=False``: autograd through
+    ``render_from_checkpoint`` of each stripe); the loss within BWD_RTOL and
+    each leaf within UHD_STRIPE_PLAIN_RTOL of the plain path (``render_torch``
+    and its autograd, its own march) on the same stripes."""
+    from gpgpuraytrace_tpu_torch import render
+    from gpgpuraytrace_tpu_torch.kernels import pack as kpack
+    from gpgpuraytrace_tpu_torch.ops import fit as fitmod
+    from gpgpuraytrace_tpu_torch.parallel import sharded
+    from gpgpuraytrace_tpu_torch.utils.graphs import CapturedProgram
+
+    h = len(row0s) * s
+    with torch.no_grad():
+        target = render(scene, cfg, row0s, h)
+    start = fitmod.perturb_scene(scene, torch.Generator().manual_seed(0), rel=0.15)
+    params = fitmod.partition_scene(start)
+    names = [n for n, p in start.named_parameters() if p.requires_grad]
+
+    def step():
+        loss, grads = sharded.band_loss_and_grad(start, params, cfg, target, row0s, h)
+        return torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads])
+
+    program = CapturedProgram(step, target.device)
+    eager = program().clone()
+    torch.cuda.synchronize()
+    reset_counts()
+    program.capture()
+    torch.cuda.synchronize()
+    captured = {k: v for k, v in launch_counts().items() if v}
+    pack = {"pack": kpack.pack_frames.launches, "pack_vjp": kpack.pack_vjp.launches}
+    if captured != {"chunked+frames": 2, "bwd+frames": 1} or pack != {"pack": 1, "pack_vjp": 1}:
+        fail(f"{tag}: the step through the stripes captured {captured} and {pack}, expected "
+             f"{{'chunked+frames': 2, 'bwd+frames': 1}} and one pack and one VJP launch")
+    replayed = program().clone()
+    torch.cuda.synchronize()
+    program.close()
+    if not torch.equal(replayed, eager):
+        fail(f"{tag}: the captured step's replay differs from its eager warm-up")
+    want = {}
+    for what, c in (("checkpoint", dataclasses.replace(cfg, kernel_bwd=False)),
+                    ("plain", dataclasses.replace(cfg, use_kernel=False))):
+        other = copy.deepcopy(start)
+        want[what] = sharded.band_loss_and_grad(other, fitmod.partition_scene(other), c, target,
+                                                row0s, h)
+    want_loss = want["plain"][0]
+    got_loss, rest = replayed[0], replayed[1:]
+    if not abs(got_loss - want_loss).item() <= BWD_RTOL * abs(want_loss).item():
+        fail(f"{tag}: the step's loss {got_loss.item()!r} vs the plain path's "
+             f"{want_loss.item()!r} (rtol {BWD_RTOL})")
+    worst, worst_plain, at = 0.0, 0.0, 0
+    for n, ref, plain in zip(names, want["checkpoint"][1], want["plain"][1]):
+        got = rest[at:at + ref.numel()].reshape(ref.shape)
+        at += ref.numel()
+        _, w = bwd_error(got, ref)
+        r = ((got - plain).norm() / plain.norm()).item()
+        worst, worst_plain = max(worst, w), max(worst_plain, r)
+        if not torch.isfinite(got).all() or w > 1.0:
+            fail(f"{tag}: {n}: the step's gradient at {w:.3f} of rtol {BWD_RTOL} + "
+                 f"{BWD_ATOL_REL} x max against the plain backward at its (t, hit)")
+        if not r <= UHD_STRIPE_PLAIN_RTOL:
+            fail(f"{tag}: {n}: the step's gradient {r:.3e} (relative) from the plain path's "
+                 f"(limit {UHD_STRIPE_PLAIN_RTOL})")
+    return (f"{tag}: the step (band_loss_and_grad of {h} rows) as one CUDA graph, counted at "
+            f"the capture {captured}, {pack}; its replay bit for bit the eager warm-up; "
+            f"{len(names)} leaves' gradients at worst {worst:.4f} of rtol {BWD_RTOL} + "
+            f"{BWD_ATOL_REL} x max against the plain backward at its (t, hit); against the plain "
+            f"path: loss {got_loss.item():.9e} vs {want_loss.item():.9e}, gradients at worst "
+            f"{worst_plain:.3e} relative (limit {UHD_STRIPE_PLAIN_RTOL})")
+
+
 def sharded_graph_phase(scene, cfg, target) -> tuple[str, dict]:
     """On a process group of one (NCCL), from phase 27's perturbed start
     toward ``target``: ``make_sharded_fit_step`` called
@@ -3286,6 +3489,7 @@ def config5_phase(dev, card: str) -> tuple[str, dict]:
     for row0 in UHD_PLAIN_ROW0S:
         lines.append(uhd_band_vs_plain(scene, cfg, whole, row0, UHD_PLAIN_ROWS))
     lines.append(uhd_kernels(scene, cfg))
+    lines.append(uhd_stripes(dev))
     sharded_line, pack = sharded_graph_phase(scene, cfg, whole)
     lines.append(sharded_line)
     reset_counts()
@@ -3337,14 +3541,16 @@ def pack_shapes() -> list[tuple[str, object, object, tuple[float, ...]]]:
 
 def pack_plain(scene, cams, cfg, row0):
     """The plain packing's ops (``utils/packing.py:_pack_scenes``) run on the
-    card: (the fine rows, the coarse prime pass's rows), each (B, n)."""
+    card: (the fine rows, the coarse prime pass's rows), each (B, n); ``row0``
+    a number, or a tuple of a row0 per frame (a rank's stripes)."""
     from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg
     from gpgpuraytrace_tpu_torch.utils import packing as pk
 
     ccfg = coarse_prime_cfg(cfg)
+    crow0 = (tuple(r / cfg.prime_ds - 1.0 for r in row0) if isinstance(row0, tuple)
+             else row0 / cfg.prime_ds - 1.0)
     return tuple(pk._pack_scenes(scene, cams, h, w, r)[0].reshape(-1, pk.AMPS + cfg.num_octaves)
-                 for h, w, r in ((cfg.height, cfg.width, row0),
-                                 (ccfg.height, ccfg.width, row0 / cfg.prime_ds - 1.0)))
+                 for h, w, r in ((cfg.height, cfg.width, row0), (ccfg.height, ccfg.width, crow0)))
 
 
 def pack_rows_differ(scene, cams, cfg, row0) -> int:

@@ -371,8 +371,9 @@ def mesh_sweep(n: int) -> list[int]:
 def check_mesh_bands(cfg: RenderConfig, sweep: list[int]) -> None:
     """Every rank's band of every world size in ``sweep``: the height splits
     evenly and, on a primed config, each band is whole coarse rows
-    (``ops/march.py:check_prime_band``). Raises ``ValueError`` before any
-    rank starts."""
+    (``ops/march.py:check_prime_band``), and with it each of the rank's
+    stripes (``mesh.stripes``). Raises ``ValueError`` before any rank
+    starts."""
     for m in sweep:
         for r in range(m):
             row0, h = band(cfg, r, m)

@@ -29,7 +29,10 @@
 //   threads: (s0^2 + s2^2) + s1^2), the 1e-12 the double literal cast to
 //   float, rsqrtf as ATen's rsqrt kernel.
 // - the aspect and ROW0 come from the host, rounded to float from double as
-//   torch.full rounds them.
+//   torch.full rounds them. Frame b's ROW0 is row0 + b row0_step (a row-band
+//   rank's interleaved stripes, evenly spaced; 0 for frames that share one
+//   ROW0, which then is row0 itself), exact in float for whole rows below
+//   2^24, as the wrapper checks.
 // A frame's row reads its own camera leaves (a frame stride of 0: a camera
 // leaf all frames share), so row b of a batch is the one-camera launch's
 // row for camera b, bit for bit.
@@ -86,7 +89,8 @@ struct PackLeaves {
   int frame_stride[kLeafCount];
 };
 
-// ``frames`` rows; the fine pass's aspect and ROW0, and the coarse pass's.
+// ``frames`` rows; the fine pass's aspect and frame 0's ROW0, and the coarse
+// pass's; each pass's ROW0 step from one frame to the next.
 struct PackConfig {
   int frames;
   int num_octaves;
@@ -94,9 +98,16 @@ struct PackConfig {
   float row0;
   float coarse_aspect;
   float coarse_row0;
+  float row0_step;
+  float coarse_row0_step;
 };
 
 namespace {
+
+// Frame b's ROW0: row0 + b step, or row0 where the frames share it.
+__device__ __forceinline__ float frame_row0(float row0, float step, int b) {
+  return step == 0.f ? row0 : __fadd_rn(row0, __fmul_rn(static_cast<float>(b), step));
+}
 
 // The packed offset of a leaf that the rows copy, -1 for the computed ones
 // (yaw, pitch, fov_y, sun_dir).
@@ -200,8 +211,11 @@ __global__ void pack_kernel(PackLeaves l, PackConfig c, float* out, float* coars
   if (k >= n) return;
   const long long at = static_cast<long long>(b) * n + k;
   if (k == kAspect || k == kRow0) {
-    out[at] = k == kAspect ? c.aspect : c.row0;
-    if (coarse) coarse[at] = k == kAspect ? c.coarse_aspect : c.coarse_row0;
+    out[at] = k == kAspect ? c.aspect : frame_row0(c.row0, c.row0_step, b);
+    if (coarse) {
+      coarse[at] = k == kAspect ? c.coarse_aspect
+                                : frame_row0(c.coarse_row0, c.coarse_row0_step, b);
+    }
     return;
   }
   int i = 0;

@@ -44,6 +44,14 @@
 //   over the SMs, its loads all in flight at once; the last block to finish
 //   (a counter in the scratch, which it sets back to 0) folds the frequency
 //   sums into the lacunarity's.
+// - A batch of frames (a row-band rank's interleaved stripes of one camera,
+//   parallel/sharded.py) is one launch of each stage, the frame as
+//   blockIdx.y (kFrames, a template parameter: one frame runs the
+//   instantiations without it, whose code and grid are the one-frame
+//   design's): each frame's groups, partial sums, counter and column sums
+//   are its own, into its row of pbar, so frame b's row is its one-frame
+//   launch's bit for bit. kernels/pack.py's VJP sums the rows into the
+//   leaves that the frames share.
 //
 // The summation order, fixed by the frame's shape alone and the same bit
 // for bit as the design this one replaced (one 128-thread block per group,
@@ -88,11 +96,18 @@ constexpr int kMaxCols = kAmps + 2 * kMaxOctaves;
 // amplitude and frequency columns.
 constexpr int kMarchAmp = 6, kMarchFreq = 7;
 __host__ __device__ constexpr int octave_floats(bool bf16) { return bf16 ? 8 : 6; }
-// The scratch: the second stage's counter (an int), its column sums, then
-// partial[column][group] from a 16-byte boundary.
-constexpr int kColSumOffset = 4;
-constexpr int kPartialOffset = (kColSumOffset + kMaxCols + 3) / 4 * 4;
+// The scratch of a launch over ``frames`` frames: the second stage's
+// counters (an int per frame), from a 16-byte boundary its column sums
+// (kMaxCols per frame), then from the next one each frame's
+// partial[column][group], one frame after another. One frame's is the
+// layout of the one-frame design: its counter, its sums from float 4.
+__host__ __device__ constexpr int col_sum_offset(int frames) { return (frames + 3) / 4 * 4; }
+__host__ __device__ constexpr int partial_offset(int frames) {
+  return (col_sum_offset(frames) + frames * kMaxCols + 3) / 4 * 4;
+}
 constexpr int kMaxDevices = 64;
+// The most frames one launch takes (its grids' y): kernels/trace.py:MAX_FRAMES.
+constexpr int kMaxFrames = 65535;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ bool in_unit(float x) {  // clip(x, 0, 1) passes x
@@ -498,10 +513,9 @@ __device__ __forceinline__ void put_column(int k, float v, int n_params, float* 
   }
 }
 
-// Counts a finished block in the scratch's counter (after its writes are
-// visible); true in the last block of the grid, which sets it back to 0.
-__device__ __forceinline__ bool last_block(float* scratch) {
-  int* counter = reinterpret_cast<int*>(scratch);
+// Counts a finished block in ``counter`` (after its writes are visible);
+// true in the last block of the grid's row, which sets it back to 0.
+__device__ __forceinline__ bool last_block(int* counter) {
   __threadfence();
   const bool last = atomicAdd(counter, 1) == static_cast<int>(gridDim.x) - 1;
   if (last) {
@@ -517,7 +531,11 @@ __host__ __device__ constexpr int smem_floats(int n_cols, int num_octaves, bool 
   return kWarps * n_cols * 32 + octave_floats(bf16) * num_octaves * kThreads;
 }
 
-template <bool kBf16>
+// kFrames: a batch of frames as blockIdx.y = frame. Each block reads its own
+// frame's packed scalars, t, hit and g and writes its frame's partial sums,
+// each group the pixels of the one-frame launch's, so frame b's sums are its
+// one-frame launch's bit for bit.
+template <bool kBf16, bool kFrames>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 trace_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_ptr,
                  const float* __restrict__ t_in, const float* __restrict__ hit_in,
@@ -528,6 +546,17 @@ trace_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_
   __shared__ Octaves oct;
   const int n_params = kAmps + cfg.num_octaves;
   const int n_cols = n_params + cfg.num_octaves;
+  float* partial = scratch + partial_offset(1);
+  if constexpr (kFrames) {
+    const size_t frame = blockIdx.y;
+    const size_t px = frame * static_cast<size_t>(cfg.local_h) * cfg.width;
+    const size_t groups = (static_cast<size_t>(cfg.local_h) * cfg.width + kGroup - 1) / kGroup;
+    packed += frame * n_params;
+    t_in += px;
+    hit_in += px;
+    g += 3 * px;  // (B, 3, h, W), or the view of (B, h, W, 3): 3 px apart either way
+    partial = scratch + partial_offset(gridDim.y) + frame * n_cols * groups;
+  }
   for (int k = threadIdx.x; k < n_params; k += kThreads) sc[k] = packed[k];
   if (threadIdx.x < cfg.num_octaves) load_octave(packed, threadIdx.x, oct);
   __syncthreads();
@@ -538,7 +567,6 @@ trace_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_
   // A block's warps take groups gridDim.x apart, so that every block gets
   // sky and terrain alike.
   const int group = blockIdx.x + warp * gridDim.x;
-  float* partial = scratch + kPartialOffset;
   if (group < n_groups) {  // the same for every lane of the warp
     Cols acc{slices + warp * n_cols * 32 + lane, n_cols};
     acc.reset();
@@ -564,16 +592,29 @@ trace_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed_
 
 // The second stage: block k sums column k of partial over the groups; the
 // last block to finish folds the frequency columns into the lacunarity's.
+// kFrames: frame blockIdx.y's columns, counter and sums, into its row of pbar.
+template <bool kFrames>
 __global__ void __launch_bounds__(32)
 trace_bwd_sum(float* __restrict__ scratch, int n_groups, int num_octaves,
               const float* __restrict__ packed, float* __restrict__ pbar) {
   const int k = blockIdx.x, lane = threadIdx.x;
-  float* col_sum = scratch + kColSumOffset;
-  const float v = column_sum(scratch + kPartialOffset + static_cast<size_t>(k) * n_groups,
-                             n_groups, lane);
+  int* counter = reinterpret_cast<int*>(scratch);
+  float* col_sum = scratch + col_sum_offset(1);
+  const float* partial = scratch + partial_offset(1);
+  if constexpr (kFrames) {
+    const int frames = static_cast<int>(gridDim.y), frame = static_cast<int>(blockIdx.y);
+    const int n_params = kAmps + num_octaves;
+    counter += frame;
+    col_sum = scratch + col_sum_offset(frames) + static_cast<size_t>(frame) * kMaxCols;
+    partial = scratch + partial_offset(frames) +
+              static_cast<size_t>(frame) * gridDim.x * n_groups;
+    packed += static_cast<size_t>(frame) * n_params;
+    pbar += static_cast<size_t>(frame) * n_params;
+  }
+  const float v = column_sum(partial + static_cast<size_t>(k) * n_groups, n_groups, lane);
   if (lane == 0) {
     put_column(k, v, kAmps + num_octaves, col_sum, pbar);
-    if (last_block(scratch)) fold_lacunarity(col_sum, num_octaves, packed, pbar);
+    if (last_block(counter)) fold_lacunarity(col_sum, num_octaves, packed, pbar);
   }
 }
 
@@ -583,11 +624,11 @@ int bwd_groups(const TraceBwdConfig& cfg) {
 
 int bwd_cols(const TraceBwdConfig& cfg) { return kAmps + 2 * cfg.num_octaves; }
 
-// Launches the main kernel, then the second stage.
-template <bool kBf16>
+// Launches the main kernel, then the second stage, over ``frames`` frames.
+template <bool kBf16, bool kFrames>
 cudaError_t launch(const float* packed, const int* seed, const float* t, const float* hit,
                    const float* g, float* scratch, float* pbar, const TraceBwdConfig& cfg,
-                   cudaStream_t s) {
+                   int frames, cudaStream_t s) {
   const int n_groups = bwd_groups(cfg);
   const size_t smem = smem_floats(bwd_cols(cfg), cfg.num_octaves, kBf16) * sizeof(float);
   if (smem > 48 * 1024) {  // above the default: opt in, once per device
@@ -597,45 +638,60 @@ cudaError_t launch(const float* packed, const int* seed, const float* t, const f
     if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
     if (!opted[dev]) {
       if (const cudaError_t err = cudaFuncSetAttribute(
-              trace_bwd_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+              trace_bwd_kernel<kBf16, kFrames>, cudaFuncAttributeMaxDynamicSharedMemorySize,
               smem_floats(kMaxCols, kMaxOctaves, kBf16) * static_cast<int>(sizeof(float)))) {
         return err;
       }
       opted[dev] = true;
     }
   }
-  trace_bwd_kernel<kBf16><<<(n_groups + kWarps - 1) / kWarps, kThreads, smem, s>>>(
-      packed, seed, t, hit, g, scratch, pbar, cfg);
+  trace_bwd_kernel<kBf16, kFrames>
+      <<<dim3((n_groups + kWarps - 1) / kWarps, frames), kThreads, smem, s>>>(
+          packed, seed, t, hit, g, scratch, pbar, cfg);
   if (const cudaError_t err = cudaGetLastError()) return err;
-  trace_bwd_sum<<<bwd_cols(cfg), 32, 0, s>>>(scratch, n_groups, cfg.num_octaves, packed,
-                                             pbar);
+  trace_bwd_sum<kFrames><<<dim3(bwd_cols(cfg), frames), 32, 0, s>>>(
+      scratch, n_groups, cfg.num_octaves, packed, pbar);
   return cudaGetLastError();
+}
+
+template <bool kBf16>
+cudaError_t launch_frames(const float* packed, const int* seed, const float* t,
+                          const float* hit, const float* g, float* scratch, float* pbar,
+                          const TraceBwdConfig& cfg, int frames, cudaStream_t s) {
+  if (frames == 1) return launch<kBf16, false>(packed, seed, t, hit, g, scratch, pbar, cfg, 1, s);
+  return launch<kBf16, true>(packed, seed, t, hit, g, scratch, pbar, cfg, frames, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of device scratch trace_bwd_launch needs: the second stage's
-// counter and column sums, then one row of partial sums per group and column.
-int trace_bwd_scratch_floats(TraceBwdConfig cfg) {
-  return kPartialOffset + bwd_groups(cfg) * bwd_cols(cfg);
+// Floats of device scratch trace_bwd_launch needs over ``frames`` frames:
+// the second stage's counters and column sums, then for each frame one row
+// of partial sums per column and group.
+int trace_bwd_scratch_floats(TraceBwdConfig cfg, int frames) {
+  return partial_offset(frames) + frames * bwd_groups(cfg) * bwd_cols(cfg);
 }
 
-// Launches the backward on ``stream`` and returns cudaGetLastError() (0 on
-// success). Pointers are device pointers: ``t``, ``hit`` (local_h, width),
-// ``g`` (3, local_h, width) at cfg's strides, ``scratch``
-// trace_bwd_scratch_floats(cfg) floats whose first (the counter, an int)
-// must be 0 when the launch starts and is left at 0 by it (launches that may
-// overlap, on different streams, need their own), ``pbar`` kAmps + octaves
-// floats. The caller validates shapes, dtypes and strides.
+// Launches the backward over ``frames`` frames on ``stream`` and returns
+// cudaGetLastError() (0 on success). Pointers are device pointers, each to
+// ``frames`` consecutive frames of its data: ``packed`` (frames, kAmps +
+// octaves), ``t``, ``hit`` (frames, local_h, width), ``g`` (frames, 3,
+// local_h, width) at cfg's strides within a frame, ``scratch``
+// trace_bwd_scratch_floats(cfg, frames) floats whose first ``frames`` (the
+// counters, ints) must be 0 when the launch starts and are left at 0 by it
+// (launches that may overlap, on different streams, need their own),
+// ``pbar`` (frames, kAmps + octaves), frame b's row its one-frame launch's.
+// ``frames`` is 1 to kMaxFrames (the grid's y). The caller validates shapes,
+// dtypes and strides.
 int trace_bwd_launch(const float* packed, const int* seed, const float* t,
                      const float* hit, const float* g, float* scratch, float* pbar,
-                     TraceBwdConfig cfg, void* stream) {
+                     TraceBwdConfig cfg, int frames, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(cfg.bf16 ? launch<true>(packed, seed, t, hit, g, scratch, pbar, cfg, s)
-                                   : launch<false>(packed, seed, t, hit, g, scratch, pbar, cfg,
-                                                   s));
+  if (frames < 1 || frames > kMaxFrames) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      cfg.bf16 ? launch_frames<true>(packed, seed, t, hit, g, scratch, pbar, cfg, frames, s)
+               : launch_frames<false>(packed, seed, t, hit, g, scratch, pbar, cfg, frames, s));
 }
 
 }  // extern "C"

@@ -23,12 +23,14 @@
 // the polish and the shade are trace_march.cuh's, which phase 2 shares.
 //
 // A launch traces a batch of frames (the JAX package's vmap over its kernel:
-// a flythrough batch, gpgpuraytrace_tpu/ops/flythrough.py:_make_batch_render)
-// as blockIdx.y = frame: each block reads its own frame's packed scalars,
-// prime map and tile counters and writes its own frame's outputs, so a
-// pixel's arithmetic is its one-frame launch's. The frame axis is a template
-// parameter too (kFrames): a one-frame launch runs the instantiations without
-// it, whose code is the one-frame kernel's as it was.
+// a flythrough batch, gpgpuraytrace_tpu/ops/flythrough.py:_make_batch_render;
+// a row-band rank's interleaved stripes, parallel/sharded.py) as one pool of
+// tiles, frame 0's first: each warp takes the next tile of the pool whatever
+// its frame, with that frame's packed scalars (kept in the warp's slice of
+// shared memory), prime map and outputs, so a pixel's arithmetic is its
+// one-frame launch's. The frame axis is a template parameter too (kFrames):
+// a one-frame launch runs the instantiations without it, whose code is the
+// one-frame kernel's as it was.
 //
 // What bounds it on the H100: INT32 and FP32 issue. Each march step
 // evaluates the value-only fBm, about 77 FP32 and 49 INT32 operations per
@@ -54,10 +56,13 @@
 // - A frame with few tiles (the 66x64 coarse prime pass: 136) launches
 //   blocks of fewer warps, so its tiles spread over all SMs, one or two
 //   warps each, where the march's serial chain of steps sets the time.
-// - A batch of frames that each fill the card shares the resident blocks out
-//   among its frames (each frame's warps take its own tiles); a batch of
-//   small frames (the coarse passes of a flythrough batch) launches each
-//   frame's one-warp blocks, B x 136 in all.
+// - A batch's frames share one pool of tiles and so the resident warps:
+//   when its frames march unevenly (a rank's stripes, some all sky, some at
+//   the horizon) no warp idles while another frame has tiles left. (Each
+//   frame with its own share of the blocks, the batch ran as long as its
+//   slowest frame took on that share: a 4K rank's 15 stripes of 36 rows
+//   0.76-0.82 ms against 0.57 ms for the mean of the four bands' passes,
+//   PERF.md.)
 // - The 6 octaves' noise chains are independent, so the main path's field
 //   unrolls them (Field::value<kBf16, 6>) and they overlap; the sum keeps
 //   its order. Only the main path's chunked march was timed with it (the
@@ -215,6 +220,107 @@ __device__ __forceinline__ void trace_pixel(const Frame& fr, const FwdArgs& a,
                    a.hit);
 }
 
+// The packed scalars that the octave table (load_octave), the envelope and
+// the lod margin are computed from.
+__device__ __forceinline__ bool shapes_field(int k) {
+  return k == kLacunarity || k == kHeightScale || k == kHeightOffset || k == kWarpAmp ||
+         k >= kAmps;
+}
+
+// The frame axis (kFrames): a batch's tiles form one pool, frame 0's first,
+// from which each warp takes the next tile (tile_scratch[0]) whatever its
+// frame, so the card stays full until the batch's last tiles however unevenly
+// its frames march. A warp keeps its frame's scalars and octaves in its own
+// slice of shared memory and loads them again when a tile takes it to the
+// next frame (tiles come in order, so at most B - 1 times); it computes the
+// octave table and the envelope again only where the scalars they read
+// change: every warp reaches a frame's first tiles at about the same time,
+// so the card waits out each frame's switch at once, and recomputing the
+// table (double-precision sincos) cost a 4K rank's batch of 15 stripes about
+// 2.7 us a stripe (PERF.md). A pixel's arithmetic is its one-frame launch's.
+template <int kMode, bool kBf16, bool kDebug, int kOctaves>
+__device__ __forceinline__ void trace_pool(const FwdArgs& all, const TraceConfig& cfg) {
+  __shared__ float warp_sc[kWarpsPerBlock][kAmps + kMaxOctaves];
+  __shared__ Octaves warp_oct[kWarpsPerBlock];
+  __shared__ float warp_margin[kWarpsPerBlock];  // lod only
+  const int n_params = kAmps + cfg.num_octaves;
+  const int k_coarse = max(1, (cfg.num_octaves + 1) / 2);
+  const int wo_coarse = max(1, cfg.warp_octaves - 1);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* sc = warp_sc[warp];
+  const int tiles_x = (cfg.width + kTileCols - 1) / kTileCols;
+  const int n_tiles = tiles_x * ((cfg.local_h + kTileRows - 1) / kTileRows);
+  const int pool = n_tiles * static_cast<int>(gridDim.y);  // launch_frames bounds it
+  const size_t n_pix = static_cast<size_t>(cfg.local_h) * cfg.width;
+  const uint32_t seed = static_cast<uint32_t>(*all.seed);
+  const int tile_row = lane / kTileCols, tile_col = lane % kTileCols;
+  int frame = -1;
+  FwdArgs a = all;
+  float env = 0.f;
+  for (;;) {
+    int tile = 0;
+    if (lane == 0) tile = atomicAdd(all.tile_scratch, 1);
+    tile = __shfl_sync(0xffffffffu, tile, 0);
+    if (tile >= pool) break;
+    const int f = tile / n_tiles;
+    tile -= f * n_tiles;
+    if (f != frame) {
+      // This warp's new frame: its row of packed scalars, its planes of every
+      // per-pixel input and output, its slot of n_alive.
+      bool same = frame >= 0;
+      frame = f;
+      const size_t px = static_cast<size_t>(f) * n_pix;
+      a = FwdArgs{all.packed + static_cast<size_t>(f) * n_params, all.seed,
+                  at_frame(all.prime, px), all.color + 3 * px, all.t + px, all.hit + px,
+                  at_frame(all.steps, px), at_frame(all.alive, px), at_frame(all.prev, px),
+                  at_frame(all.ids, px), at_frame(all.n_alive, static_cast<size_t>(f)),
+                  all.tile_scratch};
+      // Its scalars; where those that the octave table, the envelope and the
+      // lod margin read are its last frame's bit for bit (a rank's stripes
+      // and a fly batch share the scene's), those stay.
+      __syncwarp();  // every lane is done with the last frame's scalars
+      for (int k = lane; k < n_params; k += 32) {
+        const float v = a.packed[k];
+        same = same && (!shapes_field(k) || __float_as_uint(v) == __float_as_uint(sc[k]));
+        sc[k] = v;
+      }
+      same = __all_sync(0xffffffffu, same);
+      __syncwarp();
+      if (!same) {
+        if (lane < cfg.num_octaves) load_octave(sc, lane, warp_oct[warp]);
+        if constexpr (kMode == kLod) {
+          if (lane == 0) {
+            warp_margin[warp] = lod_margin(sc, cfg.num_octaves, k_coarse,
+                                           cfg.volumetric != 0, cfg.warp_octaves, wo_coarse);
+          }
+        }
+        __syncwarp();
+        env = envelope(sc, cfg);
+      }
+    }
+    const Frame fr{sc,
+                   Field{sc, &warp_oct[warp], cfg.num_octaves, seed, cfg.volumetric != 0,
+                         cfg.warp_octaves},
+                   env, kMode == kLod ? warp_margin[warp] : 0.f, k_coarse, wo_coarse};
+    const int ty = tile / tiles_x;
+    const int row = ty * kTileRows + tile_row;
+    const int col = (tile - ty * tiles_x) * kTileCols + tile_col;
+    if (row < cfg.local_h && col < cfg.width) {
+      trace_pixel<kMode, kBf16, kDebug, kOctaves>(fr, a, cfg, row, col);
+    }
+  }
+  // As the one-frame kernel's, over every warp of the grid: the last one out
+  // sets the pool's counter pair back to 0.
+  if (lane == 0) {
+    __threadfence();
+    const int warps = static_cast<int>(gridDim.x * gridDim.y * (blockDim.x / 32));
+    if (atomicAdd(all.tile_scratch + 1, 1) == warps - 1) {
+      atomicExch(all.tile_scratch, 0);
+      atomicExch(all.tile_scratch + 1, 0);
+    }
+  }
+}
+
 template <int kMode, bool kBf16, bool kDebug, int kOctaves, bool kFrames>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed,
@@ -223,72 +329,59 @@ trace_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ seed,
                  int* __restrict__ steps_out, float* __restrict__ alive_out,
                  float* __restrict__ prev_out, int* __restrict__ ids_out,
                  int* __restrict__ n_alive, int* __restrict__ tile_scratch, TraceConfig cfg) {
-  const int n_params = kAmps + cfg.num_octaves;
-  if constexpr (kFrames) {
-    // This block's frame: its row of packed scalars, its planes of every
-    // per-pixel input and output, its slot of n_alive and its counter pair.
-    const size_t frame = blockIdx.y;
-    const size_t px = frame * static_cast<size_t>(cfg.local_h) * cfg.width;
-    packed += frame * n_params;
-    prime = at_frame(prime, px);
-    color += 3 * px;
-    t_out += px;
-    hit_out += px;
-    steps_out = at_frame(steps_out, px);
-    alive_out = at_frame(alive_out, px);
-    prev_out = at_frame(prev_out, px);
-    ids_out = at_frame(ids_out, px);
-    n_alive = at_frame(n_alive, frame);
-    tile_scratch += 2 * frame;
-  }
   const FwdArgs a{packed,    seed,     prime,   color,  t_out,   hit_out,
                   steps_out, alive_out, prev_out, ids_out, n_alive, tile_scratch};
-  __shared__ float sc[kAmps + kMaxOctaves];
-  __shared__ Octaves oct;
-  __shared__ float margin;  // lod only
-  const int k_coarse = max(1, (cfg.num_octaves + 1) / 2);
-  const int wo_coarse = max(1, cfg.warp_octaves - 1);
-  for (int k = threadIdx.x; k < n_params; k += blockDim.x) sc[k] = packed[k];
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    load_octaves(sc, cfg.num_octaves, oct);
-    if constexpr (kMode == kLod) {
-      margin = lod_margin(sc, cfg.num_octaves, k_coarse, cfg.volumetric != 0,
-                          cfg.warp_octaves, wo_coarse);
+  if constexpr (kFrames) {
+    trace_pool<kMode, kBf16, kDebug, kOctaves>(a, cfg);
+  } else {
+    const int n_params = kAmps + cfg.num_octaves;
+    __shared__ float sc[kAmps + kMaxOctaves];
+    __shared__ Octaves oct;
+    __shared__ float margin;  // lod only
+    const int k_coarse = max(1, (cfg.num_octaves + 1) / 2);
+    const int wo_coarse = max(1, cfg.warp_octaves - 1);
+    for (int k = threadIdx.x; k < n_params; k += blockDim.x) sc[k] = packed[k];
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      load_octaves(sc, cfg.num_octaves, oct);
+      if constexpr (kMode == kLod) {
+        margin = lod_margin(sc, cfg.num_octaves, k_coarse, cfg.volumetric != 0,
+                            cfg.warp_octaves, wo_coarse);
+      }
     }
-  }
-  __syncthreads();
-  const Frame fr{sc,
-                 Field{sc, &oct, cfg.num_octaves, static_cast<uint32_t>(*seed),
-                       cfg.volumetric != 0, cfg.warp_octaves},
-                 envelope(sc, cfg), kMode == kLod ? margin : 0.f, k_coarse, wo_coarse};
+    __syncthreads();
+    const Frame fr{sc,
+                   Field{sc, &oct, cfg.num_octaves, static_cast<uint32_t>(*seed),
+                         cfg.volumetric != 0, cfg.warp_octaves},
+                   envelope(sc, cfg), kMode == kLod ? margin : 0.f, k_coarse, wo_coarse};
 
-  // --- the tiles: lane 0 takes the next one from tile_scratch[0], the warp
-  // traces its pixels ---------------------------------------------------------
-  const int tiles_x = (cfg.width + kTileCols - 1) / kTileCols;
-  const int n_tiles = tiles_x * ((cfg.local_h + kTileRows - 1) / kTileRows);
-  const int lane = threadIdx.x % 32;
-  const int tile_row = lane / kTileCols, tile_col = lane % kTileCols;
-  for (;;) {
-    int tile = 0;
-    if (lane == 0) tile = atomicAdd(tile_scratch, 1);
-    tile = __shfl_sync(0xffffffffu, tile, 0);
-    if (tile >= n_tiles) break;
-    const int ty = tile / tiles_x;
-    const int row = ty * kTileRows + tile_row;
-    const int col = (tile - ty * tiles_x) * kTileCols + tile_col;
-    if (row < cfg.local_h && col < cfg.width) {
-      trace_pixel<kMode, kBf16, kDebug, kOctaves>(fr, a, cfg, row, col);
+    // --- the tiles: lane 0 takes the next one from tile_scratch[0], the
+    // warp traces its pixels -------------------------------------------------
+    const int tiles_x = (cfg.width + kTileCols - 1) / kTileCols;
+    const int n_tiles = tiles_x * ((cfg.local_h + kTileRows - 1) / kTileRows);
+    const int lane = threadIdx.x % 32;
+    const int tile_row = lane / kTileCols, tile_col = lane % kTileCols;
+    for (;;) {
+      int tile = 0;
+      if (lane == 0) tile = atomicAdd(tile_scratch, 1);
+      tile = __shfl_sync(0xffffffffu, tile, 0);
+      if (tile >= n_tiles) break;
+      const int ty = tile / tiles_x;
+      const int row = ty * kTileRows + tile_row;
+      const int col = (tile - ty * tiles_x) * kTileCols + tile_col;
+      if (row < cfg.local_h && col < cfg.width) {
+        trace_pixel<kMode, kBf16, kDebug, kOctaves>(fr, a, cfg, row, col);
+      }
     }
-  }
-  // Every warp's last fetch is done before it counts itself out in
-  // tile_scratch[1]; the last one out (of its frame) sets both back to 0.
-  if (lane == 0) {
-    __threadfence();
-    const int warps = static_cast<int>(gridDim.x * (blockDim.x / 32));
-    if (atomicAdd(tile_scratch + 1, 1) == warps - 1) {
-      atomicExch(tile_scratch, 0);
-      atomicExch(tile_scratch + 1, 0);
+    // Every warp's last fetch is done before it counts itself out in
+    // tile_scratch[1]; the last one out sets both back to 0.
+    if (lane == 0) {
+      __threadfence();
+      const int warps = static_cast<int>(gridDim.x * (blockDim.x / 32));
+      if (atomicAdd(tile_scratch + 1, 1) == warps - 1) {
+        atomicExch(tile_scratch, 0);
+        atomicExch(tile_scratch + 1, 0);
+      }
     }
   }
 }
@@ -298,13 +391,12 @@ struct Grid {
   int warps, blocks;
 };
 
-// The grid's x over one frame of n_tiles tiles (its y is the frames). A
-// frame that fills the card runs kWarpsPerBlock-warp blocks, as many as are
-// resident at once (the occupancy query, once per device and
-// instantiation), shared out evenly among the batch's frames (at least one
-// each); a smaller frame runs blocks of n_tiles / SMs warps (at least 1),
-// about one block per SM for each frame, so that its tiles spread over them
-// all.
+// The grid over a pool of n_tiles tiles of each of ``frames`` frames (its y
+// is the frames, its x the blocks over each). A pool that fills the card runs
+// kWarpsPerBlock-warp blocks, as many as are resident at once (the occupancy
+// query, once per device and instantiation); a smaller one runs blocks of
+// pool / SMs warps (at least 1), about one block per SM, so that its tiles
+// spread over them all. One frame is the pool of its own tiles.
 template <int kMode, bool kBf16, bool kDebug, int kOctaves, bool kFrames>
 cudaError_t grid_for(int n_tiles, int frames, Grid& g) {
   static int sms[kMaxDevices], resident[kMaxDevices];
@@ -325,18 +417,24 @@ cudaError_t grid_for(int n_tiles, int frames, Grid& g) {
     if (per_sm < 1) return cudaErrorLaunchOutOfResources;
     resident[dev] = per_sm * sms[dev];
   }
-  g.warps = std::max(1, std::min(kWarpsPerBlock, n_tiles / sms[dev]));
-  const int blocks = (n_tiles + g.warps - 1) / g.warps;
-  g.blocks = g.warps == kWarpsPerBlock ? std::min(blocks, std::max(1, resident[dev] / frames))
-                                        : blocks;
+  const int pool = n_tiles * frames;
+  g.warps = std::max(1, std::min(kWarpsPerBlock, pool / sms[dev]));
+  const int blocks = (pool + g.warps - 1) / g.warps;
+  const int total = g.warps == kWarpsPerBlock ? std::min(blocks, resident[dev]) : blocks;
+  g.blocks = (total + frames - 1) / frames;
   return cudaSuccess;
 }
+
+// The most tiles a launch's pool holds, so that its int32 counter, which
+// every warp takes once past the end, cannot overflow.
+constexpr long long kMaxPoolTiles = 1LL << 30;
 
 template <int kMode, bool kBf16, bool kDebug, int kOctaves, bool kFrames>
 cudaError_t launch_frames(const FwdArgs& a, const TraceConfig& cfg, int frames,
                           cudaStream_t stream) {
   const int n_tiles = ((cfg.width + kTileCols - 1) / kTileCols) *
                       ((cfg.local_h + kTileRows - 1) / kTileRows);
+  if (static_cast<long long>(n_tiles) * frames > kMaxPoolTiles) return cudaErrorInvalidValue;
   Grid g{};
   if (const cudaError_t err =
           grid_for<kMode, kBf16, kDebug, kOctaves, kFrames>(n_tiles, frames, g)) {
@@ -394,10 +492,11 @@ extern "C" {
 // null unless cfg.march_mode is kCompact, which launches compaction's phase 1
 // (cfg.phase 1, no counter, unprimed): it sets n_alive to 0 on the stream,
 // then the kernel writes frame b's survivors' pixel ids to its ids[0,
-// n_alive[b]). ``tile_scratch`` is two int32 of scratch per frame, which
-// must be 0 when the kernel starts and which it leaves at 0; launches that
-// may overlap (on different streams) need their own. ``frames`` is 1 to
-// kMaxFrames. The caller validates shapes, dtypes and contiguity.
+// n_alive[b]). ``tile_scratch`` is two int32 of scratch (the pool's counter
+// pair, the batch's too), which must be 0 when the kernel starts and which it
+// leaves at 0; launches that may overlap (on different streams) need their
+// own. ``frames`` is 1 to kMaxFrames, and a batch's tiles at most
+// kMaxPoolTiles. The caller validates shapes, dtypes and contiguity.
 int trace_fwd_launch(const float* packed, const int* seed, const float* prime,
                      float* color, float* t, float* hit, int* steps, float* alive,
                      float* prev, int* ids, int* n_alive, int* tile_scratch, TraceConfig cfg,

@@ -4,8 +4,10 @@ the rows' cotangent -> the leaves' gradients, one kernel launch each
 (``csrc/pack.cu``).
 
 * ``pack_frames`` is the wrapper: the rows of a batch of cameras, one per
-  frame, and where ``coarse`` asks for them the coarse prime pass's rows,
-  which differ only in the aspect and ROW0. On CUDA leaves it launches
+  frame, or of one camera over a batch of evenly spaced row blocks (a
+  row-band rank's interleaved stripes: a ROW0 per frame), and where
+  ``coarse`` asks for them the coarse prime pass's rows, which differ only
+  in the aspect and ROW0. On CUDA leaves it launches
   ``pack_kernel`` once for both, through an autograd Function whose
   backward is ``pack_vjp``: one launch of ``pack_vjp_kernel``, which writes
   each float leaf's gradient into a tensor of its own. The coarse rows carry
@@ -52,7 +54,7 @@ class PackLeaves(ctypes.Structure):
 
 
 class PackConfig(ctypes.Structure):
-    """``csrc/pack.cu:PackConfig``."""
+    """``csrc/pack.cu:PackConfig``: frame b's ROW0 is row0 + b·row0_step."""
 
     _fields_ = [
         ("frames", ctypes.c_int),
@@ -61,6 +63,8 @@ class PackConfig(ctypes.Structure):
         ("row0", ctypes.c_float),
         ("coarse_aspect", ctypes.c_float),
         ("coarse_row0", ctypes.c_float),
+        ("row0_step", ctypes.c_float),
+        ("coarse_row0_step", ctypes.c_float),
     ]
 
 
@@ -101,12 +105,29 @@ def _leaves(scene: Scene, cameras: Camera | Cameras) -> list[torch.Tensor]:
     return out
 
 
-def _layout(leaves: list[torch.Tensor], seed: torch.Tensor) -> tuple[int, int, list[int]]:
+def _spacing(row0s: tuple[float, ...]) -> tuple[float, float]:
+    """(first, step) of evenly spaced first rows (step 0 for one that every
+    frame shares), as the kernel rounds frame b's: float32(first) +
+    b·float32(step) equal to float32(row0s[b]) for every b (whole rows below
+    2^24 always are); else ValueError."""
+    first = torch.tensor(row0s[0], dtype=torch.float32)
+    step = torch.tensor(row0s[1] - row0s[0] if len(row0s) > 1 else 0.0, dtype=torch.float32)
+    got = first + torch.arange(len(row0s), dtype=torch.float32) * step
+    if not torch.equal(got, torch.tensor(row0s, dtype=torch.float32)):
+        raise ValueError(f"pack_frames: a row0 per frame must be evenly spaced, got {row0s}")
+    return float(first), float(step)
+
+
+def _layout(leaves: list[torch.Tensor], seed: torch.Tensor,
+            rows: int = 1) -> tuple[int, int, list[int]]:
     """Checks the leaves and returns (frames, octaves, frame strides): a
     camera leaf holds one value per frame (a leading frame axis) or one that
-    every frame shares; every other leaf is shared."""
+    every frame shares; every other leaf is shared. ``rows`` is the count of
+    first rows: one that every frame shares, or one per frame."""
     octaves = leaves[0].numel()
     lead, per_frame = set(), []
+    if rows > 1:
+        lead.add(rows)
     for name, x in zip(FLOAT_LEAVES, leaves):
         if x.device != seed.device:
             raise ValueError(f"pack_frames: {name} is on {x.device}, noise.seed on {seed.device}")
@@ -121,7 +142,7 @@ def _layout(leaves: list[torch.Tensor], seed: torch.Tensor) -> tuple[int, int, l
             raise ValueError(f"pack_frames: {name} has shape {tuple(x.shape)}")
         per_frame.append(framed)
     if len(lead) > 1:
-        raise ValueError(f"pack_frames: the camera leaves hold {sorted(lead)} frames")
+        raise ValueError(f"pack_frames: the camera leaves and row0 hold {sorted(lead)} frames")
     frames = lead.pop() if lead else 1
     if not 1 <= frames <= MAX_FRAMES:
         raise ValueError(f"pack_frames: {frames} cameras; a batch holds 1 to {MAX_FRAMES}")
@@ -131,27 +152,31 @@ def _layout(leaves: list[torch.Tensor], seed: torch.Tensor) -> tuple[int, int, l
 
 
 def pack_frames(scene: Scene, cameras: Camera | Cameras, height: int, width: int, row0=0.0,
-                coarse: tuple[int, int, float] | None = None):
+                coarse: tuple | None = None):
     """The packed rows of ``scene`` seen from each camera of ``cameras``:
     (packed float32 (B, AMPS + octaves), the coarse rows of the same shape or
     None, seed int32 (1, 1)), B the frames of ``cameras`` (1 for a
     ``Camera``). ``height``/``width`` are the full image's, ``row0`` the
-    first row of the block being rendered; ``coarse`` (height, width, row0)
-    asks for the coarse prime pass's rows too. Row b is bit for bit the row
-    of the one-camera call with camera b. On the card the kernel reads the
-    leaves by pointer, so a CUDA graph that captured this call packs what
-    they hold at each replay."""
+    first row of the block being rendered, or a sequence of B evenly spaced
+    first rows, one per frame (B blocks of one ``Camera``: a rank's stripes);
+    ``coarse`` (height, width, row0) asks for the coarse prime pass's rows
+    too, its row0 a number or a sequence in the same way. Row b is bit for
+    bit the row of the one-frame call with camera b and row0 b. On the card
+    the kernel reads the leaves by pointer, so a CUDA graph that captured
+    this call packs what they hold at each replay."""
     leaves = _leaves(scene, cameras)
     seed = scene.noise.seed.to(torch.int32).reshape(1, 1)
-    frames, octaves, strides = _layout(leaves, seed)
+    frames, octaves, strides = _layout(leaves, seed, len(pk.row0s(row0)))
     if seed.device.type == "cpu":
         packed = _plain_rows(scene, cameras, height, width, row0)
         with torch.no_grad():
             rows = None if coarse is None else _plain_rows(scene, cameras, *coarse)
         return packed, rows, seed
     ch, cw, crow0 = coarse or (height, width, row0)
-    cfg = PackConfig(frames=frames, num_octaves=octaves, aspect=width / height, row0=row0,
-                     coarse_aspect=cw / ch, coarse_row0=crow0)
+    (first, step), (cfirst, cstep) = (_spacing(pk.row0s(r)) for r in (row0, crow0))
+    cfg = PackConfig(frames=frames, num_octaves=octaves, aspect=width / height, row0=first,
+                     coarse_aspect=cw / ch, coarse_row0=cfirst, row0_step=step,
+                     coarse_row0_step=cstep)
     packed, rows = _Pack.apply(cfg, strides, coarse is not None, *leaves)
     return packed, rows, seed
 

@@ -29,13 +29,16 @@ channel pulls back through the bf16 field, as JAX's does. The pieces:
   launches (``trace_frame``'s, a ``Counter`` by instantiation, the two
   phases included). A CUDA input never falls back to the plain version: a
   failed build or launch raises.
-* ``trace_frames``, ``trace_phase1s`` and ``trace_phase2s`` are the same
-  for a batch of B frames of one scene (a row of packed scalars per frame,
-  a leading B on every per-pixel input and output): one launch for the
-  batch (the kernels' frame axis, blockIdx.y; the JAX package's ``vmap``
-  over its kernels), each frame bit for bit its one-frame launch. Their
-  launches count in ``trace_frame.launches``, as "+frames" instantiations
-  when B > 1 (a batch of one runs the one-frame kernel).
+* ``trace_frames``, ``trace_phase1s``, ``trace_phase2s`` and
+  ``trace_frames_bwd`` are the same for a batch of B frames of one scene (a
+  row of packed scalars per frame, a leading B on every per-pixel input and
+  output): one launch for the batch (the kernels' frame axis; the JAX
+  package's ``vmap`` over its kernels), each frame bit for bit its one-frame
+  launch. The forward's batch is one pool of tiles, which the resident warps
+  share whatever the frame, so frames that march unevenly (a row-band
+  rank's stripes) keep the card full. Their launches count in
+  ``trace_frame.launches`` and ``trace_frame_bwd.launches``, as "+frames"
+  instantiations when B > 1 (a batch of one runs the one-frame kernel).
 * The forward kernel (and phase 1) runs one thread per pixel, a warp per
   ``WARP_TILE`` (4x8) tile of pixels, on persistent warps: the grid is what
   fits on the card at once, and each warp takes its next tile from a counter
@@ -66,11 +69,14 @@ channel pulls back through the bf16 field, as JAX's does. The pieces:
   same packed scalar vector; ``trace_frames_reference``,
   ``trace_phase1s_reference`` and ``trace_phase2s_reference`` run them frame
   by frame over a batch.
-* ``render_kernel_raw`` renders a frame through ``trace_frame`` (the
-  scene packed once by ``kernels/pack.py:pack_frames``, whose one launch
-  writes the coarse pass's rows and the full pass's; coarse depth-prime
-  pass, prime map, full pass; or compaction's two phases) and returns its
-  (t, hit) too, and the per-lane step counts with
+* ``render_kernel_raw`` renders a frame, a band, or a rank's stripes of
+  one camera (a sequence of first rows, ``parallel/mesh.py:stripes``) as
+  one batch through ``trace_frames`` (the scene packed once by
+  ``kernels/pack.py:pack_frames``, whose one launch writes the coarse
+  pass's rows and the full pass's, a row per stripe; coarse depth-prime
+  pass, prime map, full pass; or compaction's two phases; one block runs
+  the one-frame kernels) and returns its (t, hit) too, and the per-lane
+  step counts with
   ``debug_steps``; it builds no autograd graph. ``tile_steps`` and
   ``warp_steps`` reduce those counts to what a (tile_h, 128) TPU tile and a
   warp of the CUDA kernel execute; ``warp_tile_pixels`` is the kernel's
@@ -78,11 +84,11 @@ channel pulls back through the bf16 field, as JAX's does. The pieces:
 * ``render_frames_raw`` renders a batch of frames of one scene, one per
   camera, through ``trace_frames``: the packing of every frame, then both
   passes of the batch (or compaction's two phases), one launch each.
-* ``render_kernel`` is the differentiable render of the kernel path: its
-  backward is ``trace_frame_bwd`` (``cfg.kernel_bwd``), whose packed-vector
-  cotangent ``kernels/pack.py``'s VJP kernel pulls back onto the scene's
-  leaves in one launch, or autograd through the plain re-shade at the saved
-  (t, hit).
+* ``render_kernel`` is the differentiable render of the kernel path, its
+  blocks as ``render_kernel_raw``'s: its backward is ``trace_frames_bwd``
+  (``cfg.kernel_bwd``), whose packed-vector cotangents ``kernels/pack.py``'s
+  VJP kernel pulls back onto the scene's leaves in one launch, or autograd
+  through the plain re-shade at the saved (t, hit).
 """
 
 from __future__ import annotations
@@ -196,8 +202,9 @@ def _check_tensors(packed, seed, cfg, local_height, named, permuted=(), lead=())
     """Raise on anything the kernels do not take. ``named`` maps a name to
     (tensor, required shape) for the per-pixel inputs; those named in
     ``permuted`` may also be the ``permute(2, 0, 1)`` view of a contiguous
-    (h, W, 3) tensor. ``lead`` is () for one frame, (B,) for a batch of B,
-    whose ``packed`` has a row per frame."""
+    (h, W, 3) tensor (of a batch: the ``permute(0, 3, 1, 2)`` view of a
+    contiguous (B, h, W, 3)). ``lead`` is () for one frame, (B,) for a batch
+    of B, whose ``packed`` has a row per frame."""
     _check_supported(cfg)
     n_params = pk.AMPS + cfg.num_octaves
     rows = lead[0] if lead else 1
@@ -224,7 +231,7 @@ def _check_tensors(packed, seed, cfg, local_height, named, permuted=(), lead=())
         if not x.is_contiguous():
             if name not in permuted:
                 raise ValueError("trace kernel inputs must be contiguous")
-            if not x.permute(1, 2, 0).is_contiguous():
+            if not x.permute(*range(len(lead)), -2, -1, -3).is_contiguous():
                 raise ValueError(f"trace kernel inputs must be contiguous ({name}: or the "
                                  f"permute(2, 0, 1) view of a contiguous (h, W, 3) tensor)")
 
@@ -358,10 +365,10 @@ def _library() -> ctypes.CDLL:
         TraceConfig, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.trace_compact_launch.restype = ctypes.c_int
-    lib.trace_bwd_scratch_floats.argtypes = [TraceBwdConfig]
+    lib.trace_bwd_scratch_floats.argtypes = [TraceBwdConfig, ctypes.c_int]
     lib.trace_bwd_scratch_floats.restype = ctypes.c_int
     lib.trace_bwd_launch.argtypes = [ctypes.c_void_p] * 7 + [
-        TraceBwdConfig, ctypes.c_void_p,
+        TraceBwdConfig, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.trace_bwd_launch.restype = ctypes.c_int
     lib.trace_error_string.argtypes = [ctypes.c_int]
@@ -384,8 +391,8 @@ def _ptr(x: torch.Tensor | None):
 # The kernels' scratch buffers by (device index, stream): the forward
 # kernel's tile counters (phase 2's slot counters too) and the backward's
 # partial sums.
-_TILE_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
-_BWD_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+_TILE_SCRATCH: dict[tuple[int, int, int], torch.Tensor] = {}
+_BWD_SCRATCH: dict[tuple[int, int, int], torch.Tensor] = {}
 
 
 def _stream_scratch(table: dict, dev, stream: int, numel: int, dtype: torch.dtype,
@@ -393,13 +400,14 @@ def _stream_scratch(table: dict, dev, stream: int, numel: int, dtype: torch.dtyp
     """A kernel's scratch for a launch on ``stream`` (``dev``'s current
     stream, as a handle): at least ``numel`` elements, the first
     ``counters`` of them zeros when made and left at 0 by every launch (the
-    rest the kernel writes before it reads). Made once per device and stream
-    (launches on one stream never overlap, so kernels that leave their
-    counters at 0 may share one), made anew larger when a launch needs more,
+    rest the kernel writes before it reads). Made once per device, stream and
+    count of counters (launches on one stream never overlap, so kernels that
+    leave their counters at 0 may share one; a batch's counters may lie where
+    a smaller batch's sums do), made anew larger when a launch needs more,
     and kept in ``table``; inside a CUDA graph's capture a new one for each
     launch, its counters zeroed by the graph."""
     capturing = torch.cuda.is_current_stream_capturing()
-    key = (dev.index, stream)
+    key = (dev.index, stream, counters)
     scratch = None if capturing else table.get(key)
     if scratch is None or scratch.numel() < numel:
         scratch = torch.empty(numel, dtype=dtype, device=dev)
@@ -585,10 +593,11 @@ def _launch_phase2(packed, seed, cfg, local_height, args, frames):
     trace_frame.launches[phase_name(cfg, 2, frames)] += 1
 
 
-def _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g) -> None:
+def _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g, lead=()) -> None:
     hw = (local_height, cfg.width)
     _check_tensors(packed, seed, cfg, local_height,
-                   {"t": (t, hw), "hit": (hit, hw), "g": (g, (3, *hw))}, permuted=("g",))
+                   {"t": (t, (*lead, *hw)), "hit": (hit, (*lead, *hw)),
+                    "g": (g, (*lead, 3, *hw))}, permuted=("g",), lead=lead)
 
 
 def trace_frame_bwd(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
@@ -610,36 +619,61 @@ def trace_frame_bwd(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
         return trace_bwd_reference(packed, seed, cfg, local_height, t, hit, g)
     if packed.device.type != "cuda":
         raise RuntimeError(f"trace_frame_bwd: unsupported device {packed.device}")
-    return _launch_bwd(packed.detach(), seed, cfg, local_height, t, hit, g)
+    return _launch_bwd(packed.detach(), seed, cfg, local_height, t, hit, g, 1)
 
 
 # Launches of the CUDA backward kernel by instantiation: "bwd", and
-# "bwd+bf16" (the march channel through the bf16 field) under march_bf16.
+# "bwd+bf16" (the march channel through the bf16 field) under march_bf16;
+# "+frames" for a batch of more than one frame (``trace_frames_bwd``).
 trace_frame_bwd.launches = collections.Counter()
 
 
-def _launch_bwd(packed, seed, cfg, local_height, t, hit, g):
+def trace_frames_bwd(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
+                     local_height: int, t: torch.Tensor, hit: torch.Tensor,
+                     g: torch.Tensor) -> torch.Tensor:
+    """``trace_frame_bwd`` over a batch of B frames of one scene, one launch
+    of each of its two stages for them all: ``packed`` (B, AMPS + octaves)
+    and ``seed`` as for ``trace_frames``, ``t`` and ``hit`` (B, h, W) its
+    outputs, ``g`` (B, 3, h, W) contiguous or the ``permute(0, 3, 1, 2)``
+    view of a contiguous (B, h, W, 3). Returns the packed-vector cotangent of
+    each frame, (B, AMPS + octaves), row b bit for bit ``trace_frame_bwd`` of
+    frame b (the kernels' frame axis, blockIdx.y; a batch of one runs the
+    one-frame kernels). CUDA inputs launch the CUDA kernels; CPU inputs run
+    ``trace_frames_bwd_reference``."""
+    lead = _frames(packed)
+    _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g, lead)
+    if packed.device.type == "cpu":
+        return trace_frames_bwd_reference(packed, seed, cfg, local_height, t, hit, g)
+    if packed.device.type != "cuda":
+        raise RuntimeError(f"trace_frames_bwd: unsupported device {packed.device}")
+    return _launch_bwd(packed.detach(), seed, cfg, local_height, t, hit, g, lead[0])
+
+
+def _launch_bwd(packed, seed, cfg, local_height, t, hit, g, frames):
     lib = _library()
     dev = packed.device
     n_pix = local_height * cfg.width
-    # (channel, pixel) strides: contiguous (3, h, W), else the view of (h, W, 3).
+    # (channel, pixel) strides within a frame: contiguous (3, h, W), else the
+    # view of (h, W, 3); frames lie 3·n_pix apart either way.
     g_strides = (n_pix, 1) if g.is_contiguous() else (1, 3)
     kcfg = TraceBwdConfig(height=cfg.height, width=cfg.width, local_h=local_height,
                           num_octaves=cfg.num_octaves, volumetric=int(cfg.volumetric),
                           warp_octaves=cfg.warp_octaves, bf16=int(cfg.march_bf16),
                           g_channel_stride=g_strides[0], g_pixel_stride=g_strides[1])
-    pbar = torch.empty((1, pk.AMPS + cfg.num_octaves), dtype=torch.float32, device=dev)
+    pbar = torch.empty((frames, pk.AMPS + cfg.num_octaves), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        # Its first float holds the second stage's counter (an int32).
+        # Its first floats hold the second stage's counters (an int32 per frame).
         scratch = _stream_scratch(_BWD_SCRATCH, dev, stream,
-                                  lib.trace_bwd_scratch_floats(kcfg), torch.float32, 1)
+                                  lib.trace_bwd_scratch_floats(kcfg, frames), torch.float32,
+                                  frames)
         err = lib.trace_bwd_launch(
             packed.data_ptr(), seed.data_ptr(), t.data_ptr(), hit.data_ptr(),
-            g.data_ptr(), scratch.data_ptr(), pbar.data_ptr(), kcfg, stream,
+            g.data_ptr(), scratch.data_ptr(), pbar.data_ptr(), kcfg, frames, stream,
         )
     _raise_on(lib, err, "trace_bwd")
-    trace_frame_bwd.launches["bwd+bf16" if cfg.march_bf16 else "bwd"] += 1
+    trace_frame_bwd.launches[("bwd+bf16" if cfg.march_bf16 else "bwd")
+                             + ("+frames" if frames > 1 else "")] += 1
     return pbar
 
 
@@ -1107,74 +1141,89 @@ def trace_bwd_reference(packed: torch.Tensor, seed: torch.Tensor,
     return th_bar + th_bar2
 
 
+def trace_frames_bwd_reference(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
+                               local_height: int, t: torch.Tensor, hit: torch.Tensor,
+                               g: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``trace_frames_bwd``: ``trace_bwd_reference`` of
+    each frame, stacked into (B, AMPS + octaves)."""
+    lead = _frames(packed)
+    _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g, lead)
+    return torch.cat([trace_bwd_reference(packed[b:b + 1], seed, cfg, local_height, t[b],
+                                          hit[b], g[b]) for b in range(lead[0])])
+
+
 def _packs(scene: Scene, cameras, cfg: RenderConfig, row0=0.0):
     """``kernels/pack.py:pack_frames`` for ``cfg``: (the rows of the frame
-    or band at ``row0``, the rows of its coarse prime pass or None when
-    ``cfg`` does not prime, seed), one launch for both on the card."""
+    or band at ``row0``, or of each stripe where ``row0`` is a sequence of
+    first rows, the rows of its coarse prime pass or None when ``cfg`` does
+    not prime, seed), one launch for both on the card."""
     coarse = None
     if cfg.prime_ds:
         ccfg = coarse_prime_cfg(cfg)
-        coarse = (ccfg.height, ccfg.width, row0 / cfg.prime_ds - 1.0)
+        coarse = (ccfg.height, ccfg.width,
+                  tuple(r / cfg.prime_ds - 1.0 for r in pk.row0s(row0)))
     return kpack.pack_frames(scene, cameras, cfg.height, cfg.width, row0, coarse)
 
 
 @torch.no_grad()
-def _prime(coarse, seed, cfg: RenderConfig, row0, local_height: int):
-    """The kernel path's depth-prime map (None when ``cfg`` does not prime,
-    so ``coarse`` is None): the coarse pass at 1/ds resolution with one halo
-    row above and below the band (row row0/ds - 1, height h/ds + 2, its rows
-    ``coarse`` from ``_packs``), traced by ``trace_frame`` and turned into
-    the prime map."""
+def _prime(coarse, seed, cfg: RenderConfig, row0s: tuple[float, ...], rows: int):
+    """The kernel path's depth-prime maps (None when ``cfg`` does not prime,
+    so ``coarse`` is None), (B, rows, W), one per frame of ``coarse``: of the
+    block of ``rows`` rows from its first row in ``row0s`` (one that every
+    frame shares: a band, or whole frames of a batch of cameras; or one per
+    frame: a rank's stripes), the coarse pass at 1/ds resolution with one
+    halo row above and below the block (row row0/ds - 1, height rows/ds + 2,
+    its rows ``coarse`` from ``_packs``), all frames in one ``trace_frames``
+    launch, turned into the prime maps."""
     if coarse is None:
         return None
-    check_prime_band(cfg, row0, local_height)
-    _, t_c, _ = trace_frame(coarse, seed, coarse_prime_cfg(cfg),
-                            local_height // cfg.prime_ds + 2)
+    for r in row0s:
+        check_prime_band(cfg, r, rows)
+    _, t_c, _ = trace_frames(coarse, seed, coarse_prime_cfg(cfg), rows // cfg.prime_ds + 2)
     return prime_from_coarse(t_c, cfg)
 
 
 @torch.no_grad()
 def _prime_map(scene: Scene, cfg: RenderConfig, row0, local_height: int):
-    """``_prime`` of the scene packed here."""
+    """The (local_height, W) prime map of the band at ``row0``, packed
+    here (None when ``cfg`` does not prime)."""
     _, coarse, seed = _packs(scene, scene.camera, cfg, row0)
-    return _prime(coarse, seed, cfg, row0, local_height)
+    t0p = _prime(coarse, seed, cfg, pk.row0s(row0), local_height)
+    return None if t0p is None else t0p[0]
 
 
 @torch.no_grad()
 def render_kernel_raw(scene: Scene, cfg: RenderConfig, row0=0.0,
                       local_height: int | None = None, debug_steps: bool = False):
-    """Render a full frame or a row band through ``trace_frame``:
-    (color (h, W, 3), t (h, W), hit bool (h, W)), plus the fine pass's
-    per-lane step counts (``trace_frame``) with ``debug_steps``.
+    """Render a full frame, a row band or a rank's stripes (``row0`` a
+    sequence of first rows, splitting ``local_height`` evenly) through
+    ``trace_frames``: (color (h, W, 3), t (h, W), hit bool (h, W)), the
+    stripes' rows one after another, plus the fine pass's per-lane step
+    counts with ``debug_steps``.
 
-    The scene packs once (``_packs``: the coarse and the fine rows); with
-    ``cfg.prime_ds`` it first traces the coarse depth-prime pass
-    (``_prime``) and then traces the band from it: two launches of the
-    trace kernel per frame."""
-    h = cfg.height if local_height is None else local_height
-    packed, coarse, seed = _packs(scene, scene.camera, cfg, row0)
-    t0p = _prime(coarse, seed, cfg, row0, h)
-    color, t, hit_f, *steps = trace_frame(packed, seed, cfg, h, t0p, debug_steps)
-    return (color.permute(1, 2, 0), t, hit_f > 0.5, *steps)
+    The scene packs once (``_packs``: the coarse and the fine rows, a row
+    per block); with ``cfg.prime_ds`` it first traces the coarse depth-prime
+    pass (``_prime``) and then the blocks from it: two launches of the trace
+    kernel (the one-frame kernel for one block)."""
+    row0s, rows = pk.row_blocks(row0, local_height, cfg.height)
+    packed, coarse, seed = _packs(scene, scene.camera, cfg, row0s)
+    t0p = _prime(coarse, seed, cfg, row0s, rows)
+    color, t, hit_f, *steps = trace_frames(packed, seed, cfg, rows, t0p, debug_steps)
+    return (_stacked(color.permute(0, 2, 3, 1)), _stacked(t), _stacked(hit_f) > 0.5,
+            *map(_stacked, steps))
 
 
-@torch.no_grad()
-def _primes(coarse, seed, cfg: RenderConfig):
-    """``_prime`` of whole frames for a batch: the coarse passes of all
-    frames (their rows ``coarse``) in one ``trace_frames`` launch, then their
-    (B, h, w) prime maps (None when ``cfg`` does not prime)."""
-    if coarse is None:
-        return None
-    check_prime_band(cfg, 0.0, cfg.height)
-    _, t_c, _ = trace_frames(coarse, seed, coarse_prime_cfg(cfg), cfg.height // cfg.prime_ds + 2)
-    return prime_from_coarse(t_c, cfg)
+def _stacked(x: torch.Tensor) -> torch.Tensor:
+    """A batch's (B, h, W, ...) as its frames' rows one after another,
+    (B·h, W, ...): a view where one frame is."""
+    return x.reshape(-1, *x.shape[2:])
 
 
 @torch.no_grad()
 def _prime_maps(scene: Scene, cameras: Cameras, cfg: RenderConfig):
-    """``_primes`` of the batch packed here."""
+    """``_prime`` of the batch of whole frames packed here, (B, H, W)."""
     _, coarse, seed = _packs(scene, cameras, cfg)
-    return _primes(coarse, seed, cfg)
+    return _prime(coarse, seed, cfg, (0.0,), cfg.height)
 
 
 @torch.no_grad()
@@ -1199,7 +1248,7 @@ def render_frames_raw(scene: Scene, cameras: Cameras, cfg: RenderConfig):
         color, t, hit = render_frames_raw(scene, cameras, hi_cfg)
         return torch.stack([box_downsample(c, ss) for c in color]), t, hit
     packed, coarse, seed = _packs(scene, cameras, cfg)
-    t0p = _primes(coarse, seed, cfg)
+    t0p = _prime(coarse, seed, cfg, (0.0,), cfg.height)
     color, t, hit_f = trace_frames(packed, seed, cfg, cfg.height, t0p)
     return color.permute(0, 2, 3, 1), t, hit_f > 0.5
 
@@ -1213,19 +1262,21 @@ def _float_leaves(scene: Scene) -> list[torch.Tensor]:
 
 
 class _KernelRender(torch.autograd.Function):
-    """Colour (h, W, 3) from ``trace_frame`` at ``packed``; the backward
-    pulls the cotangent back at the saved (t, hit): onto ``packed`` by
-    ``trace_frame_bwd`` (cfg.kernel_bwd), else onto ``leaves`` by autograd
-    through ``render_from_checkpoint``. Either way autograd carries it on to
-    the scene's parameters (through ``kernels/pack.py``'s VJP, or
-    directly)."""
+    """Colour (B·h, W, 3) of B blocks of ``rows`` rows (a band, or a rank's
+    stripes) from ``trace_frames`` at ``packed``, their rows one block after
+    another; the backward pulls the cotangent back at the saved (t, hit):
+    onto ``packed`` by ``trace_frames_bwd`` (cfg.kernel_bwd), else onto
+    ``leaves`` by autograd through ``render_from_checkpoint`` of each block.
+    Either way autograd carries it on to the scene's parameters (through
+    ``kernels/pack.py``'s VJP, which sums the blocks' rows, or directly).
+    One block launches the one-frame kernels."""
 
     @staticmethod
-    def forward(ctx, scene, cfg, row0, local_height, t0p, seed, packed, *leaves):
-        color, t, hit = trace_frame(packed, seed, cfg, local_height, t0p)
-        ctx.scene, ctx.cfg, ctx.row0, ctx.local_height = scene, cfg, row0, local_height
+    def forward(ctx, scene, cfg, row0s, rows, t0p, seed, packed, *leaves):
+        color, t, hit = trace_frames(packed, seed, cfg, rows, t0p)
+        ctx.scene, ctx.cfg, ctx.row0s, ctx.rows = scene, cfg, row0s, rows
         ctx.save_for_backward(packed, seed, t, hit, *leaves)
-        return color.permute(1, 2, 0)
+        return _stacked(color.permute(0, 2, 3, 1))
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -1234,18 +1285,20 @@ class _KernelRender(torch.autograd.Function):
         cfg = ctx.cfg
         none = (None,) * 6
         if cfg.kernel_bwd:
-            # The kernel reads g's (h, W, 3) layout as it is; any other
+            # The kernel reads g's (B, h, W, 3) layout as it is; any other
             # (a broadcast cotangent, say) is copied.
-            gp = g.permute(2, 0, 1)
+            g = g.reshape(len(ctx.row0s), ctx.rows, cfg.width, 3)
+            gp = g.permute(0, 3, 1, 2)
             if not (gp.is_contiguous() or g.is_contiguous()):
                 gp = gp.contiguous()
-            pbar = trace_frame_bwd(packed, seed, cfg, ctx.local_height, t, hit, gp)
+            pbar = trace_frames_bwd(packed, seed, cfg, ctx.rows, t, hit, gp)
             return none + (pbar,) + (None,) * len(leaves)
         from gpgpuraytrace_tpu_torch.ops.render import render_from_checkpoint
 
         with torch.enable_grad():
-            img = render_from_checkpoint(ctx.scene, cfg, t, hit > 0.5, ctx.row0,
-                                         ctx.local_height)
+            img = torch.cat([render_from_checkpoint(ctx.scene, cfg, t[b], hit[b] > 0.5, r,
+                                                    ctx.rows)
+                             for b, r in enumerate(ctx.row0s)])
             bars = torch.autograd.grad(img, leaves, grad_outputs=g, allow_unused=True)
         return none + (None,) + bars
 
@@ -1253,11 +1306,16 @@ class _KernelRender(torch.autograd.Function):
 def render_kernel(scene: Scene, cfg: RenderConfig, row0=0.0,
                   local_height: int | None = None) -> torch.Tensor:
     """Differentiable render through the trace kernels: (h, W, 3) linear RGB
-    (counterpart of ``render_pallas``). The forward is ``render_kernel_raw``'s
-    two launches after one pack launch; the prime map carries no gradient,
-    the packed rows carry it to the scene's leaves (one VJP launch)."""
-    h = cfg.height if local_height is None else local_height
-    packed, coarse, seed = _packs(scene, scene.camera, cfg, row0)
-    t0p = _prime(coarse, seed, cfg, row0, h)
+    (counterpart of ``render_pallas``) of the frame, the band of
+    ``local_height`` rows at ``row0``, or where ``row0`` is a sequence of
+    first rows, the stripes that split ``local_height`` rows evenly, their
+    rows one stripe after another. The forward is ``render_kernel_raw``'s
+    two launches after one pack launch (a row per stripe); the prime map
+    carries no gradient, the packed rows carry it to the scene's leaves:
+    backward one launch pair and one VJP launch, which sums the stripes'
+    cotangents."""
+    row0s, rows = pk.row_blocks(row0, local_height, cfg.height)
+    packed, coarse, seed = _packs(scene, scene.camera, cfg, row0s)
+    t0p = _prime(coarse, seed, cfg, row0s, rows)
     leaves = () if cfg.kernel_bwd else _float_leaves(scene)
-    return _KernelRender.apply(scene, cfg, row0, h, t0p, seed, packed, *leaves)
+    return _KernelRender.apply(scene, cfg, row0s, rows, t0p, seed, packed, *leaves)

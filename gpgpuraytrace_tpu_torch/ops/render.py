@@ -6,7 +6,9 @@ scene parameter. With ``cfg.use_kernel`` (the default) it runs the trace
 kernel path (``kernels/trace.py:render_kernel``: the hand-written CUDA
 kernels on a CUDA scene, their plain PyTorch versions on a CPU scene);
 otherwise the plain op-by-op path ``render_torch``, whose march backward is
-the implicit-function VJP of ``ops/march.py``.
+the implicit-function VJP of ``ops/march.py``. It renders the whole frame, a
+row band, or a batch of stripes (a row-band rank's interleaved stripes,
+``parallel/mesh.py:stripes``) one after another.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from gpgpuraytrace_tpu_torch.ops.march import (
     prime_from_coarse,
 )
 from gpgpuraytrace_tpu_torch.ops.shade import shade
+from gpgpuraytrace_tpu_torch.utils.packing import row0s, row_blocks
 
 
 @torch.no_grad()
@@ -53,10 +56,15 @@ def _march_torch(scene: Scene, cfg: RenderConfig, ray_o, ray_d, row0,
 
 def render_torch(scene: Scene, cfg: RenderConfig, row0=0.0,
                  local_height: int | None = None) -> torch.Tensor:
-    """Plain PyTorch render: (h, W, 3) linear RGB."""
-    ray_o, ray_d = generate_rays(scene.camera, cfg.height, cfg.width, row0,
-                                 local_height)
-    t, hit = _march_torch(scene, cfg, ray_o, ray_d, row0, local_height)
+    """Plain PyTorch render: (h, W, 3) linear RGB of ``render``'s rows, each
+    block (the band, or each stripe) rendered alone."""
+    row0s, rows = row_blocks(row0, local_height, cfg.height)
+    return torch.cat([_render_block(scene, cfg, r, rows) for r in row0s])
+
+
+def _render_block(scene: Scene, cfg: RenderConfig, row0: float, rows: int) -> torch.Tensor:
+    ray_o, ray_d = generate_rays(scene.camera, cfg.height, cfg.width, row0, rows)
+    t, hit = _march_torch(scene, cfg, ray_o, ray_d, row0, rows)
     return shade(ray_o, ray_d, t, hit, scene.noise, scene.materials,
                  cfg.volumetric, cfg.warp_octaves)
 
@@ -97,7 +105,13 @@ def box_downsample(img: torch.Tensor, ss: int) -> torch.Tensor:
 
 def render(scene: Scene, cfg: RenderConfig, row0=0.0,
            local_height: int | None = None) -> torch.Tensor:
-    """Main entry: (h, W, 3) linear RGB of a full frame or a row band.
+    """Main entry: (h, W, 3) linear RGB of a full frame or a row band of
+    ``local_height`` rows at ``row0``.
+
+    ``row0`` may instead be a sequence of the first rows of B stripes that
+    split the ``local_height`` rows evenly: their rows one stripe after
+    another, the same as each stripe rendered alone and concatenated (the
+    kernel path renders them as one batch).
 
     ``cfg.supersample`` > 1 renders at k× resolution and box-downsamples."""
     ss = cfg.supersample
@@ -106,7 +120,8 @@ def render(scene: Scene, cfg: RenderConfig, row0=0.0,
             cfg, height=cfg.height * ss, width=cfg.width * ss, supersample=1
         )
         lh = None if local_height is None else local_height * ss
-        return box_downsample(render(scene, hi_cfg, row0 * ss, lh), ss)
+        # A stripe is whole ss-row blocks, so the stripes downsample together.
+        return box_downsample(render(scene, hi_cfg, [r * ss for r in row0s(row0)], lh), ss)
     if cfg.use_kernel:
         return render_kernel(scene, cfg, row0, local_height)
     return render_torch(scene, cfg, row0, local_height)

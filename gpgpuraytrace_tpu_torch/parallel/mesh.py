@@ -2,12 +2,21 @@
 ``gpgpuraytrace_tpu/parallel/mesh.py``).
 
 The frame's rows split evenly over every rank of one ``torch.distributed``
-group: rank r renders rows [r·h, (r + 1)·h), h = height / world size. Scene
-parameters are replicated; parameter gradients are summed with
-``all_reduce`` (``parallel/sharded.py``). The group runs NCCL for CUDA
-ranks and gloo on the CPU. NCCL puts one rank on each card: a rank binds the
-card of its ``LOCAL_RANK`` (``rank_device``), so a machine with one card
-runs a group of world size 1.
+group, h = height / world size rows each. ``band`` is the contiguous split
+the JAX package uses: rank r's rows [r·h, (r + 1)·h). A rank of the port
+renders its h rows as interleaved stripes instead (``stripes``): the frame
+cut into stripes of S rows, dealt round-robin, rank r taking stripes r,
+r + N, r + 2N, ... of N ranks. A camera that looks at the horizon puts sky
+in the top rows and the longest marches just below the horizon; with one
+contiguous band each, the rank that holds the horizon sets every step's
+time, while every rank's stripes sample the whole frame, and keep doing so
+as a trained camera moves. S comes from the shape alone (``stripe_rows``);
+a rank of few rows keeps one stripe, its band. Scene parameters are
+replicated; parameter gradients are summed with ``all_reduce``
+(``parallel/sharded.py``). The group runs NCCL for CUDA ranks and gloo on
+the CPU. NCCL puts one rank on each card: a rank binds the card of its
+``LOCAL_RANK`` (``rank_device``), so a machine with one card runs a group of
+world size 1.
 """
 
 from __future__ import annotations
@@ -93,12 +102,25 @@ def all_reduce(t: torch.Tensor) -> None:
 all_reduce.launches = collections.Counter()
 
 
+# The least rows of a stripe, and the least stripes a rank splits into (else
+# it keeps its band): S = 36 at 4K over 4 ranks (prime_ds 4). Of the card's
+# readings of S = 36, 60 and 108 there (each rank's step alone, the slowest
+# rank 1.131, 1.154 and 1.158 ms against 1.345 for the bands, PERF.md) the
+# least; smaller stripes cost more halo rows in the coarse pass.
+STRIPE_ROWS = 32
+MIN_STRIPES = 2
+
+
 def band(cfg: RenderConfig, rank: int | None = None,
          world_size: int | None = None) -> tuple[float, int]:
-    """(row0, local_height) of ``rank``'s band (default: this process's).
-    The height must divide evenly; a primed config (``prime_ds``) needs
-    bands of whole coarse rows too, which ``render`` checks
-    (``ops/march.py:check_prime_band``)."""
+    """(row0, local_height) of ``rank``'s contiguous band (default: this
+    process's): the JAX package's split, which ``scripts/torch_mesh_bands.py``
+    times. A rank renders the same count of rows as its stripes
+    (``stripes``), so the bands' rows summed over the ranks are the whole
+    frame either way: a count of work per rank over the bands (a roofline's)
+    sums to the frame's. The height must divide evenly; a primed config
+    (``prime_ds``) needs bands of whole coarse rows too, which ``render``
+    checks (``ops/march.py:check_prime_band``)."""
     r, n = world()
     rank = r if rank is None else rank
     world_size = n if world_size is None else world_size
@@ -107,3 +129,32 @@ def band(cfg: RenderConfig, rank: int | None = None,
                          f"{world_size} ranks")
     local_height = cfg.height // world_size
     return float(rank * local_height), local_height
+
+
+def stripe_rows(cfg: RenderConfig, world_size: int) -> int:
+    """S, the rows of a stripe of each of ``world_size`` ranks' h =
+    height / world size: the least multiple of ``prime_ds`` (of 1 when
+    unprimed) that divides h and is at least ``STRIPE_ROWS``, so that every
+    stripe is whole coarse rows; h itself (one stripe, the band) where no
+    such S gives ``MIN_STRIPES`` stripes or more, and for a group of one."""
+    h = cfg.height // world_size
+    q = cfg.prime_ds or 1
+    if world_size > 1:
+        for s in range(q, h // MIN_STRIPES + 1, q):
+            if s >= STRIPE_ROWS and h % s == 0:
+                return s
+    return h
+
+
+def stripes(cfg: RenderConfig, rank: int | None = None,
+            world_size: int | None = None) -> tuple[tuple[float, ...], int]:
+    """(the first rows of ``rank``'s stripes in order, S) (default: this
+    process's): stripes of S = ``stripe_rows`` rows dealt round-robin, rank r
+    of N taking stripes r, r + N, ..., whose first rows are (j·N + r)·S. The
+    ranks' stripes tile the frame once; one stripe is the rank's band."""
+    r, n = world()
+    rank = r if rank is None else rank
+    world_size = n if world_size is None else world_size
+    _, h = band(cfg, rank, world_size)
+    s = stripe_rows(cfg, world_size)
+    return tuple(float((j * world_size + rank) * s) for j in range(h // s)), s

@@ -1,13 +1,18 @@
 """Row-band render and fit over a process group (counterpart of
 ``gpgpuraytrace_tpu/parallel/sharded.py``).
 
-Each rank renders its band (``mesh.band``) through ``render(scene, cfg,
-row0, local_height)``, the kernels taking the band's first row; the forward
-needs no collective. Training sums over the bands: each rank's loss is
-``sum(d²) / (H·W·3)`` over its rows, so the sum over ranks is the frame's
-mean, and one ``all_reduce`` (sum) per trainable parameter, plus one for the
-loss, gives every rank the whole frame's gradient; each rank then takes the
-same Adam step on its replica of the parameters.
+Each rank renders its rows, its interleaved stripes (``mesh.stripes``),
+through ``render(scene, cfg, row0s, h)``, h its row count: the kernels
+take the stripes as one frame-axis batch of the one camera, each frame's
+packed row its stripe's first row (one stripe: the band as the JAX
+package's ``mesh.band`` gives it). The forward needs no
+collective. Training sums over the ranks: each rank's loss is ``sum(d²) /
+(H·W·3)`` over its rows, so the sum over ranks is the frame's mean, and one
+``all_reduce`` (sum) per trainable parameter, plus one for the loss, gives
+every rank the whole frame's gradient; each rank then takes the same Adam
+step on its replica of the parameters. A rank's target is its stripes' rows
+in stripe order (``shard_target``); ``sharded_render`` puts the gathered
+stripes back in frame order.
 
 On the card the training step (``make_sharded_fit_step``) runs as one CUDA
 graph, the counterpart of the reference's ``@jax.jit`` step
@@ -26,36 +31,41 @@ import torch.distributed as dist
 from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
 from gpgpuraytrace_tpu_torch.models.scene import RenderConfig, Scene
 from gpgpuraytrace_tpu_torch.ops.render import render
-from gpgpuraytrace_tpu_torch.parallel.mesh import all_reduce, band, world
+from gpgpuraytrace_tpu_torch.parallel.mesh import all_reduce, band, stripes, world
 from gpgpuraytrace_tpu_torch.utils.graphs import CapturedProgram
 
 
 def shard_target(target: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
-    """This rank's rows of the whole (H, W, 3) ``target``."""
-    row0, h = band(cfg)
-    return target[int(row0):int(row0) + h]
+    """This rank's rows of the whole (H, W, 3) ``target``: its stripes', in
+    stripe order."""
+    row0s, s = stripes(cfg)
+    return torch.cat([target[int(r):int(r) + s] for r in row0s])
 
 
 @torch.no_grad()
 def sharded_render(scene: Scene, cfg: RenderConfig, gather: bool = True) -> torch.Tensor:
-    """This rank's band (h, W, 3) or, with ``gather``, the whole frame
-    (H, W, 3) assembled by ``all_gather`` on every rank. Serving: builds no
-    autograd graph."""
-    row0, h = band(cfg)
-    img = render(scene, cfg, row0, h)
+    """This rank's rows (h, W, 3), its stripes in stripe order, or, with
+    ``gather``, the whole frame (H, W, 3) assembled by ``all_gather`` on every
+    rank and put back in frame order. Serving: builds no autograd graph."""
+    row0s, s = stripes(cfg)
+    img = render(scene, cfg, row0s, len(row0s) * s)
     _, n = world()
     if not gather or n == 1:
         return img
     parts = [torch.empty_like(img) for _ in range(n)]
     dist.all_gather(parts, img.contiguous())
-    return torch.cat(parts)
+    # Rank r's stripe j is the frame's stripe j·n + r.
+    frame = torch.stack(parts).reshape(n, len(row0s), s, cfg.width, 3).transpose(0, 1)
+    return frame.reshape(cfg.height, cfg.width, 3)
 
 
 def band_loss_and_grad(scene: Scene, params: list[torch.nn.Parameter], cfg: RenderConfig,
-                       target_local: torch.Tensor, row0: float, local_height: int):
-    """(loss, grads) of one band alone: the band's share sum(d²) / (H·W·3)
+                       target_local: torch.Tensor, row0, local_height: int):
+    """(loss, grads) of one rank's rows alone: their share sum(d²) / (H·W·3)
     of the frame's mean squared pixel error and its gradient with respect
-    to ``params``, no collective."""
+    to ``params``, no collective. The rows are the ``local_height`` rows of
+    the band at ``row0``, or, where ``row0`` is a sequence of first rows, of
+    those stripes, which split them evenly, one after another (``render``)."""
     d = render(scene, cfg, row0, local_height) - target_local
     loss = torch.sum(d * d) * (1.0 / (cfg.height * cfg.width * 3))
     grads = list(torch.autograd.grad(loss, params, materialize_grads=True))
@@ -74,17 +84,24 @@ def sharded_loss_and_grad(scene: Scene, params: list[torch.nn.Parameter],
                           cfg: RenderConfig, target_local: torch.Tensor):
     """(loss, grads): the whole frame's mean squared pixel error and its
     gradient with respect to ``params`` (``ops/fit.py:partition_scene``'s),
-    computed band-wise. ``target_local`` is this rank's band of the target
-    (``shard_target``). Every rank gets the same values: the band sums go
-    through one ``all_reduce`` for the loss and one per parameter (the
-    reference's per-leaf ``psum``; none in a group of one)."""
-    row0, h = band(cfg)
-    loss, grads = band_loss_and_grad(scene, params, cfg, target_local, row0, h)
+    computed rank by rank over each rank's stripes. ``target_local`` is this
+    rank's rows of the target (``shard_target``). Every rank gets the same
+    values: the ranks' sums go through one ``all_reduce`` for the loss and
+    one per parameter (the reference's per-leaf ``psum``; none in a group of
+    one). ``sharded_loss_and_grad.stripes`` counts the stripes rendered, as
+    the kernels' launch counters count (a CUDA graph's capture once, its
+    replays not)."""
+    row0s, s = stripes(cfg)
+    sharded_loss_and_grad.stripes += len(row0s)
+    loss, grads = band_loss_and_grad(scene, params, cfg, target_local, row0s, len(row0s) * s)
     if world()[1] > 1:
         all_reduce(loss)
         for g in grads:
             all_reduce(g)
     return loss, grads
+
+
+sharded_loss_and_grad.stripes = 0
 
 
 def fit_step_eager(scene: Scene, cfg: RenderConfig, params: list[torch.nn.Parameter],
@@ -125,7 +142,7 @@ class ShardedFitStep:
         self.graphed = device.type == "cuda"
         self.program = self.target = None
         if self.graphed:
-            _, h = band(cfg)
+            _, h = band(cfg)  # the rows of the rank's stripes
             self.target = torch.empty((h, cfg.width, 3), dtype=torch.float32, device=device)
             self.program = CapturedProgram(
                 functools.partial(fit_step_eager, *self.args, self.target), device)

@@ -13,8 +13,11 @@ first step eager, every later one a replay of its CUDA graph), and as many
 eager steps (``ShardedFitStep.eager``) from a copy, which must give the
 same losses and parameters bit for bit. It prints the loss's hex and the
 last fit loss's, which every rank must print alike. ``--out DIR`` writes
-``DIR/rank{r}.npz``: the gathered frame, the band, the loss, the gradient
-of each trainable parameter, the fit's losses and its fitted parameters.
+``DIR/rank{r}.npz``: the gathered frame, the rank's rows of it (its stripes
+in stripe order, ``shard_target``; one stripe: its band), the loss, the
+gradient of each trainable parameter, the stripes its loss and gradient
+rendered (``sharded_loss_and_grad.stripes``), the fit's losses and its
+fitted parameters.
 
 ``--time-k K`` (the counterpart of the reference worker's ``WORKER_TIME_K``
 and of ``bench.py``'s ``_MESH_CODE``, which time one jitted ``fori_loop`` of
@@ -55,7 +58,7 @@ from gpgpuraytrace_tpu_torch.models.scene import RenderConfig, default_scene
 from gpgpuraytrace_tpu_torch.ops.fit import make_optimizer, partition_scene
 from gpgpuraytrace_tpu_torch.ops.render import render
 from gpgpuraytrace_tpu_torch.parallel.launch import distributed_context
-from gpgpuraytrace_tpu_torch.parallel.mesh import band, rank_device, world
+from gpgpuraytrace_tpu_torch.parallel.mesh import rank_device, world
 from gpgpuraytrace_tpu_torch.parallel.sharded import (
     make_sharded_fit_step, shard_target, sharded_loss_and_grad, sharded_render, step_launches,
 )
@@ -72,7 +75,6 @@ def scaled(scene, factor: float):
 def run(device, cfg: RenderConfig, fit_steps: int) -> dict:
     """This rank's part of the job; the results on the host."""
     scene = default_scene(cfg.num_octaves, device=device)
-    row0, h = band(cfg)
     frame = sharded_render(scene, cfg)
     with torch.no_grad():
         whole = render(scene, cfg)
@@ -82,7 +84,9 @@ def run(device, cfg: RenderConfig, fit_steps: int) -> dict:
         target = render(scaled(scene, 1.2), cfg)
     params = partition_scene(scene)
     names = [n for n, p in scene.named_parameters() if p.requires_grad]
+    counted = sharded_loss_and_grad.stripes
     loss, grads = sharded_loss_and_grad(scene, params, cfg, shard_target(target, cfg))
+    stripes = sharded_loss_and_grad.stripes - counted
     fit_target = shard_target(whole, cfg)
     fits = []
     for _ in range(2):
@@ -97,8 +101,8 @@ def run(device, cfg: RenderConfig, fit_steps: int) -> dict:
         torch.equal(a, b) for a, b in zip(bad_params, twin_params))
     replays = max(step.program.calls - 1, 0) if step.graphed else 0
     step.close()  # before the group goes: NCCL waits for graphs holding its collectives
-    return {"frame": frame.cpu().numpy(), "band": frame[int(row0):int(row0) + h].cpu().numpy(),
-            "bitwise": torch.equal(frame, whole), "loss": loss.item(),
+    return {"frame": frame.cpu().numpy(), "band": shard_target(frame, cfg).cpu().numpy(),
+            "bitwise": torch.equal(frame, whole), "loss": loss.item(), "stripes": stripes,
             "grads": {n: g.cpu().numpy() for n, g in zip(names, grads)},
             "fit_losses": np.asarray(fit_losses),
             "fit_params": {n: p.detach().cpu().numpy() for n, p in zip(names, bad_params)},
@@ -161,7 +165,8 @@ def main(argv=None) -> None:
         r = run(device, cfg, a.fit_steps)
         if a.out:
             np.savez(os.path.join(a.out, f"rank{rank}.npz"), frame=r["frame"],
-                     band=r["band"], loss=r["loss"], fit_losses=r["fit_losses"],
+                     band=r["band"], loss=r["loss"], stripes=r["stripes"],
+                     fit_losses=r["fit_losses"],
                      **{f"grad.{n}": g for n, g in r["grads"].items()},
                      **{f"fit.{n}": v for n, v in r["fit_params"].items()})
         fit = r["fit_losses"]

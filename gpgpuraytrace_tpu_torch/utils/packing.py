@@ -7,7 +7,8 @@ On the card the rows are packed by a kernel (``kernels/pack.py``, from
 and the normalised sun direction on the device and pulls the rows' cotangent
 back onto the leaves. The functions here are that kernel's plain version and
 run on CPU tensors only: a leaf on another device raises. ``pack_scenes``
-packs one scene for a batch of cameras: a row per frame.
+packs one scene for a batch of cameras, or for one camera over several row
+blocks (a row-band rank's interleaved stripes): a row per frame.
 """
 
 from __future__ import annotations
@@ -47,6 +48,25 @@ WARP_FREQ = 49  # volumetric 3D warp base frequency
 AMPS = 50  # num_octaves amplitudes
 
 
+def row0s(row0) -> tuple[float, ...]:
+    """The first rows of the row blocks being rendered, as floats: one
+    (``row0`` a number), which every frame of a batch shares, or one per
+    frame (``row0`` a sequence: a row-band rank's stripes of one camera).
+    Every layer that takes a ``row0`` reads it through this."""
+    return tuple(float(r) for r in row0) if isinstance(row0, (tuple, list)) else (float(row0),)
+
+
+def row_blocks(row0, local_height: int | None, height: int) -> tuple[tuple[float, ...], int]:
+    """(the blocks' first rows, the rows of each) of ``local_height`` rows
+    (default ``height``, the whole frame) rendered from ``row0``: one block,
+    or the stripes of a sequence of first rows, which split them evenly."""
+    rows = row0s(row0)
+    h = height if local_height is None else local_height
+    if h % len(rows):
+        raise ValueError(f"{h} rows do not split evenly into {len(rows)} stripes")
+    return rows, h // len(rows)
+
+
 def pack_scene(scene: Scene, height: int, width: int, row0=0.0):
     """Returns (packed float32 (1, AMPS + octaves), seed int32 (1, 1)) on the
     scene's device. ``height``/``width`` are the full image dims; ``row0``
@@ -62,7 +82,9 @@ def pack_scenes(scene: Scene, cameras: Camera | Cameras, height: int, width: int
     cameras, row b bit for bit ``pack_scene`` of the scene with frame b's
     camera (the camera columns are computed for all frames at once, entry by
     entry as for one; the scene's other scalars are packed once); a single
-    ``Camera`` gives (AMPS + octaves,)."""
+    ``Camera`` gives (AMPS + octaves,). ``row0`` is one first row for every
+    frame, or a sequence of B, frame b's block starting at row ``row0[b]``
+    (with a single ``Camera``: B rows of the one camera)."""
     leaves = [cameras.position, cameras.yaw, cameras.pitch, cameras.fov_y]
     leaves += [operator.attrgetter(name)(scene) for name in LEAF_NAMES
                if not name.startswith("camera.")]
@@ -78,7 +100,9 @@ def _pack_scenes(scene: Scene, cameras: Camera | Cameras, height: int, width: in
     to this on the card bit for bit."""
     fwd, right, up = camera_basis(cameras)
     tan = torch.tan(0.5 * cameras.fov_y)
-    lead = torch.broadcast_shapes(cameras.position.shape[:-1], fwd.shape[:-1], tan.shape)
+    per_frame = row0s(row0)
+    rows = (len(per_frame),) if len(per_frame) > 1 else ()
+    lead = torch.broadcast_shapes(cameras.position.shape[:-1], fwd.shape[:-1], tan.shape, rows)
     cam = [x.to(torch.float32).expand(*lead, 3)
            for x in (cameras.position, fwd, right, up)]
     cam.append(tan.to(torch.float32).expand(lead)[..., None])
@@ -98,9 +122,11 @@ def _pack_scenes(scene: Scene, cameras: Camera | Cameras, height: int, width: in
         sun, m.sun_color, m.ambient_color, m.albedo_low, m.albedo_high,
         m.snow_color, m.snow_height, m.fog_color, m.fog_density,
         m.sky_zenith, m.sky_horizon,
-        scalar(row0), n.warp_amplitude, n.warp_frequency, n.amplitudes,
+        scalar(0.0), n.warp_amplitude, n.warp_frequency, n.amplitudes,
     ]
     rest = torch.cat([p.to(torch.float32).reshape(-1) for p in parts])
     packed = torch.cat([*cam, rest.expand(*lead, -1)], dim=-1)
+    # Each frame's first row (or the one they share), filled as the scalars are.
+    packed[..., ROW0] = torch.cat([scalar(r) for r in per_frame])
     seed = n.seed.to(torch.int32).reshape(1, 1)
     return packed, seed

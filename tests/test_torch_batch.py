@@ -20,6 +20,14 @@ Contracts:
   (99.9% of colour values within 2e-3, 99% within 1e-5); ``fly_frames``
   against JAX's ``fly_frames`` on its Pallas kernels: uint8 within 1 level
   on 99.9% of values;
+* ``trace_frames_bwd`` of B = 3 frames equals three ``trace_frame_bwd``
+  calls bit for bit, the cotangent contiguous or the (B, h, W, 3) view,
+  float32 and bf16, both terrains;
+* a batch of stripes of one camera (a row-band rank's, ``render`` with
+  ``row0`` a sequence; 128x64, stripes of 32 rows, primed): its colour
+  equals each stripe's ``render`` bit for bit, and the plain path's; its
+  gradient is the stripes' summed (rtol 1e-5), through the backward kernel's
+  plain version and through ``render_from_checkpoint`` alike;
 * a batch of the wrong shape, a ``t0_prime`` of another batch and a batch of
   more than ``MAX_FRAMES`` frames raise ``ValueError``.
 """
@@ -143,6 +151,49 @@ def test_trace_frames_equals_one_frame_calls(terrain, variant):
         one = ktrace.trace_frame(p1, seed, cfg, H, prime1, debug_steps)
         for x, y in zip(got, one):
             assert torch.equal(x[b], y), (variant, b)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "view"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("terrain", TERRAINS)
+def test_trace_frames_bwd_equals_one_frame_calls(terrain, bf16, layout):
+    cfg = RenderConfig(height=H, width=W, num_octaves=OCT, volumetric=terrain == "volumetric",
+                       max_steps=48, step_relax=None, march_bf16=bf16)
+    packed, seed, prime, _ = batch_inputs(terrain, cfg)
+    _, t, hit = ktrace.trace_frames(packed, seed, cfg, H, prime)
+    g = torch.randn((B, H, W, 3), generator=torch.Generator().manual_seed(3))
+    gp = g.permute(0, 3, 1, 2)
+    if layout == "contiguous":
+        gp = gp.contiguous()
+    got = ktrace.trace_frames_bwd(packed, seed, cfg, H, t, hit, gp)
+    assert got.shape == packed.shape
+    for b in range(B):
+        one = ktrace.trace_frame_bwd(packed[b:b + 1], seed, cfg, H, t[b], hit[b], gp[b])
+        assert torch.equal(got[b:b + 1], one), b
+
+
+STRIPE_CFG = RenderConfig(height=128, width=64, max_steps=32, num_octaves=OCT)
+STRIPE_ROWS = (0.0, 64.0)
+
+
+@pytest.mark.parametrize("kernel_bwd", [True, False], ids=["kernel_bwd", "checkpoint"])
+def test_render_of_stripes_equals_each_stripe(kernel_bwd):
+    cfg = dataclasses.replace(STRIPE_CFG, kernel_bwd=kernel_bwd)
+    assert cfg.prime_ds == 8
+    scene = scene_of("heightfield")
+    params = [scene.noise.amplitudes, scene.camera.yaw, scene.camera.pitch]
+    img = render(scene, cfg, STRIPE_ROWS, 64)
+    parts = [render(scene, cfg, r, 32) for r in STRIPE_ROWS]
+    assert torch.equal(img.detach(), torch.cat(parts).detach())
+    with torch.no_grad():
+        plain = render(scene, dataclasses.replace(cfg, use_kernel=False), STRIPE_ROWS, 64)
+    torch.testing.assert_close(plain, img.detach(), rtol=0, atol=1e-6)
+    g = torch.randn(img.shape, generator=torch.Generator().manual_seed(4))
+    got = torch.autograd.grad(img, params, g)
+    want = [sum(x) for x in zip(*(torch.autograd.grad(p, params, g[32 * b:32 * b + 32])
+                                  for b, p in enumerate(parts)))]
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-6 * float(w.abs().max()))
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])

@@ -62,24 +62,24 @@ def test_bwd_rejects_other_layouts(layout):
 @pytest.mark.parametrize("octaves, kw", [(2, {}), (3, VOL)], ids=["heightfield", "volumetric"])
 def test_kernel_render_passes_the_cotangent_without_a_copy(monkeypatch, octaves, kw):
     """fit's pixel loss through render_kernel: _KernelRender.backward hands
-    trace_frame_bwd the colour cotangent's own storage as a (3, h, W) view,
-    not a copy."""
+    trace_frames_bwd the colour cotangent's own storage as a (1, 3, h, W)
+    view (a batch of one block), not a copy."""
     cfg = dataclasses.replace(CFG, num_octaves=octaves, **kw)
     scene = default_scene(octaves, volumetric=cfg.volumetric, device="cpu")
     seen, cotangent = [], []
-    real = ktrace.trace_frame_bwd
+    real = ktrace.trace_frames_bwd
 
     def spy(packed, seed, cfg_, local_height, t, hit, g):
         seen.append(g)
         return real(packed, seed, cfg_, local_height, t, hit, g)
 
-    monkeypatch.setattr(ktrace, "trace_frame_bwd", spy)
+    monkeypatch.setattr(ktrace, "trace_frames_bwd", spy)
     img = ktrace.render_kernel(scene, cfg)
     img.register_hook(cotangent.append)
     target = torch.full_like(img, 0.5)
     torch.mean((img - target) * (img - target)).backward()
     (g,) = seen
-    assert g.shape == (3, H, W)
+    assert g.shape == (1, 3, H, W)
     assert g.data_ptr() == cotangent[0].data_ptr()
-    assert g.is_contiguous() or g.permute(1, 2, 0).is_contiguous()
+    assert g.is_contiguous() or g.permute(0, 2, 3, 1).is_contiguous()
     assert scene.noise.amplitudes.grad.abs().max() > 0

@@ -1117,3 +1117,111 @@ def test_cuda_step_chunk_packs_and_pulls_back_once_a_step(cuda):
         program.frames(scene, torch.arange(4 * call, 4 * call + 4, dtype=torch.float32) / 30.0)
         torch.cuda.synchronize()
         assert counts() == (before[0] + rise, before[1]), call
+
+
+# A row-band rank's stripes: 4 stripes of 32 rows of a 256x128 frame
+# (prime_ds 8), rank 1's of 2 ranks at S = 32.
+STRIPE_CFG = RenderConfig(height=256, width=128, max_steps=64, num_octaves=3)
+STRIPE_ROW0S = (32.0, 96.0, 160.0, 224.0)
+
+
+def stripe_inputs(cuda, cfg):
+    """A scene on the card and its stripes' (packed, seed, t, hit): the
+    batch's packing, coarse passes and fine passes through the kernels."""
+    scene = default_scene(cfg.num_octaves, volumetric=cfg.volumetric, device=cuda)
+    with torch.no_grad():
+        packed, coarse, seed = ktrace._packs(scene, scene.camera, cfg, STRIPE_ROW0S)
+        prime = ktrace._prime(coarse, seed, cfg, STRIPE_ROW0S, 32)
+        _, t, hit = ktrace.trace_frames(packed, seed, cfg, 32, prime)
+    return scene, packed, seed, t, hit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"march_bf16": True}, VOL],
+                         ids=["heightfield", "bf16", "volumetric"])
+def test_cuda_frames_bwd_equals_one_frame_launches(cuda, kw):
+    """A batch of 4 stripes' backward, one launch pair, bit for bit the 4
+    one-frame launches on the same (t, hit, g), the cotangent in either
+    layout; against its plain version with the one-frame backward's
+    tolerance; bitwise repeatable; counted as "+frames"."""
+    cfg = dataclasses.replace(STRIPE_CFG, **kw)
+    assert cfg.prime_ds == 8
+    _, packed, seed, t, hit = stripe_inputs(cuda, cfg)
+    g = torch.randn((4, 32, cfg.width, 3), generator=torch.Generator().manual_seed(1)).to(cuda)
+    view = g.permute(0, 3, 1, 2)
+    key = "bwd+bf16+frames" if cfg.march_bf16 else "bwd+frames"
+    before = ktrace.trace_frame_bwd.launches[key]
+    a = ktrace.trace_frames_bwd(packed, seed, cfg, 32, t, hit, view)
+    b = ktrace.trace_frames_bwd(packed, seed, cfg, 32, t, hit, view.contiguous())
+    ones = torch.cat([ktrace.trace_frame_bwd(packed[i:i + 1], seed, cfg, 32, t[i], hit[i],
+                                             view[i]) for i in range(4)])
+    ref = ktrace.trace_frames_bwd_reference(packed, seed, cfg, 32, t, hit, view)
+    torch.cuda.synchronize()
+    assert ktrace.trace_frame_bwd.launches[key] == before + 2
+    assert torch.equal(a, b) and torch.equal(a, ones)
+    assert torch.isfinite(a).all()
+    if not cfg.march_bf16:  # the bf16 march channel: phase 22's gates, in chip_smoke.py
+        assert within_bwd_tolerance(a, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("octaves, volumetric", [(3, False), (6, True)])
+def test_cuda_pack_kernel_rows_of_stripes_match_plain_packing(cuda, octaves, volumetric):
+    """A ROW0 per frame, one launch: the fine and coarse rows of 4K stripes
+    over 8 seeded poses bit for bit the plain packing's ops run on the card,
+    and each row the one-stripe launch's."""
+    from gpgpuraytrace_tpu_torch.kernels import pack as kpack
+
+    cfg = RenderConfig(height=2160, width=3840, num_octaves=octaves, volumetric=volumetric,
+                       prime_ds=4, step_relax=None)
+    ccfg = coarse_prime_cfg(cfg)
+    row0s = tuple(float((4 * j + 3) * 36) for j in range(15))
+    for scene in posed_scenes(octaves, volumetric, 8, 40 + octaves):
+        card = copy.deepcopy(scene).to(cuda)
+        before = kpack.pack_frames.launches
+        with torch.no_grad():
+            got = ktrace._packs(card, card.camera, cfg, row0s)[:2]
+            ops = [pk._pack_scenes(card, card.camera, h, w, r)[0]
+                   for h, w, r in ((cfg.height, cfg.width, row0s),
+                                   (ccfg.height, ccfg.width, tuple(x / 4 - 1.0 for x in row0s)))]
+            ones = [ktrace._packs(card, card.camera, cfg, r)[:2] for r in row0s]
+        assert kpack.pack_frames.launches == before + 1 + len(row0s)
+        for i, (a, c) in enumerate(zip(got, ops)):
+            assert torch.equal(a, c)
+            assert torch.equal(a, torch.cat([o[i] for o in ones]))
+
+
+@pytest.mark.cuda
+def test_cuda_stripes_cotangent_through_pack_vjp_matches_autograd(cuda):
+    """The batch's packed cotangent (its backward's rows) through the VJP
+    kernel, one launch: every leaf within 1e-6 (relative) of autograd through
+    the plain packing on the leaves' CPU copies, the frames' terms summed
+    into the leaves they share; the striped render's gradient the stripes'
+    summed (the backward kernel's tolerance)."""
+    from gpgpuraytrace_tpu_torch.kernels import pack as kpack
+
+    scene, packed, seed, t, hit = stripe_inputs(cuda, STRIPE_CFG)
+    g = torch.randn((4, 32, STRIPE_CFG.width, 3),
+                    generator=torch.Generator().manual_seed(2)).to(cuda)
+    pbar = ktrace.trace_frames_bwd(packed, seed, STRIPE_CFG, 32, t, hit, g.permute(0, 3, 1, 2))
+    host = copy.deepcopy(scene).to("cpu")
+    for s in (scene, host):
+        for p in s.parameters():
+            p.requires_grad_(True)
+    leaves, host_leaves = kpack._leaves(scene, scene.camera), kpack._leaves(host, host.camera)
+    before = kpack.pack_vjp.launches
+    got = torch.autograd.grad(ktrace._packs(scene, scene.camera, STRIPE_CFG, STRIPE_ROW0S)[0],
+                              leaves, pbar)
+    want = torch.autograd.grad(ktrace._packs(host, host.camera, STRIPE_CFG, STRIPE_ROW0S)[0],
+                               host_leaves, pbar.cpu())
+    assert kpack.pack_vjp.launches == before + 1
+    for name, a, b in zip(kpack.FLOAT_LEAVES, got, want):
+        assert float((a.cpu() - b).norm()) <= 1e-6 * max(float(b.norm()), 1e-30), name
+    params = [scene.noise.amplitudes, scene.camera.yaw, scene.camera.pitch]
+    img = ktrace.render_kernel(scene, STRIPE_CFG, STRIPE_ROW0S, 128)
+    gi = g.reshape(-1, STRIPE_CFG.width, 3)
+    striped = torch.autograd.grad(img, params, gi)
+    parts = [torch.autograd.grad(ktrace.render_kernel(scene, STRIPE_CFG, r, 32), params,
+                                 gi[32 * i:32 * i + 32]) for i, r in enumerate(STRIPE_ROW0S)]
+    for a, *b in zip(striped, *parts):
+        assert within_bwd_tolerance(a, sum(b))

@@ -6,7 +6,10 @@ Contracts:
 
 * ``pack_frames`` gives ``utils/packing.py``'s rows bit for bit: one camera
   or a batch, a row band, and the coarse prime pass's rows (ROW0 =
-  row0 / ds - 1 and the coarse config's aspect) from the same call;
+  row0 / ds - 1 and the coarse config's aspect) from the same call; one
+  camera over a batch of stripes (a ROW0 per frame, the coarse rows' too),
+  each row the one-stripe call's; the kernel's evenly spaced ROW0s exact
+  or refused;
   ``pack_scene`` and ``pack_scenes`` are the plain functions' shapes;
 * its gradients (autograd through the plain ops on CPU leaves) equal
   ``torch.autograd.grad`` through the plain packing for every float leaf,
@@ -83,6 +86,57 @@ def test_pack_frames_batch_rows_equal_plain_and_one_camera(shared_pitch):
     one, _ = kpack.pack_scenes(scene, scene.camera, 96, 160)
     assert one.shape == (pk.AMPS + 6,)
     assert torch.equal(one, pk.pack_scenes(scene, scene.camera, 96, 160)[0])
+
+
+STRIPES = (36.0, 180.0, 324.0, 468.0)  # rank 1's first rows at S = 36 over 4 ranks
+
+
+@pytest.mark.parametrize("octaves, volumetric", [(3, False), (6, True)])
+def test_pack_frames_of_stripes_equal_plain_and_one_stripe(octaves, volumetric):
+    """One camera, a ROW0 per frame: row b is the one-stripe call's with
+    row0 b, bit for bit, and the plain packing's; the coarse rows' ROW0 is
+    row0 b / ds - 1."""
+    scene = posed_scene(octaves, volumetric)
+    cfg = RenderConfig(height=2160, width=3840, num_octaves=octaves, volumetric=volumetric,
+                       prime_ds=4)
+    packed, coarse, _ = ktrace._packs(scene, scene.camera, cfg, STRIPES)
+    assert packed.shape == coarse.shape == (len(STRIPES), pk.AMPS + octaves)
+    ones = [ktrace._packs(scene, scene.camera, cfg, r) for r in STRIPES]
+    assert torch.equal(packed, torch.cat([o[0] for o in ones]))
+    assert torch.equal(coarse, torch.cat([o[1] for o in ones]))
+    assert packed[:, pk.ROW0].tolist() == list(STRIPES)
+    assert coarse[:, pk.ROW0].tolist() == [r / 4 - 1.0 for r in STRIPES]
+    assert torch.equal(packed, pk.pack_scenes(scene, scene.camera, 2160, 3840, STRIPES)[0])
+
+
+def test_pack_grads_of_stripes_sum_the_stripes():
+    """Every leaf of the one camera and the scene reads every stripe's row:
+    its gradient is the sum of the one-stripe calls' (rtol 1e-6)."""
+    scene = posed_scene()
+    for p in scene.parameters():
+        p.requires_grad_(True)
+    leaves = kpack._leaves(scene, scene.camera)
+    packed, _, _ = kpack.pack_frames(scene, scene.camera, 2160, 3840, STRIPES)
+    g = seeded(packed.shape, 11)
+    got = grads_through(packed, leaves, g)
+    parts = [grads_through(kpack.pack_frames(scene, scene.camera, 2160, 3840, r)[0], leaves,
+                           g[b:b + 1]) for b, r in enumerate(STRIPES)]
+    assert_grads_close(got, [sum(x) for x in zip(*parts)], kpack.FLOAT_LEAVES)
+
+
+def test_kernel_row0_spacing_is_exact_or_refused():
+    """The kernel computes frame b's ROW0 as row0 + b·step in float32: the
+    wrapper passes evenly spaced whole rows, and refuses a ROW0 per frame it
+    would round or that is not evenly spaced; a ROW0 per frame and a batch
+    of cameras must agree in count."""
+    assert kpack._spacing(STRIPES) == (36.0, 144.0)
+    assert kpack._spacing((8.0,)) == (8.0, 0.0)
+    for bad in [(0.0, 1.0, 3.0), tuple(0.7 * b for b in range(16))]:
+        with pytest.raises(ValueError, match="evenly spaced"):
+            kpack._spacing(bad)
+    scene = posed_scene(3)
+    with pytest.raises(ValueError, match="frames"):
+        kpack.pack_frames(scene, batch_cameras(scene, 3), 32, 32, (0.0, 8.0))
 
 
 def grads_through(packed, leaves, g):

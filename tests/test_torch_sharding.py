@@ -24,6 +24,15 @@ against JAX's chunked fit (losses at rtol 1e-4, every trainable component
 within 0.1·lr); the same job's ``--time-k`` records on gloo (the eager loop,
 with the keys the card's graphs fill). ``bench.run_bench_mesh`` refuses 4K
 over 4 ranks (bands of 540 rows at ``prime_ds`` 8) before any rank starts.
+
+Both jobs' ranks keep one stripe each, their band (``mesh.stripes``). The
+stripe layout on every world size and shape of a sweep: the ranks' stripes
+tile the frame once, each whole coarse rows. One gloo job of 2 ranks at
+64x128 (rows 0-31 and 64-95 on rank 0, primed at ``prime_ds`` 8, 24 march
+steps), where each rank renders 2 stripes: the gathered frame equal to the
+whole frame, the summed loss and gradients within the 4-rank job's
+tolerances of the whole frame's and of JAX's contiguous ``shard_map``
+bands', and the stripe counter at 2.
 """
 
 import dataclasses
@@ -158,6 +167,55 @@ def test_band_layout():
     with pytest.raises(ValueError, match="whole coarse rows"):
         render(scene, primed, row0, h)
     assert mesh.backend_for("cpu") == "gloo" and mesh.backend_for("cuda") == "nccl"
+
+
+SWEEP_SHAPES = [(16, 32), (64, 64), (64, 128), (128, 64), (384, 64), (512, 512),
+                (1080, 1920), (2160, 3840, 4)]
+
+
+@pytest.mark.parametrize("shape", SWEEP_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("world_size", [1, 2, 3, 4, 8, 16])
+def test_stripes_tile_the_frame_in_whole_coarse_rows(shape, world_size):
+    """Every rank's stripes of a frame that splits over the ranks: h rows a
+    rank, the ranks' rows the frame's once each, every stripe S rows from
+    (j·N + r)·S; where the rank's band is whole coarse rows, so is every
+    stripe; one stripe a rank, its band, in a group of one and where the
+    rank has rows for fewer than ``MIN_STRIPES`` stripes of at least
+    ``STRIPE_ROWS``."""
+    height, width, *ds = shape
+    cfg = RenderConfig(height=height, width=width, max_steps=8, num_octaves=2,
+                       prime_ds=ds[0] if ds else None)
+    if height % world_size:
+        with pytest.raises(ValueError, match="divide evenly"):
+            mesh.stripes(cfg, 0, world_size)
+        return
+    h, q = height // world_size, cfg.prime_ds or 1
+    seen = []
+    for r in range(world_size):
+        row0s, s = mesh.stripes(cfg, r, world_size)
+        assert len(row0s) * s == h and row0s == tuple(
+            float((j * world_size + r) * s) for j in range(len(row0s)))
+        if len(row0s) == 1:
+            assert (row0s[0], s) == mesh.band(cfg, r, world_size)
+        if h % q == 0:
+            assert s % q == 0 and all(r0 % q == 0 for r0 in row0s)
+        seen += [int(r0) + i for r0 in row0s for i in range(s)]
+    assert sorted(seen) == list(range(height))
+    if world_size == 1 or h < mesh.MIN_STRIPES * mesh.STRIPE_ROWS:
+        assert len(mesh.stripes(cfg, 0, world_size)[0]) == 1
+
+
+def test_stripe_rows_come_from_the_shape():
+    """S at the benchmark's 4K over 4 ranks (prime_ds 4) is 36 rows, 15
+    stripes a rank; the sharding jobs' toy frames keep their bands."""
+    cfg4k = RenderConfig(height=2160, width=3840, max_steps=8, num_octaves=2, prime_ds=4)
+    assert mesh.stripe_rows(cfg4k, 4) == 36 and len(mesh.stripes(cfg4k, 3, 4)[0]) == 15
+    assert mesh.stripes(cfg4k, 0, 1) == ((0.0,), 2160)
+    assert mesh.stripes(CFG, 1, RANKS) == ((4.0,), 4)
+    fit = RenderConfig(height=64, width=128, max_steps=32, num_octaves=2)
+    assert [mesh.stripes(fit, r, 2) for r in range(2)] == [((0.0,), 32), ((32.0,), 32)]
+    assert [mesh.stripes(STRIPED_CFG, r, 2) for r in range(2)] == [
+        ((0.0, 64.0), 32), ((32.0, 96.0), 32)]
 
 
 def test_initialize_distributed_is_a_noop_for_one_process(monkeypatch):
@@ -372,3 +430,72 @@ def test_mesh_of_4k_over_4_ranks_raises_before_a_rank_starts(monkeypatch):
     with pytest.raises(ValueError, match=r"a mesh of 4 ranks at 3840x2160: prime_ds=8 "
                                          r"must divide the band's local height 540"):
         bench.run_bench_mesh(4, size=(2160, 3840), device="cpu")
+
+
+# The 2-rank job at 64x128 where each rank renders two stripes of 32 rows.
+STRIPED_RANKS = 2
+STRIPED_CFG = RenderConfig(height=128, width=64, max_steps=24, num_octaves=2)
+STRIPED_JCFG = JaxConfig(height=128, width=64, max_steps=24, num_octaves=2, use_pallas=False)
+
+
+@pytest.fixture(scope="module")
+def striped_job(tmp_path_factory):
+    """The striped 2-rank job's results: {rank: npz}."""
+    out = tmp_path_factory.mktemp("striped_ranks")
+    launch.launch_local_processes(
+        WORKER, STRIPED_RANKS, ["--device", "cpu", "--size", "64x128", "--octaves", "2",
+                                "--max-steps", "24", "--fit-steps", "1", "--out", str(out)],
+        timeout_s=600)
+    return {r: np.load(os.path.join(out, f"rank{r}.npz")) for r in range(STRIPED_RANKS)}
+
+
+def test_striped_render_gathers_the_whole_frame(striped_job):
+    """Each rank's two stripes, gathered and put back in frame order, give
+    the whole frame (rtol 1e-5, atol 1e-6); a rank's rows are its stripes'
+    rows of that frame; each rendered two stripes in its loss."""
+    assert STRIPED_CFG.prime_ds == 8
+    scene = default_scene(num_octaves=2, device="cpu")
+    with torch.no_grad():
+        whole = render(scene, STRIPED_CFG).numpy()
+    for r in range(STRIPED_RANKS):
+        frame = striped_job[r]["frame"]
+        np.testing.assert_allclose(frame, whole, rtol=1e-5, atol=1e-6)
+        rows = np.concatenate([frame[32 * r:32 * r + 32], frame[64 + 32 * r:96 + 32 * r]])
+        np.testing.assert_array_equal(striped_job[r]["band"], rows)
+        assert int(striped_job[r]["stripes"]) == 2
+
+
+def test_striped_grads_match_unsharded_and_jax_contiguous_bands(striped_job):
+    """The summed loss and gradients of the stripes: within rtol 1e-5 (loss)
+    and rtol 1e-4, atol 1e-7 (each gradient) of the whole frame's, and
+    within tests/test_torch_bwd.py's end-to-end tolerances of JAX's
+    ``sharded_loss_and_grad`` over 2 contiguous bands on 2 virtual devices;
+    the same on both ranks."""
+    scene = default_scene(num_octaves=2, device="cpu")
+    with torch.no_grad():
+        target = render(scaled(scene, 1.2), STRIPED_CFG)
+    params = partition_scene(scene)
+    d = render(scene, STRIPED_CFG) - target
+    loss = torch.mean(d * d)
+    grads = torch.autograd.grad(loss, params)
+    jmesh = make_mesh(jax.devices()[:STRIPED_RANKS])
+    jscene = jax_default_scene(num_octaves=2)
+    bright = dataclasses.replace(jscene, noise=dataclasses.replace(
+        jscene.noise, amplitudes=jscene.noise.amplitudes * 1.2))
+    jtarget = render_jax(bright, STRIPED_JCFG)
+    leaves, merge = jax_partition_scene(jscene)
+    jloss, jgrads = jax_sharded(leaves, merge, STRIPED_JCFG,
+                                jax_shard_target(jtarget, jmesh), jmesh)
+    for r in range(STRIPED_RANKS):
+        got = striped_job[r]
+        np.testing.assert_allclose(float(got["loss"]), loss.item(), rtol=1e-5)
+        np.testing.assert_allclose(float(got["loss"]), float(jloss), rtol=1e-4)
+        for name, g, jg in zip(TRAINABLE, grads, jgrads):
+            mine = got[f"grad.{name}"]
+            np.testing.assert_array_equal(mine, striped_job[0][f"grad.{name}"])
+            np.testing.assert_allclose(mine, g.numpy(), rtol=1e-4, atol=1e-7, err_msg=name)
+            ref = np.asarray(jg)
+            if name == "noise.amplitudes":
+                np.testing.assert_allclose(mine, ref, rtol=5e-3, atol=1e-5, err_msg=name)
+            np.testing.assert_allclose(mine, ref, rtol=2.5e-2,
+                                       atol=1e-3 * float(np.max(np.abs(ref))), err_msg=name)
