@@ -344,7 +344,7 @@ DEFAULT_KERNEL = "trace_fwd_kernel<chunked, bf16=0, debug=0, octaves=6>"
 DEFAULT_REGISTERS, DEFAULT_FINE_MS, DEFAULT_FINE_SLACK = 107, (0.1181, 0.2247), 0.03
 # The backward's default instantiation (float32 march channel), with the
 # register count and the wrapper's device time under capture (a CUDA graph
-# of 50 calls of trace_frame_bwd: both stages and, per call, the zeroing of
+# of 50 calls of trace_frames_bwd: both stages and, per call, the zeroing of
 # the fresh scratch's counter that a capture gets; heightfield, volumetric)
 # that phase 13 holds it to: the same registers, no spill, and at most
 # DEFAULT_BWD_SLACK slower.
@@ -587,10 +587,10 @@ def reset_counts() -> None:
     kernels' launch counts to 0."""
     from gpgpuraytrace_tpu_torch.kernels.pack import pack_frames, pack_vjp
     from gpgpuraytrace_tpu_torch.kernels.quantize import tonemap_quantize
-    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames, trace_frames_bwd
 
-    trace_frame.launches.clear()
-    trace_frame_bwd.launches.clear()
+    trace_frames.launches.clear()
+    trace_frames_bwd.launches.clear()
     tonemap_quantize.launches = 0
     pack_frames.launches = 0
     pack_vjp.launches = 0
@@ -769,7 +769,7 @@ def graph_ms(fn, reps: int) -> float:
     CUDA graph, replayed once between CUDA events after a warm-up replay. No
     host work runs between the launches, so a kernel shorter than its
     launch's host time reads its own time. A wrapper with a kept scratch
-    (trace_frame, trace_frame_bwd) gets a fresh one per call under capture,
+    (trace_frames, trace_frames_bwd) gets a fresh one per call under capture,
     so the time includes zeroing its counters, one small fill per call."""
     fn()
     torch.cuda.synchronize()
@@ -824,22 +824,28 @@ def output_digests(k, dev) -> dict[str, str]:
     128x100 frame and one 512-pixel row at row 300, unprimed, counted. ``k``
     launches the kernels: ``k.fwd(packed, seed, cfg, h, prime=None,
     debug=False)`` and ``k.phase1``, ``k.phase2``, ``k.bwd`` with the
-    arguments of trace_phase1, trace_phase2 and trace_frame_bwd."""
+    arguments of trace_phase1s, trace_phase2s and trace_frames_bwd on one
+    frame (``packed`` (1, n); a per-pixel tensor with or without the leading
+    batch of one: a digest reads the bytes alone)."""
     from gpgpuraytrace_tpu_torch import RenderConfig, default_scene
     from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
-    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_frames
+
+    def pack(scene, h, w, row0):
+        packed, _, seed = pack_frames(scene, scene.camera, h, w, row0)
+        return packed.detach(), seed
 
     out = {}
     with torch.no_grad():
         for terrain, vol in (("heightfield", False), ("volumetric", True)):
             scene = default_scene(6, volumetric=vol, device=dev)
             base = RenderConfig(num_octaves=6, volumetric=vol)
-            packed, seed = (x.detach() for x in pack_scene(scene, 512, 512, 0.0))
+            packed, seed = pack(scene, 512, 512, 0.0)
             for bf16 in (False, True):
                 cfg = dataclasses.replace(base, march_bf16=bf16)
                 tag = f"{terrain}/{'bf16/' if bf16 else ''}"
                 ccfg = coarse_prime_cfg(cfg)
-                cp, cs = (x.detach() for x in pack_scene(scene, ccfg.height, ccfg.width, -1.0))
+                cp, cs = pack(scene, ccfg.height, ccfg.width, -1.0)
                 ch = cfg.height // cfg.prime_ds + 2
                 coarse = k.fwd(cp, cs, ccfg, ch)
                 out[tag + "coarse 66x64"] = digest(coarse)
@@ -859,17 +865,18 @@ def output_digests(k, dev) -> dict[str, str]:
                 color, t, hit, alive, prev, ids, n_alive = k.phase1(packed, seed, ccmp, 512)
                 n = int(n_alive.item())
                 out[tag + "compact phase 1"] = digest(
-                    (color, t, hit, alive, prev, ids[:n].sort().values, n_alive))
+                    (color, t, hit, alive, prev, ids.reshape(-1)[:n].sort().values, n_alive))
                 k.phase2(packed, seed, ccmp, 512, n_alive, ids, prev, color, t, hit)
                 out[tag + "compact phase 2"] = digest((color, t, hit))
                 _, t_f, hit_f = k.fwd(packed, seed, cfg, 512, prime)
-                g = torch.randn(3, 512, 512, generator=torch.Generator().manual_seed(0)).to(dev)
+                g = torch.randn(1, 3, 512, 512,
+                                generator=torch.Generator().manual_seed(0)).to(dev)
                 out[tag + "bwd"] = digest([k.bwd(packed, seed, cfg, 512, t_f, hit_f, g)])
             for label, h, w, row0 in (("band 37x100 at row 5", 37, 100, 5.0),
                                       ("row 1x512 at row 300", 1, 512, 300.0)):
                 cfg = RenderConfig(height=128 if h == 37 else 512, width=w, num_octaves=6,
                                    volumetric=vol, prime_ds=0)
-                p, s = (x.detach() for x in pack_scene(scene, cfg.height, w, row0))
+                p, s = pack(scene, cfg.height, w, row0)
                 out[f"{terrain}/{label}"] = digest(k.fwd(p, s, cfg, h, debug=True))
     torch.cuda.synchronize()
     return out
@@ -880,27 +887,27 @@ class PackageKernels:
 
     @staticmethod
     def fwd(packed, seed, cfg, h, prime=None, debug=False):
-        from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame
+        from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames
 
-        return trace_frame(packed, seed, cfg, h, prime, debug)
+        return trace_frames(packed, seed, cfg, h, prime, debug)
 
     @staticmethod
     def phase1(*args):
-        from gpgpuraytrace_tpu_torch.kernels.trace import trace_phase1
+        from gpgpuraytrace_tpu_torch.kernels.trace import trace_phase1s
 
-        return trace_phase1(*args)
+        return trace_phase1s(*args)
 
     @staticmethod
     def phase2(*args):
-        from gpgpuraytrace_tpu_torch.kernels.trace import trace_phase2
+        from gpgpuraytrace_tpu_torch.kernels.trace import trace_phase2s
 
-        return trace_phase2(*args)
+        return trace_phase2s(*args)
 
     @staticmethod
     def bwd(*args):
-        from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame_bwd
+        from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames_bwd
 
-        return trace_frame_bwd(*args)
+        return trace_frames_bwd(*args)
 
 
 def profile_frames(fn, frame_ms: float, frames: int = 5) -> str:
@@ -940,42 +947,42 @@ def forward_vs_plain(scene, cfg, tag: str) -> tuple[float, str, float, float, di
     ms), the fine pass 50 launches back to back, the coarse pass that way and
     as a CUDA graph of 50 launches (its device time: the host's launch time
     exceeds it), the fine pass as a graph too."""
-    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_reference
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames, trace_frames_reference
     from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
-    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_frames
 
     ccfg = coarse_prime_cfg(cfg)
     ch = cfg.height // cfg.prime_ds + 2
     with torch.no_grad():
-        packed_c, seed_c = pack_scene(scene, ccfg.height, ccfg.width, -1.0)
-        coarse_k = trace_frame(packed_c, seed_c, ccfg, ch)
-        coarse_r = trace_frame_reference(packed_c, seed_c, ccfg, ch)
+        packed_c, _, seed_c = pack_frames(scene, scene.camera, ccfg.height, ccfg.width, -1.0)
+        coarse_k = trace_frames(packed_c, seed_c, ccfg, ch)
+        coarse_r = trace_frames_reference(packed_c, seed_c, ccfg, ch)
         torch.cuda.synchronize()
         _, line_c = compare_trace(f"{tag}coarse {ch}x{ccfg.width}", coarse_k, coarse_r,
                                   cfg.march_bf16)
         prime = prime_from_coarse(coarse_k[1], cfg)
-        packed, seed = pack_scene(scene, cfg.height, cfg.width, 0.0)
-        fine_k = trace_frame(packed, seed, cfg, cfg.height, prime)
-        fine_r = trace_frame_reference(packed, seed, cfg, cfg.height, prime)
+        packed, _, seed = pack_frames(scene, scene.camera, cfg.height, cfg.width, 0.0)
+        fine_k = trace_frames(packed, seed, cfg, cfg.height, prime)
+        fine_r = trace_frames_reference(packed, seed, cfg, cfg.height, prime)
         torch.cuda.synchronize()
         err, line_f = compare_trace(f"{tag}fine {cfg.height}x{cfg.width}", fine_k, fine_r,
                                     cfg.march_bf16)
         if cfg.march_bf16:
             c32, f32 = (dataclasses.replace(c, march_bf16=False) for c in (ccfg, cfg))
             line_c += "; " + bf16_differs("coarse", coarse_k,
-                                          trace_frame(packed_c, seed_c, c32, ch))
+                                          trace_frames(packed_c, seed_c, c32, ch))
             line_f += "; " + bf16_differs("fine", fine_k,
-                                          trace_frame(packed, seed, f32, cfg.height, prime))
+                                          trace_frames(packed, seed, f32, cfg.height, prime))
 
         def coarse():
-            return trace_frame(packed_c, seed_c, ccfg, ch)
+            return trace_frames(packed_c, seed_c, ccfg, ch)
 
         def fine():
-            return trace_frame(packed, seed, cfg, cfg.height, prime)
+            return trace_frames(packed, seed, cfg, cfg.height, prime)
 
         kern_ms = cuda_ms_back_to_back(fine, 50)
         plain_ms = cuda_ms_back_to_back(
-            lambda: trace_frame_reference(packed, seed, cfg, cfg.height, prime), 3)
+            lambda: trace_frames_reference(packed, seed, cfg, cfg.height, prime), 3)
         times = {"coarse": cuda_ms_back_to_back(coarse, 50), "coarse_graph": graph_ms(coarse, 50),
                  "fine_graph": graph_ms(fine, 50)}
     return err, (f"{line_c} | {line_f} | fine pass {kern_ms:.4f} ms kernel (50 back to "
@@ -991,23 +998,23 @@ def ragged_vs_plain(scene, cfg, tag: str) -> str:
     unprimed. Each equals the same pixels of the kernel's whole frame bit
     for bit (a pixel's arithmetic does not depend on the launch), and the
     two together hold phase 3's gates against the plain version."""
-    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_reference
-    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames, trace_frames_reference
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_frames
 
     kern, ref = [], []
     with torch.no_grad():
         for h, w, row0, height in ((37, 100, 5, 128), (1, 512, 300, 512)):
             c = dataclasses.replace(cfg, height=height, width=w, prime_ds=0)
-            packed, seed = pack_scene(scene, height, w, float(row0))
-            band = trace_frame(packed, seed, c, h)
-            full_packed, _ = pack_scene(scene, height, w, 0.0)
-            full = trace_frame(full_packed, seed, c, height)
+            packed, _, seed = pack_frames(scene, scene.camera, height, w, float(row0))
+            band = trace_frames(packed, seed, c, h)
+            full_packed = pack_frames(scene, scene.camera, height, w, 0.0)[0]
+            full = trace_frames(full_packed, seed, c, height)
             for a, b, what in zip(band, full, ("colour", "t", "hit")):
                 if not torch.equal(a, b[..., row0:row0 + h, :]):
                     fail(f"{tag}{h}x{w} band at row {row0}: {what} differs from the whole "
                          f"frame's rows")
             kern.append(band)
-            ref.append(trace_frame_reference(packed, seed, c, h))
+            ref.append(trace_frames_reference(packed, seed, c, h))
     torch.cuda.synchronize()
 
     def flat(outs):
@@ -1024,7 +1031,7 @@ def serve_frames(scene, cfg, yaws) -> tuple[int, str]:
     with the launch counts read around exactly these frames: (forward
     launches, mean colours)."""
     from gpgpuraytrace_tpu_torch import render
-    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames, trace_frames_bwd
 
     frames = []
     reset_counts()
@@ -1033,10 +1040,10 @@ def serve_frames(scene, cfg, yaws) -> tuple[int, str]:
             scene.camera.yaw.fill_(yaw)
             frames.append(render(scene, cfg))
     torch.cuda.synchronize()
-    launches = trace_frame.launches.total()
-    if launches != 2 * len(yaws) or trace_frame_bwd.launches.total():
+    launches = trace_frames.launches.total()
+    if launches != 2 * len(yaws) or trace_frames_bwd.launches.total():
         fail(f"serving path launched the forward kernel {launches} times and the "
-             f"backward {trace_frame_bwd.launches.total()} times, expected "
+             f"backward {trace_frames_bwd.launches.total()} times, expected "
              f"{2 * len(yaws)} (coarse + fine per frame) and 0")
     for yaw, img in zip(yaws, frames):
         if img.shape != (cfg.height, cfg.width, 3) or not torch.isfinite(img).all():
@@ -1069,16 +1076,16 @@ def bwd_repeats(args, want: torch.Tensor) -> str:
     """The backward's scratch across streams and graphs: launches on a
     second stream and two replays of a CUDA graph give ``want`` bit for bit,
     and every kept scratch's counter is 0 afterwards."""
-    from gpgpuraytrace_tpu_torch.kernels.trace import _BWD_SCRATCH, trace_frame_bwd
+    from gpgpuraytrace_tpu_torch.kernels.trace import _BWD_SCRATCH, trace_frames_bwd
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        runs = [trace_frame_bwd(*args) for _ in range(2)]
+        runs = [trace_frames_bwd(*args) for _ in range(2)]
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        captured = trace_frame_bwd(*args)
+        captured = trace_frames_bwd(*args)
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()
@@ -1098,20 +1105,20 @@ def backward_vs_plain(scene, cfg) -> dict:
     BWD_RTOL plus BWD_ATOL_REL of the largest; its time back to back and as
     a CUDA graph, and the wrapper's host time per call."""
     from gpgpuraytrace_tpu_torch.kernels.trace import (
-        render_kernel_raw, trace_bwd_reference, trace_frame_bwd,
+        render_kernel_raw, trace_frames_bwd, trace_frames_bwd_reference,
     )
-    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_frames
 
     _, t_fwd, hit_fwd = render_kernel_raw(scene, cfg)
-    hit_fwd = hit_fwd.float()
-    packed, seed = pack_scene(scene, cfg.height, cfg.width, 0.0)
+    t_fwd, hit_fwd = t_fwd[None], hit_fwd.float()[None]
+    packed, _, seed = pack_frames(scene, scene.camera, cfg.height, cfg.width, 0.0)
     packed = packed.detach()
-    g = torch.randn(3, cfg.height, cfg.width,
+    g = torch.randn(1, 3, cfg.height, cfg.width,
                     generator=torch.Generator().manual_seed(0)).to(packed.device)
     args = (packed, seed, cfg, cfg.height, t_fwd, hit_fwd, g)
-    pbar_k = trace_frame_bwd(*args)
-    pbar_k2 = trace_frame_bwd(*args)
-    pbar_r = trace_bwd_reference(*args)
+    pbar_k = trace_frames_bwd(*args)
+    pbar_k2 = trace_frames_bwd(*args)
+    pbar_r = trace_frames_bwd_reference(*args)
     torch.cuda.synchronize()
     if not torch.isfinite(pbar_k).all():
         fail("backward kernel output not finite")
@@ -1128,10 +1135,10 @@ def backward_vs_plain(scene, cfg) -> dict:
         "bound_before_ms": bwd_bound(cfg, hits, n_pix, BWD_OCTAVE_BEFORE)[0],
         "pbar": pbar_k, "ref": pbar_r, "err": err, "worst": worst,
         "hits": int(hit_fwd.sum().item()), "repeats": bwd_repeats(args, pbar_k),
-        "ms": cuda_ms_back_to_back(lambda: trace_frame_bwd(*args), 50),
-        "graph_ms": graph_ms(lambda: trace_frame_bwd(*args), 50),
-        "host_us": host_us(lambda: trace_frame_bwd(*args)),
-        "plain_ms": cuda_ms_back_to_back(lambda: trace_bwd_reference(*args), 3),
+        "ms": cuda_ms_back_to_back(lambda: trace_frames_bwd(*args), 50),
+        "graph_ms": graph_ms(lambda: trace_frames_bwd(*args), 50),
+        "host_us": host_us(lambda: trace_frames_bwd(*args)),
+        "plain_ms": cuda_ms_back_to_back(lambda: trace_frames_bwd_reference(*args), 3),
     }
 
 
@@ -1153,14 +1160,14 @@ def train(start, target, cfg, trainable, steps: int, reps: dict[str, int]) -> di
     per step), a falling loss, kernel_bwd True vs False gradients on every
     trainable leaf, and step times by CUDA events (``reps`` steps per
     variant, two rounds in turns) with a profile of a kernel-path step."""
-    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames, trace_frames_bwd
     from gpgpuraytrace_tpu_torch.ops import fit as fitmod
 
     reset_counts()
     _, losses = fitmod.fit(copy.deepcopy(start), cfg, target, steps=steps,
                            learning_rate=5e-3, trainable=trainable, log_every=0)
     torch.cuda.synchronize()
-    fwd, bwd = trace_frame.launches.total(), trace_frame_bwd.launches.total()
+    fwd, bwd = trace_frames.launches.total(), trace_frames_bwd.launches.total()
     if (fwd, bwd) != (2 * steps, steps):
         fail(f"training path launched the forward kernel {fwd} and the backward "
              f"{bwd} times in {steps} steps, expected {2 * steps} and {steps}")
@@ -1207,13 +1214,14 @@ def train_report(r: dict, steps: int) -> str:
 
 
 def fine_inputs(scene, cfg):
-    """(packed, seed, prime map or None) of the main path's fine pass."""
-    from gpgpuraytrace_tpu_torch.kernels.trace import _prime_map
-    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
+    """(packed (1, n), seed, prime map (1, H, W) or None) of the main path's
+    fine pass, a batch of one frame."""
+    from gpgpuraytrace_tpu_torch.kernels.trace import _prime_maps
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_frames
 
     with torch.no_grad():
-        prime = _prime_map(scene, cfg, 0.0, cfg.height)
-        packed, seed = pack_scene(scene, cfg.height, cfg.width, 0.0)
+        prime = _prime_maps(scene, scene.camera, cfg)
+        packed, _, seed = pack_frames(scene, scene.camera, cfg.height, cfg.width, 0.0)
     return packed.detach(), seed, prime
 
 
@@ -1221,17 +1229,17 @@ def drive(fn, name: str, expect: int):
     """Run ``fn`` (a user's entry point) with the launch counts set to 0 just
     before and read just after: the launches of the forward instantiation
     ``name``, which must be ``expect``, and what ``fn`` returned."""
-    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames, trace_frames_bwd
 
     reset_counts()
     with torch.no_grad():
         out = fn()
     torch.cuda.synchronize()
-    got = trace_frame.launches[name]
-    if got != expect or trace_frame_bwd.launches.total():
+    got = trace_frames.launches[name]
+    if got != expect or trace_frames_bwd.launches.total():
         fail(f"{name}: the path launched it {got} times, expected {expect} "
-             f"({trace_frame.launches.total()} forward, {trace_frame_bwd.launches.total()} backward "
-             f"launches in all)")
+             f"({trace_frames.launches.total()} forward, "
+             f"{trace_frames_bwd.launches.total()} backward launches in all)")
     return got, out
 
 
@@ -1240,7 +1248,8 @@ def counter_phase(scene, cfg, tag: str) -> dict:
     outputs against the uncounted frame bit for bit, JAX's per-tile bounds
     against the plain stats march from the same prime map, and the taxes."""
     from gpgpuraytrace_tpu_torch.kernels.trace import (
-        WARP_TILE, render_kernel_raw, tile_steps, trace_frame, trace_frame_reference, warp_steps,
+        WARP_TILE, render_kernel_raw, tile_steps, trace_frames, trace_frames_reference,
+        warp_steps,
     )
     from gpgpuraytrace_tpu_torch.ops.camera import generate_rays
     from gpgpuraytrace_tpu_torch.ops.march import march_with_stats
@@ -1257,9 +1266,10 @@ def counter_phase(scene, cfg, tag: str) -> dict:
     packed, seed, prime = fine_inputs(scene, cfg)
     with torch.no_grad():
         o, d = generate_rays(scene.camera, cfg.height, cfg.width)
-        _, _, lanes = march_with_stats(cfg, o, d, scene.noise, prime)
-        stats = march_stats(scene, cfg, t0_prime=prime)
-        ref = trace_frame_reference(packed, seed, cfg, cfg.height, prime, debug_steps=True)
+        _, _, lanes = march_with_stats(cfg, o, d, scene.noise, prime[0])
+        stats = march_stats(scene, cfg, t0_prime=prime[0])
+        ref = [x[0] for x in trace_frames_reference(packed, seed, cfg, cfg.height, prime,
+                                                    debug_steps=True)]
     tiles = tile_steps(steps, cfg)
     warps = warp_steps(steps)
     th, chunk = cfg.tile_h, cfg.march_chunk or 8
@@ -1277,9 +1287,9 @@ def counter_phase(scene, cfg, tag: str) -> dict:
     same = (steps == ref[3]).float().mean().item()
     useful = lanes.float().mean().item()
     ms = cuda_ms_back_to_back(
-        lambda: trace_frame(packed, seed, cfg, cfg.height, prime, debug_steps=True), 50)
+        lambda: trace_frames(packed, seed, cfg, cfg.height, prime, debug_steps=True), 50)
     plain_ms = cuda_ms_back_to_back(
-        lambda: trace_frame_reference(packed, seed, cfg, cfg.height, prime, debug_steps=True),
+        lambda: trace_frames_reference(packed, seed, cfg, cfg.height, prime, debug_steps=True),
         1)
     hits = counted[2].sum().item()
     bound_ms, bound_by = fwd_bound(cfg, lanes.sum().item(), hits, lanes.numel(), debug=True)
@@ -1304,16 +1314,16 @@ def counter_phase(scene, cfg, tag: str) -> dict:
 def fixed_phase(scene, cfg, tag: str) -> dict:
     """Phase 16 on one terrain."""
     from gpgpuraytrace_tpu_torch import render
-    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_reference
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames, trace_frames_reference
 
     fcfg = dataclasses.replace(cfg, march_mode="fixed")  # unprimed, as fixed frames are
     launches, _ = drive(lambda: render(scene, fcfg), "fixed", 1)
     packed, seed, _ = fine_inputs(scene, fcfg)
     h = cfg.height
     with torch.no_grad():
-        kf = trace_frame(packed, seed, fcfg, h)
-        kc = trace_frame(packed, seed, dataclasses.replace(cfg, prime_ds=0), h)
-        ref = trace_frame_reference(packed, seed, fcfg, h)
+        kf = trace_frames(packed, seed, fcfg, h)
+        kc = trace_frames(packed, seed, dataclasses.replace(cfg, prime_ds=0), h)
+        ref = trace_frames_reference(packed, seed, fcfg, h)
     torch.cuda.synchronize()
     for a, b, what in zip(kf, kc, ("colour", "t", "hit")):
         if not torch.equal(a, b):
@@ -1323,11 +1333,12 @@ def fixed_phase(scene, cfg, tag: str) -> dict:
     times = {128: [], 64: []}
     for _ in range(2):
         for steps, c in ((128, fcfg), (64, cfg64)):
-            times[steps].append(cuda_ms_back_to_back(lambda: trace_frame(packed, seed, c, h), 20))
+            times[steps].append(cuda_ms_back_to_back(lambda: trace_frames(packed, seed, c, h),
+                                                     20))
     t128, t64 = min(times[128]), min(times[64])
     per_step_us = 1e3 * (t128 - t64) / 64
     step_bound_us = 1e3 * bound(add_ops({}, step_ops(fcfg), h * cfg.width), 0.0)[0]
-    plain_ms = cuda_ms_back_to_back(lambda: trace_frame_reference(packed, seed, fcfg, h), 1)
+    plain_ms = cuda_ms_back_to_back(lambda: trace_frames_reference(packed, seed, fcfg, h), 1)
     n_pix = h * cfg.width
     bound_ms, bound_by = fwd_bound(fcfg, fcfg.max_steps * n_pix, kf[2].sum().item(), n_pix)
     return {"line": (f"{tag}launches {launches}; bit for bit equal to chunked (unprimed); "
@@ -1345,7 +1356,7 @@ def lod_phase(scene, cfg, tag: str) -> dict:
     """Phase 17 on one terrain."""
     from gpgpuraytrace_tpu_torch import render
     from gpgpuraytrace_tpu_torch.kernels.trace import (
-        render_kernel_raw, trace_frame, trace_frame_reference,
+        render_kernel_raw, trace_frames, trace_frames_reference,
     )
 
     lcfg = dataclasses.replace(cfg, march_mode="lod")  # unprimed, as lod frames are
@@ -1353,9 +1364,9 @@ def lod_phase(scene, cfg, tag: str) -> dict:
     packed, seed, prime = fine_inputs(scene, cfg)
     h = cfg.height
     with torch.no_grad():
-        kl = trace_frame(packed, seed, lcfg, h)
-        *counted, lanes = trace_frame(packed, seed, lcfg, h, debug_steps=True)
-        ref = trace_frame_reference(packed, seed, lcfg, h)
+        kl = trace_frames(packed, seed, lcfg, h)
+        *counted, lanes = trace_frames(packed, seed, lcfg, h, debug_steps=True)
+        ref = trace_frames_reference(packed, seed, lcfg, h)
         lod_img = render_kernel_raw(scene, lcfg)[0]
         base_img = render_kernel_raw(scene, cfg)[0]
     for a, b, what in zip(counted, kl, ("colour", "t", "hit")):
@@ -1367,11 +1378,12 @@ def lod_phase(scene, cfg, tag: str) -> dict:
                      VARIANT_BULK_FRAC)
     times = {"lod": [], "chunked": []}
     for _ in range(2):
-        times["lod"].append(cuda_ms_back_to_back(lambda: trace_frame(packed, seed, lcfg, h), 50))
+        times["lod"].append(cuda_ms_back_to_back(lambda: trace_frames(packed, seed, lcfg, h),
+                                                 50))
         times["chunked"].append(
-            cuda_ms_back_to_back(lambda: trace_frame(packed, seed, cfg, h, prime), 50))
+            cuda_ms_back_to_back(lambda: trace_frames(packed, seed, cfg, h, prime), 50))
     ms, chunked_ms = min(times["lod"]), min(times["chunked"])
-    plain_ms = cuda_ms_back_to_back(lambda: trace_frame_reference(packed, seed, lcfg, h), 1)
+    plain_ms = cuda_ms_back_to_back(lambda: trace_frames_reference(packed, seed, lcfg, h), 1)
     # The fine phase's counted steps only: the coarse phase is not counted,
     # so this bound is low.
     bound_ms, bound_by = fwd_bound(lcfg, lanes.sum().item(), kl[2].sum().item(), h * cfg.width)
@@ -1426,7 +1438,7 @@ def bf16_phase(scene, cfg, tag: str, lanes, hits, probe_lib) -> dict:
     """Phase 18 on one terrain, chunked: ``lanes`` and ``hits`` are the
     float32 march's useful steps per lane and hits (phase 15)."""
     from gpgpuraytrace_tpu_torch import render
-    from gpgpuraytrace_tpu_torch.kernels.trace import render_kernel_raw, trace_frame
+    from gpgpuraytrace_tpu_torch.kernels.trace import render_kernel_raw, trace_frames
 
     bcfg = dataclasses.replace(cfg, march_bf16=True)
     launches, _ = drive(lambda: render(scene, bcfg), "chunked+bf16", 2)  # coarse + fine
@@ -1446,7 +1458,7 @@ def bf16_phase(scene, cfg, tag: str, lanes, hits, probe_lib) -> dict:
     for _ in range(2):
         for label, c in (("bf16", bcfg), ("f32", cfg)):
             times[label].append(
-                cuda_ms_back_to_back(lambda: trace_frame(packed, seed, c, h, prime), 50))
+                cuda_ms_back_to_back(lambda: trace_frames(packed, seed, c, h, prime), 50))
     ms16, ms32 = min(times["bf16"]), min(times["f32"])
     bound_ms, bound_by = fwd_bound(bcfg, lanes.sum().item(), hits, h * cfg.width)
     return {"line": (f"{tag}launches {launches}; {probe}; {line}; vs float32 frame mean image "
@@ -1464,7 +1476,7 @@ def bf16_mode_phase(scene, cfg, tag: str, mode: str) -> dict:
     with the bf16 gates and apart from its mode's float32 instantiation on
     the same inputs; its time and bound (lod: the counted fine phase only)."""
     from gpgpuraytrace_tpu_torch import render
-    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_reference
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames, trace_frames_reference
 
     name = f"{mode}+bf16"
     mcfg = dataclasses.replace(cfg, march_mode=mode, march_bf16=True)  # unprimed
@@ -1472,13 +1484,13 @@ def bf16_mode_phase(scene, cfg, tag: str, mode: str) -> dict:
     packed, seed, _ = fine_inputs(scene, mcfg)
     h, n_pix = cfg.height, cfg.height * cfg.width
     with torch.no_grad():
-        kern = trace_frame(packed, seed, mcfg, h)
-        ref, plain_ms = once_ms(lambda: trace_frame_reference(packed, seed, mcfg, h))
-        f32 = trace_frame(packed, seed, dataclasses.replace(mcfg, march_bf16=False), h)
-        lanes = trace_frame(packed, seed, mcfg, h, debug_steps=True)[3]
+        kern = trace_frames(packed, seed, mcfg, h)
+        ref, plain_ms = once_ms(lambda: trace_frames_reference(packed, seed, mcfg, h))
+        f32 = trace_frames(packed, seed, dataclasses.replace(mcfg, march_bf16=False), h)
+        lanes = trace_frames(packed, seed, mcfg, h, debug_steps=True)[3]
     err, line = compare_trace(f"{tag}{name} vs plain", kern, ref, bf16=True)
     line += "; " + bf16_differs(name, kern, f32)
-    ms = min(cuda_ms_back_to_back(lambda: trace_frame(packed, seed, mcfg, h), 20)
+    ms = min(cuda_ms_back_to_back(lambda: trace_frames(packed, seed, mcfg, h), 20)
              for _ in range(2))
     steps = mcfg.max_steps * n_pix if mode == "fixed" else lanes.sum().item()
     bound_ms, bound_by = fwd_bound(mcfg, steps, kern[2].sum().item(), n_pix)
@@ -1535,7 +1547,7 @@ def quality_phase(dev) -> str:
     the plain path's own counts."""
     import test_torch_quality as harness
 
-    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames
 
     parts = []
     for vol, octaves in ((False, None), (True, None), (False, harness.MAIN_OCTAVES)):
@@ -1546,7 +1558,7 @@ def quality_phase(dev) -> str:
         reset_counts()
         holes, t_off = harness.quality(truth, kernel=True)
         torch.cuda.synchronize()
-        launches = trace_frame.launches.total()
+        launches = trace_frames.launches.total()
         plain = harness.quality(truth)
         margin = harness.t_off_margin(truth)
         if (launches != 2 or abs(holes - plain[0]) > harness.HOLES_MARGIN
@@ -1574,9 +1586,9 @@ def quality_phase(dev) -> str:
 
 def launch_counts() -> dict:
     """The launches since the last ``reset_counts()``, by instantiation."""
-    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames, trace_frames_bwd
 
-    return {**trace_frame.launches, **trace_frame_bwd.launches}
+    return {**trace_frames.launches, **trace_frames_bwd.launches}
 
 
 def expect_counts(what: str, expect: dict) -> None:
@@ -1591,8 +1603,8 @@ def compact_phase(scene, cfg, tag: str) -> dict:
     unprimed chunked kernel's, the survivors and the times."""
     from gpgpuraytrace_tpu_torch import render
     from gpgpuraytrace_tpu_torch.kernels.trace import (
-        _prime_map, phase_name, trace_frame, trace_phase1, trace_phase1_reference,
-        trace_phase2, trace_phase2_reference, warp_steps,
+        _prime_maps, phase_name, trace_frames, trace_phase1s, trace_phase1s_reference,
+        trace_phase2s, trace_phase2s_reference, warp_steps,
     )
     from gpgpuraytrace_tpu_torch.ops import fit as fitmod
 
@@ -1610,8 +1622,8 @@ def compact_phase(scene, cfg, tag: str) -> dict:
         fail(f"{tag}compact frame: shape {tuple(img.shape)} or non-finite")
     packed, seed, _ = fine_inputs(scene, ccfg)
     with torch.no_grad():
-        p1 = trace_phase1(packed, seed, ccfg, h)
-        r1, plain1_ms = once_ms(lambda: trace_phase1_reference(packed, seed, ccfg, h))
+        p1 = trace_phase1s(packed, seed, ccfg, h)
+        r1, plain1_ms = once_ms(lambda: trace_phase1s_reference(packed, seed, ccfg, h))
         err1, line1 = compare_trace(f"{tag}phase 1 vs plain", p1[:3], r1[:3])
         alive_diff = (p1[3] != r1[3]).sum().item()
         if alive_diff:
@@ -1620,17 +1632,17 @@ def compact_phase(scene, cfg, tag: str) -> dict:
         n = int(n_alive.item())
         # The kernel lists the survivors in the order its warps finish, the
         # plain version in pixel order: the same set.
-        if n != int(r1[6].item()) or not torch.equal(ids[:n].sort().values, r1[5][:n]):
+        if n != int(r1[6].item()) or not torch.equal(ids[0, :n].sort().values, r1[5][0, :n]):
             fail(f"{tag}phase 1: the survivors' list ({n}) differs from the plain "
                  f"version's ({int(r1[6].item())})")
         k2 = [x.clone() for x in p1[:3]]
-        trace_phase2(packed, seed, ccfg, h, n_alive, ids, prev, *k2)
+        trace_phase2s(packed, seed, ccfg, h, n_alive, ids, prev, *k2)
         r2 = [x.clone() for x in p1[:3]]
-        _, plain2_ms = once_ms(lambda: trace_phase2_reference(
+        _, plain2_ms = once_ms(lambda: trace_phase2s_reference(
             packed, seed, ccfg, h, n_alive, ids, prev, *r2))
         # Phase 2 writes the survivors' pixels only; the others are phase
         # 1's on both sides, so phase 3's gates hold on the survivors alone.
-        sel = ids[:n].long()
+        sel = ids[0, :n].long()
 
         def survivors(out):
             return out[0].view(3, -1)[:, sel], out[1].view(-1)[sel], out[2].view(-1)[sel]
@@ -1642,11 +1654,11 @@ def compact_phase(scene, cfg, tag: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            frame = trace_frame(packed, seed, ccfg, h)
+            frame = trace_frames(packed, seed, ccfg, h)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        chunked = trace_frame(packed, seed, ucfg, h)
-        *_, lanes = trace_frame(packed, seed, ucfg, h, debug_steps=True)
+        chunked = trace_frames(packed, seed, ucfg, h)
+        *_, (lanes,) = trace_frames(packed, seed, ucfg, h, debug_steps=True)
     torch.cuda.synchronize()
     flips = (frame[2] != chunked[2]).sum().item()
     color_err = (frame[0] - chunked[0]).abs().max().item()
@@ -1671,10 +1683,10 @@ def compact_phase(scene, cfg, tag: str) -> dict:
         t_buf.copy_(p1[1])
 
     def run1():
-        trace_phase1(packed, seed, ccfg, h)
+        trace_phase1s(packed, seed, ccfg, h)
 
     def run2():
-        trace_phase2(packed, seed, ccfg, h, n_alive, ids, prev, k2[0], t_buf, k2[2])
+        trace_phase2s(packed, seed, ccfg, h, n_alive, ids, prev, k2[0], t_buf, k2[2])
 
     def run2_restored():
         restore()
@@ -1685,7 +1697,7 @@ def compact_phase(scene, cfg, tag: str) -> dict:
     def graph2(ids_k):
         def run2_k():
             restore()
-            trace_phase2(packed, seed, ccfg, h, n_alive, ids_k, prev, k2[0], t_buf, k2[2])
+            trace_phase2s(packed, seed, ccfg, h, n_alive, ids_k, prev, k2[0], t_buf, k2[2])
 
         return graph_ms(run2_k, 50) - graph_ms(restore, 50)
 
@@ -1695,22 +1707,22 @@ def compact_phase(scene, cfg, tag: str) -> dict:
     # another, so the reading is the median over PHASE2_LISTINGS lists, each
     # from its own launch of phase 1; and, for comparison, the same
     # survivors in pixel order.
-    g2_all = [graph2(ids if k == 0 else trace_phase1(packed, seed, ccfg, h)[5])
+    g2_all = [graph2(ids if k == 0 else trace_phase1s(packed, seed, ccfg, h)[5])
               for k in range(PHASE2_LISTINGS)]
     g2 = statistics.median(g2_all)
     by_pixel = ids.clone()
-    by_pixel[:n] = ids[:n].sort().values
+    by_pixel[0, :n] = ids[0, :n].sort().values
     g2_pixel = graph2(by_pixel)
     ms1 = cuda_ms_back_to_back(run1, 50)
     ms2 = cuda_ms_back_to_back(run2_restored, 50) - cuda_ms_back_to_back(restore, 50)
     host1, host2 = host_us(run1), host_us(run2)
-    prime = _prime_map(scene, cfg, 0.0, h)
+    prime = _prime_maps(scene, scene.camera, cfg)
     traces = {
-        "compact": lambda: trace_frame(packed, seed, ccfg, h),
-        "unprimed chunked": lambda: trace_frame(packed, seed, ucfg, h),
-        "primed chunked fine pass": lambda: trace_frame(packed, seed, cfg, h, prime),
-        "primed chunked with its coarse pass": lambda: trace_frame(
-            packed, seed, cfg, h, _prime_map(scene, cfg, 0.0, h)),
+        "compact": lambda: trace_frames(packed, seed, ccfg, h),
+        "unprimed chunked": lambda: trace_frames(packed, seed, ucfg, h),
+        "primed chunked fine pass": lambda: trace_frames(packed, seed, cfg, h, prime),
+        "primed chunked with its coarse pass": lambda: trace_frames(
+            packed, seed, cfg, h, _prime_maps(scene, scene.camera, cfg)),
     }
     times = {k: [] for k in traces}
     for _ in range(2):
@@ -1909,10 +1921,10 @@ def bf16_bwd_phase(scene, cfg, tag: str) -> dict:
     backward gates) and a seeded normal one (the bf16 backward gates)."""
     from gpgpuraytrace_tpu_torch import render
     from gpgpuraytrace_tpu_torch.kernels.trace import (
-        render_kernel_raw, trace_bwd_reference, trace_frame_bwd,
+        render_kernel_raw, trace_frames_bwd, trace_frames_bwd_reference,
     )
     from gpgpuraytrace_tpu_torch.ops import fit as fitmod
-    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_frames
 
     bcfg = dataclasses.replace(cfg, march_bf16=True)
     f32 = dataclasses.replace(cfg, march_bf16=False)
@@ -1927,19 +1939,20 @@ def bf16_bwd_phase(scene, cfg, tag: str) -> dict:
     expect_counts(f"{tag}training step under march_bf16", {"chunked+bf16": 2, "bwd+bf16": 1})
     launches = launch_counts()["bwd+bf16"]
     img, t, hit = render_kernel_raw(scene, bcfg)
-    packed, seed = pack_scene(scene, cfg.height, cfg.width, 0.0)
+    packed, _, seed = pack_frames(scene, scene.camera, cfg.height, cfg.width, 0.0)
+    t, hit = t[None], hit[None]
     cotangents = {
-        "loss": ((2.0 / img.numel()) * (img - target)).permute(2, 0, 1).contiguous(),
-        "normal": torch.randn(3, cfg.height, cfg.width,
+        "loss": ((2.0 / img.numel()) * (img - target)).permute(2, 0, 1)[None].contiguous(),
+        "normal": torch.randn(1, 3, cfg.height, cfg.width,
                               generator=torch.Generator().manual_seed(0)).to(t.device),
     }
     gates = {"loss": (BWD_RTOL, BWD_ATOL_REL), "normal": (BF16_BWD_RTOL, BF16_BWD_ATOL_REL)}
     parts, errs = [], []
     for label, g in cotangents.items():
         args = (packed.detach(), seed, bcfg, cfg.height, t, hit.float(), g)
-        k, k2 = trace_frame_bwd(*args), trace_frame_bwd(*args)
-        ref, plain_ms = once_ms(lambda: trace_bwd_reference(*args))
-        k32 = trace_frame_bwd(packed.detach(), seed, f32, *args[3:])
+        k, k2 = trace_frames_bwd(*args), trace_frames_bwd(*args)
+        ref, plain_ms = once_ms(lambda: trace_frames_bwd_reference(*args))
+        k32 = trace_frames_bwd(packed.detach(), seed, f32, *args[3:])
         torch.cuda.synchronize()
         if not torch.isfinite(k).all() or not torch.equal(k, k2):
             fail(f"{tag}bf16 backward ({label}): not finite or not bitwise repeatable")
@@ -1960,15 +1973,15 @@ def bf16_bwd_phase(scene, cfg, tag: str) -> dict:
                      f"{worst32:.2f}; two launches bitwise equal; plain {plain_ms:.3f} ms")
     args = {label: (packed.detach(), seed, c, cfg.height, t, hit.float(), cotangents["loss"])
             for label, c in (("bf16", bcfg), ("f32", f32))}
-    parts.append(bwd_repeats(args["bf16"], trace_frame_bwd(*args["bf16"])))
+    parts.append(bwd_repeats(args["bf16"], trace_frames_bwd(*args["bf16"])))
     times = {(label, how): [] for label in args for how in ("b2b", "graph")}
     for _ in range(2):
         for label, a in args.items():
-            times[label, "b2b"].append(cuda_ms_back_to_back(lambda: trace_frame_bwd(*a), 50))
-            times[label, "graph"].append(graph_ms(lambda: trace_frame_bwd(*a), 50))
+            times[label, "b2b"].append(cuda_ms_back_to_back(lambda: trace_frames_bwd(*a), 50))
+            times[label, "graph"].append(graph_ms(lambda: trace_frames_bwd(*a), 50))
     ms, ms32 = min(times["bf16", "b2b"]), min(times["f32", "b2b"])
     gms, gms32 = min(times["bf16", "graph"]), min(times["f32", "graph"])
-    host = host_us(lambda: trace_frame_bwd(*args["bf16"]))
+    host = host_us(lambda: trace_frames_bwd(*args["bf16"]))
     hits, n_pix = hit.sum().item(), cfg.height * cfg.width
     bound_ms, bound_by = bwd_bound(bcfg, hits, n_pix)
     line = (f"{tag}a training step launched chunked+bf16 twice and bwd+bf16 once; on the "
@@ -2307,14 +2320,12 @@ def one_frame_cameras(scene, times):
 def batch_digests(scene, cfg, tag: str) -> str:
     """Phase 28, part 1 on one terrain: at ``cfg``'s size, batches of
     BATCHES frames along the fly path through the frame axis, each frame's
-    SHA-256 against its one-frame launch: the coarse and the fine pass
-    (float32 and bf16), compaction's phase 1 (its survivors as a sorted set)
-    and phase 2."""
-    from gpgpuraytrace_tpu_torch.kernels.trace import (
-        trace_frame, trace_frames, trace_phase1, trace_phase1s, trace_phase2, trace_phase2s,
-    )
+    SHA-256 against its batch of one (the one-frame launch): the coarse and
+    the fine pass (float32 and bf16), compaction's phase 1 (its survivors as
+    a sorted set) and phase 2."""
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames, trace_phase1s, trace_phase2s
     from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
-    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene, pack_scenes
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_frames
 
     n_max = max(BATCHES)
     times, cams = fly_batch(scene, n_max)
@@ -2328,21 +2339,23 @@ def batch_digests(scene, cfg, tag: str) -> str:
             cmp = dataclasses.replace(c, march_mode="compact", compact_budget=COMPACT_BUDGET)
             ones = []
             for s in singles:  # every one-frame launch once; batches take the first B
-                pc, seed = (x.detach() for x in pack_scene(s, ccfg.height, ccfg.width, -1.0))
-                pf = pack_scene(s, c.height, c.width)[0].detach()
-                coarse = trace_frame(pc, seed, ccfg, ch)
+                pc, _, seed = pack_frames(s, s.camera, ccfg.height, ccfg.width, -1.0)
+                pc = pc.detach()
+                pf = pack_frames(s, s.camera, c.height, c.width)[0].detach()
+                coarse = trace_frames(pc, seed, ccfg, ch)
                 prime = prime_from_coarse(coarse[1], c)
-                fine = trace_frame(pf, seed, c, c.height, prime)
-                p1 = trace_phase1(pf, seed, cmp, c.height)
+                fine = trace_frames(pf, seed, c, c.height, prime)
+                p1 = trace_phase1s(pf, seed, cmp, c.height)
                 n = int(p1[6].item())
-                d1 = digest((*p1[:5], p1[5][:n].sort().values, p1[6]))
-                trace_phase2(pf, seed, cmp, c.height, p1[6], p1[5], p1[4], *p1[:3])
+                d1 = digest((*p1[:5], p1[5][0, :n].sort().values, p1[6]))
+                trace_phase2s(pf, seed, cmp, c.height, p1[6], p1[5], p1[4], *p1[:3])
                 ones.append({"coarse": digest(coarse), "prime": digest([prime]),
                              "fine": digest(fine), "phase1": d1, "phase2": digest(p1[:3])})
             for b in BATCHES:
                 sub = dataclasses.replace(cams, position=cams.position[:b], yaw=cams.yaw[:b])
-                pc = pack_scenes(scene, sub, ccfg.height, ccfg.width, -1.0)[0].detach()
-                pf, seed = (x.detach() for x in pack_scenes(scene, sub, c.height, c.width))
+                pc = pack_frames(scene, sub, ccfg.height, ccfg.width, -1.0)[0].detach()
+                pf, _, seed = pack_frames(scene, sub, c.height, c.width)
+                pf = pf.detach()
                 coarse = trace_frames(pc, seed, ccfg, ch)
                 prime = prime_from_coarse(coarse[1], c)
                 fine = trace_frames(pf, seed, c, c.height, prime)
@@ -2380,7 +2393,7 @@ def batch_vs_plain(scene, cfg, tag: str) -> dict:
         _prime_maps, trace_frames, trace_frames_reference, trace_phase1s,
         trace_phase1s_reference, trace_phase2s, trace_phase2s_reference,
     )
-    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scenes
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_frames
 
     b = 2
     _, cams = fly_batch(scene, b)
@@ -2389,7 +2402,8 @@ def batch_vs_plain(scene, cfg, tag: str) -> dict:
     ucfg = dataclasses.replace(cfg, prime_ds=0)
     with torch.no_grad():
         prime = _prime_maps(scene, cams, cfg)
-        packed, seed = (x.detach() for x in pack_scenes(scene, cams, cfg.height, cfg.width))
+        packed, _, seed = pack_frames(scene, cams, cfg.height, cfg.width)
+        packed = packed.detach()
         kern = trace_frames(packed, seed, cfg, h, prime)
         ref, plain_ms = once_ms(lambda: trace_frames_reference(packed, seed, cfg, h, prime))
         err, line = compare_trace(f"{tag}batch of 2 fine vs plain", kern, ref)
@@ -2506,10 +2520,10 @@ def batch_hd(scene, cfg, tag: str) -> str:
     one-frame traces, at 1080p and at ``cfg``'s size; the coarse pass of 4
     frames against 1."""
     from gpgpuraytrace_tpu_torch.kernels.trace import (
-        render_frames_raw, render_kernel_raw, trace_frame, trace_frames,
+        render_frames_raw, render_kernel_raw, trace_frames,
     )
     from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
-    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene, pack_scenes
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_frames
 
     hd = dataclasses.replace(cfg, height=HD[0], width=HD[1])
     times, cams = fly_batch(scene, 4)
@@ -2526,10 +2540,12 @@ def batch_hd(scene, cfg, tag: str) -> str:
         ccfg = coarse_prime_cfg(c)
         ch = c.height // c.prime_ds + 2
         with torch.no_grad():
-            pc4 = pack_scenes(scene, cams, ccfg.height, ccfg.width, -1.0)[0].detach()
-            pf4, seed = (x.detach() for x in pack_scenes(scene, cams, c.height, c.width))
-            pc1 = [pack_scene(s, ccfg.height, ccfg.width, -1.0)[0].detach() for s in singles]
-            pf1 = [pack_scene(s, c.height, c.width)[0].detach() for s in singles]
+            pc4 = pack_frames(scene, cams, ccfg.height, ccfg.width, -1.0)[0].detach()
+            pf4, _, seed = pack_frames(scene, cams, c.height, c.width)
+            pf4 = pf4.detach()
+            pc1 = [pack_frames(s, s.camera, ccfg.height, ccfg.width, -1.0)[0].detach()
+                   for s in singles]
+            pf1 = [pack_frames(s, s.camera, c.height, c.width)[0].detach() for s in singles]
 
             def batched():
                 coarse = trace_frames(pc4, seed, ccfg, ch)
@@ -2537,14 +2553,14 @@ def batch_hd(scene, cfg, tag: str) -> str:
 
             def one_by_one():
                 for p_c, p_f in zip(pc1, pf1):
-                    coarse = trace_frame(p_c, seed, ccfg, ch)
-                    trace_frame(p_f, seed, c, c.height, prime_from_coarse(coarse[1], c))
+                    coarse = trace_frames(p_c, seed, ccfg, ch)
+                    trace_frames(p_f, seed, c, c.height, prime_from_coarse(coarse[1], c))
 
             reps = 10
             times_ms[label] = {
                 "batch_of_4": graph_ms(batched, reps), "one_by_one_4": graph_ms(one_by_one, reps),
                 "coarse_4": graph_ms(lambda: trace_frames(pc4, seed, ccfg, ch), 50),
-                "coarse_1": graph_ms(lambda: trace_frame(pc1[0], seed, ccfg, ch), 50)}
+                "coarse_1": graph_ms(lambda: trace_frames(pc1[0], seed, ccfg, ch), 50)}
     torch.cuda.synchronize()
     return (f"{tag}1920x1080 batch of 4: every frame's colour, t and hit bit for bit its "
             f"one-frame render; device time as CUDA graphs (ms): "
@@ -2565,18 +2581,18 @@ def launcher_host_us(scene, cfg) -> str:
     the library's handle was cached."""
     from gpgpuraytrace_tpu_torch.kernels import trace as kt
     from gpgpuraytrace_tpu_torch.kernels.trace import (
-        _check_inputs, _kernel_config, _library, _tile_scratch,
-        trace_frame, trace_frames,
+        _check_inputs, _kernel_config, _library, _tile_scratch, trace_frames,
     )
-    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scenes
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_frames
 
     dev = torch.device("cuda")
     _, cams = fly_batch(scene, 4)
     h, w = cfg.height, cfg.width
     with torch.no_grad():
         prime = kt._prime_maps(scene, cams, cfg)
-        pf4, seed = (x.detach() for x in pack_scenes(scene, cams, h, w))
-    pf1, prime1 = pf4[:1].contiguous(), prime[0].contiguous()
+        pf4, _, seed = pack_frames(scene, cams, h, w)
+        pf4 = pf4.detach()
+    pf1, prime1 = pf4[:1].contiguous(), prime[:1].contiguous()
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch = _tile_scratch(dev, stream)
@@ -2601,7 +2617,7 @@ def launcher_host_us(scene, cfg) -> str:
             pass
 
     parts = {
-        "trace_frame (1 frame)": lambda: trace_frame(pf1, seed, cfg, h, prime1),
+        "trace_frames (1 frame)": lambda: trace_frames(pf1, seed, cfg, h, prime1),
         "trace_frames (4 frames)": lambda: trace_frames(pf4, seed, cfg, h, prime),
         "input checks": lambda: _check_inputs(pf1, seed, cfg, h, prime1, False),
         "library handle (cached)": _library,
@@ -2675,14 +2691,14 @@ def bench_phase(fwd_per_step: float, bwd_per_step: float, card: str) -> tuple[st
     line and this process's forward and backward launches (the captures
     count once)."""
     from gpgpuraytrace_tpu_torch import bench
-    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames, trace_frames_bwd
 
     t0 = time.perf_counter()
     reset_counts()
     result = bench.run_bench((512, 512), 6, iters=40)
     torch.cuda.synchronize()
-    counts = {"forward": trace_frame.launches.total(),
-              "backward": trace_frame_bwd.launches.total()}
+    counts = {"forward": trace_frames.launches.total(),
+              "backward": trace_frames_bwd.launches.total()}
     print(json.dumps(result), flush=True)
     d = result["detail"]
     if result["parity"] != "ok":
@@ -3096,26 +3112,27 @@ def uhd_band_vs_plain(scene, cfg, whole, row0: int, h: int) -> str:
     pass), bit for bit the whole frame's rows, and against the plain
     versions on the same inputs (the fine pass from the kernel's prime map)
     with phase 3's gates."""
-    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_reference
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames, trace_frames_reference
     from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
-    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_frames
 
     ds = cfg.prime_ds
     ccfg = coarse_prime_cfg(cfg)
     tag = f"4K band of {h} rows at row {row0}"
     with torch.no_grad():
-        packed_c, seed_c = pack_scene(scene, ccfg.height, ccfg.width, row0 / ds - 1.0)
-        coarse_k = trace_frame(packed_c, seed_c, ccfg, h // ds + 2)
-        coarse_r = trace_frame_reference(packed_c, seed_c, ccfg, h // ds + 2)
+        packed_c, _, seed_c = pack_frames(scene, scene.camera, ccfg.height, ccfg.width,
+                                          row0 / ds - 1.0)
+        coarse_k = trace_frames(packed_c, seed_c, ccfg, h // ds + 2)
+        coarse_r = trace_frames_reference(packed_c, seed_c, ccfg, h // ds + 2)
         torch.cuda.synchronize()
         _, line_c = compare_trace(f"{tag}: coarse", coarse_k, coarse_r)
         prime = prime_from_coarse(coarse_k[1], cfg)
-        packed, seed = pack_scene(scene, cfg.height, cfg.width, float(row0))
-        fine_k = trace_frame(packed, seed, cfg, h, prime)
-        fine_r = trace_frame_reference(packed, seed, cfg, h, prime)
+        packed, _, seed = pack_frames(scene, scene.camera, cfg.height, cfg.width, float(row0))
+        fine_k = trace_frames(packed, seed, cfg, h, prime)
+        fine_r = trace_frames_reference(packed, seed, cfg, h, prime)
         torch.cuda.synchronize()
         _, line_f = compare_trace(f"{tag}: fine", fine_k, fine_r)
-    if not torch.equal(fine_k[0].permute(1, 2, 0), whole[row0:row0 + h]):
+    if not torch.equal(fine_k[0][0].permute(1, 2, 0), whole[row0:row0 + h]):
         fail(f"{tag}: the kernel's band differs from the whole frame's rows")
     return f"{line_c} | {line_f}; bit for bit the whole frame's rows"
 
@@ -3134,11 +3151,11 @@ def uhd_kernels(scene, cfg) -> str:
     divergence), the hits from the frame; the coarse pass from its own
     counter and hits."""
     from gpgpuraytrace_tpu_torch.kernels.trace import (
-        render_kernel_raw, trace_bwd_reference, trace_frame, trace_frame_bwd,
-        trace_frame_reference,
+        render_kernel_raw, trace_frames, trace_frames_bwd, trace_frames_bwd_reference,
+        trace_frames_reference,
     )
     from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
-    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
+    from gpgpuraytrace_tpu_torch.kernels.pack import pack_frames
 
     def once_s(fn):
         torch.cuda.synchronize()
@@ -3153,28 +3170,28 @@ def uhd_kernels(scene, cfg) -> str:
     with torch.no_grad():
         *_, hit, steps = render_kernel_raw(scene, cfg, debug_steps=True)
         hits = hit.sum().item()
-        packed_c, seed_c = pack_scene(scene, ccfg.height, ccfg.width, -1.0)
-        _, _, c_hit, c_steps = trace_frame(packed_c, seed_c, ccfg, ch, debug_steps=True)
-        coarse_k = trace_frame(packed_c, seed_c, ccfg, ch)
-        coarse_r, plain_s = once_s(lambda: trace_frame_reference(packed_c, seed_c, ccfg, ch))
+        packed_c, _, seed_c = pack_frames(scene, scene.camera, ccfg.height, ccfg.width, -1.0)
+        _, _, c_hit, c_steps = trace_frames(packed_c, seed_c, ccfg, ch, debug_steps=True)
+        coarse_k = trace_frames(packed_c, seed_c, ccfg, ch)
+        coarse_r, plain_s = once_s(lambda: trace_frames_reference(packed_c, seed_c, ccfg, ch))
         _, line_c = compare_trace(f"4K coarse {ch}x{ccfg.width}", coarse_k, coarse_r)
         prime = prime_from_coarse(coarse_k[1], cfg)
-        packed, seed = pack_scene(scene, cfg.height, cfg.width, 0.0)
-        fine_k = trace_frame(packed, seed, cfg, cfg.height, prime)
+        packed, _, seed = pack_frames(scene, scene.camera, cfg.height, cfg.width, 0.0)
+        fine_k = trace_frames(packed, seed, cfg, cfg.height, prime)
         fine_r, plain_fine_s = once_s(
-            lambda: trace_frame_reference(packed, seed, cfg, cfg.height, prime))
+            lambda: trace_frames_reference(packed, seed, cfg, cfg.height, prime))
         _, line_f = compare_trace(f"4K fine {cfg.height}x{cfg.width}", fine_k, fine_r)
         del fine_r
         _, t, hit_f = fine_k
-        g = torch.randn(3, cfg.height, cfg.width,
+        g = torch.randn(1, 3, cfg.height, cfg.width,
                         generator=torch.Generator().manual_seed(0)).to(packed.device)
         bwd_args = (packed, seed, cfg, cfg.height, t, hit_f, g)
-        pbar_k = trace_frame_bwd(*bwd_args)
-        pbar_k2 = trace_frame_bwd(*bwd_args)
+        pbar_k = trace_frames_bwd(*bwd_args)
+        pbar_k2 = trace_frames_bwd(*bwd_args)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    pbar_r, plain_bwd_s = once_s(lambda: trace_bwd_reference(*bwd_args))
+    pbar_r, plain_bwd_s = once_s(lambda: trace_frames_bwd_reference(*bwd_args))
     plain_bwd_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
     if not torch.isfinite(pbar_k).all():
         fail("4K backward: kernel output not finite")
@@ -3187,9 +3204,9 @@ def uhd_kernels(scene, cfg) -> str:
     del pbar_r
     torch.cuda.empty_cache()
     with torch.no_grad():
-        ms = {"coarse": graph_ms(lambda: trace_frame(packed_c, seed_c, ccfg, ch), 10),
-              "fine": graph_ms(lambda: trace_frame(packed, seed, cfg, cfg.height, prime), 10),
-              "bwd": graph_ms(lambda: trace_frame_bwd(*bwd_args), 10)}
+        ms = {"coarse": graph_ms(lambda: trace_frames(packed_c, seed_c, ccfg, ch), 10),
+              "fine": graph_ms(lambda: trace_frames(packed, seed, cfg, cfg.height, prime), 10),
+              "bwd": graph_ms(lambda: trace_frames_bwd(*bwd_args), 10)}
     c_pix = ch * ccfg.width
     bounds = {"coarse": fwd_bound(ccfg, c_steps.sum().item(), c_hit.sum().item(), c_pix),
               "fine": fwd_bound(cfg, steps.sum().item(), hits, n_pix),
@@ -3261,8 +3278,8 @@ def uhd_stripes(dev) -> str:
         reset_counts()
         pbar = ktrace.trace_frames_bwd(packed, seed, cfg, s, t, hit, g)
         expect_counts(f"{tag}: the batch's backward", {"bwd+frames": 1})
-        ones = torch.cat([ktrace.trace_frame_bwd(packed[b:b + 1], seed, cfg, s, t[b], hit[b],
-                                                 g[b]) for b in range(k)])
+        ones = torch.cat([ktrace.trace_frames_bwd(packed[b:b + 1], seed, cfg, s, t[b:b + 1],
+                                                  hit[b:b + 1], g[b:b + 1]) for b in range(k)])
         if not torch.equal(pbar, ones):
             fail(f"{tag}: the batch's backward differs from the stripes' one-frame launches")
     ref = ktrace.trace_frames_bwd_reference(packed, seed, cfg, s, t, hit, g)
@@ -3284,13 +3301,14 @@ def uhd_stripes(dev) -> str:
                                UHD_STRIPE_REPS),
               "bwd": graph_ms(lambda: ktrace.trace_frames_bwd(packed, seed, cfg, s, t, hit, g),
                               UHD_STRIPE_REPS)}
-        one = {"coarse": graph_ms(lambda: [ktrace.trace_frame(coarse[b:b + 1], seed, ccfg, hc)
+        one = {"coarse": graph_ms(lambda: [ktrace.trace_frames(coarse[b:b + 1], seed, ccfg, hc)
                                            for b in range(k)], UHD_STRIPE_REPS),
-               "fine": graph_ms(lambda: [ktrace.trace_frame(packed[b:b + 1], seed, cfg, s,
-                                                            prime[b]) for b in range(k)],
+               "fine": graph_ms(lambda: [ktrace.trace_frames(packed[b:b + 1], seed, cfg, s,
+                                                             prime[b:b + 1]) for b in range(k)],
                                 UHD_STRIPE_REPS),
-               "bwd": graph_ms(lambda: [ktrace.trace_frame_bwd(packed[b:b + 1], seed, cfg, s,
-                                                               t[b], hit[b], g[b])
+               "bwd": graph_ms(lambda: [ktrace.trace_frames_bwd(packed[b:b + 1], seed, cfg, s,
+                                                                t[b:b + 1], hit[b:b + 1],
+                                                                g[b:b + 1])
                                         for b in range(k)], UHD_STRIPE_REPS)}
     step_line = uhd_stripe_step(scene, cfg, row0s, s, tag)
     return (f"{line_c} | {line_f} | {tag}: one pack launch, rows bit for bit the plain ops; "
@@ -3469,7 +3487,7 @@ def config5_phase(dev, card: str) -> tuple[str, dict]:
     docstring); returns its line and the config-5 path's forward and
     backward launches, and the pack kernels' at the sharded step's capture."""
     from gpgpuraytrace_tpu_torch import RenderConfig, default_scene, render
-    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames, trace_frames_bwd
 
     sys.path.insert(0, str(REPO / "scripts"))
     import torch_contract_configs
@@ -3495,8 +3513,8 @@ def config5_phase(dev, card: str) -> tuple[str, dict]:
     reset_counts()
     result = torch_contract_configs.config5(height, width, 6, device=dev)
     torch.cuda.synchronize()
-    counts = {"forward": trace_frame.launches.total(),
-              "backward": trace_frame_bwd.launches.total()}
+    counts = {"forward": trace_frames.launches.total(),
+              "backward": trace_frames_bwd.launches.total()}
     print(json.dumps(result), flush=True)
     if not result["ok"]:
         fail(f"config 5: {json.dumps(result)}")
@@ -3808,7 +3826,7 @@ def main() -> None:
 
     from gpgpuraytrace_tpu_torch import RenderConfig, default_scene, render
     from gpgpuraytrace_tpu_torch.kernels import build
-    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
+    from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames, trace_frames_bwd
     from gpgpuraytrace_tpu_torch.ops import fit as fitmod
     from gpgpuraytrace_tpu_torch.ops.fd_check import fd_check_scalar, scene_with
 
@@ -3864,10 +3882,10 @@ def main() -> None:
     cfg1 = RenderConfig(height=128, width=128, max_steps=96, num_octaves=1,
                         step_floor_t=0.0, step_relax=0.7, newton_iters=4, prime_ds=0)
     golden = torch.from_numpy(np.load(GOLDEN)).to(dev)
-    before = trace_frame.launches.total()
+    before = trace_frames.launches.total()
     with torch.no_grad():
         img1 = render(default_scene(1, device=dev), cfg1)
-    if trace_frame.launches.total() != before + 1:
+    if trace_frames.launches.total() != before + 1:
         fail("golden render did not go through the kernel")
     g2 = check_close("golden", img1, golden, COLOR_ATOL, COLOR_FRAC)
     g4 = check_close("golden bulk", img1, golden, BULK_ATOL, BULK_FRAC)
@@ -3945,11 +3963,11 @@ def main() -> None:
                 fail(f"AD vs FD {label}: ad={ad} fd={fd} (rtol {rtol})")
             fd_lines.append(f"{label} ad {ad:.6e} fd {fd:.6e} rel {rel:.2e}"
                             + ("" if gated else " (not gated)"))
-    if not (trace_frame.launches.total() and trace_frame_bwd.launches.total()):
+    if not (trace_frames.launches.total() and trace_frames_bwd.launches.total()):
         fail("the FD checks did not run through both kernels")
     phase(10, "AD vs FD", "; ".join(fd_lines)
-          + f" ({trace_frame.launches.total()} forward, "
-            f"{trace_frame_bwd.launches.total()} backward launches)")
+          + f" ({trace_frames.launches.total()} forward, "
+            f"{trace_frames_bwd.launches.total()} backward launches)")
 
     # --- 11. volumetric: forward kernel vs plain version ------------------------------
     vcfg = RenderConfig(num_octaves=6, volumetric=True)  # relax 0.9, prime 8, 128 steps

@@ -15,8 +15,6 @@ the rows' cotangent -> the leaves' gradients, one kernel launch each
   ``utils/packing.py:pack_scenes``, and autograd pulls back through its ops.
   ``.launches`` on each counts its kernel's launches. A CUDA leaf never
   takes the plain version: a failed build or launch raises.
-* ``pack_scene`` and ``pack_scenes`` are ``utils/packing.py``'s functions of
-  the same names on any device.
 """
 
 from __future__ import annotations
@@ -161,7 +159,7 @@ def pack_frames(scene: Scene, cameras: Camera | Cameras, height: int, width: int
     first rows, one per frame (B blocks of one ``Camera``: a rank's stripes);
     ``coarse`` (height, width, row0) asks for the coarse prime pass's rows
     too, its row0 a number or a sequence in the same way. Row b is bit for
-    bit the row of the one-frame call with camera b and row0 b. On the card
+    bit the row of a batch of one with camera b and row0 b. On the card
     the kernel reads the leaves by pointer, so a CUDA graph that captured
     this call packs what they hold at each replay."""
     leaves = _leaves(scene, cameras)
@@ -182,20 +180,6 @@ def pack_frames(scene: Scene, cameras: Camera | Cameras, height: int, width: int
 
 
 pack_frames.launches = 0
-
-
-def pack_scene(scene: Scene, height: int, width: int, row0=0.0):
-    """``utils/packing.py:pack_scene`` on any device: (packed (1, AMPS +
-    octaves), seed (1, 1))."""
-    packed, _, seed = pack_frames(scene, scene.camera, height, width, row0)
-    return packed, seed
-
-
-def pack_scenes(scene: Scene, cameras: Camera | Cameras, height: int, width: int, row0=0.0):
-    """``utils/packing.py:pack_scenes`` on any device: (packed (B, AMPS +
-    octaves), seed (1, 1)); a single ``Camera`` gives (AMPS + octaves,)."""
-    packed, _, seed = pack_frames(scene, cameras, height, width, row0)
-    return (packed[0] if isinstance(cameras, Camera) else packed), seed
 
 
 def _plain_rows(scene, cameras, height, width, row0) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """The trace kernels: the forward (raygen -> primed sphere-trace march ->
 Newton polish -> shade), compaction's two phases, and the backward (output
-cotangent -> packed scene-parameter cotangent), each for a full frame or a
-row band.
+cotangent -> packed scene-parameter cotangent), each over a batch of frames
+of one scene: whole frames, row bands, or a rank's stripes.
 
 Counterparts of ``gpgpuraytrace_tpu/kernels/trace.py``: ``_trace_kernel``
 with its launcher ``_render_pallas_raw``; ``_trace_phase1_kernel`` and
@@ -21,24 +21,22 @@ warps, and writes each result in place. The variants change only where the
 march stops, so one backward serves them all; under ``march_bf16`` its march
 channel pulls back through the bf16 field, as JAX's does. The pieces:
 
-* ``trace_frame``, ``trace_phase1``, ``trace_phase2`` and
-  ``trace_frame_bwd`` are the wrappers. Each validates its inputs, launches
-  its hand-written CUDA kernel (``csrc/trace_fwd.cu``,
-  ``csrc/trace_compact.cu``, ``csrc/trace_bwd.cu``) on CUDA tensors, and
-  runs its plain version on CPU tensors. ``.launches`` counts kernel
-  launches (``trace_frame``'s, a ``Counter`` by instantiation, the two
-  phases included). A CUDA input never falls back to the plain version: a
-  failed build or launch raises.
 * ``trace_frames``, ``trace_phase1s``, ``trace_phase2s`` and
-  ``trace_frames_bwd`` are the same for a batch of B frames of one scene (a
-  row of packed scalars per frame, a leading B on every per-pixel input and
-  output): one launch for the batch (the kernels' frame axis; the JAX
-  package's ``vmap`` over its kernels), each frame bit for bit its one-frame
-  launch. The forward's batch is one pool of tiles, which the resident warps
-  share whatever the frame, so frames that march unevenly (a row-band
-  rank's stripes) keep the card full. Their launches count in
-  ``trace_frame.launches`` and ``trace_frame_bwd.launches``, as "+frames"
-  instantiations when B > 1 (a batch of one runs the one-frame kernel).
+  ``trace_frames_bwd`` are the wrappers. Each takes a batch of B frames of
+  one scene, 1 to ``MAX_FRAMES``: a row of packed scalars per frame (from
+  ``kernels/pack.py:pack_frames``) and a leading B on every per-pixel input
+  and output (the JAX package's ``vmap`` over its kernels). Each validates
+  its inputs, launches its hand-written CUDA kernel (``csrc/trace_fwd.cu``,
+  ``csrc/trace_compact.cu``, ``csrc/trace_bwd.cu``) once for the batch on
+  CUDA tensors, its frame axis (blockIdx.y) when B > 1, and runs its plain
+  version on CPU tensors. The forward's batch is one pool of tiles, which
+  the resident warps share whatever the frame, so frames that march
+  unevenly (a row-band rank's stripes) keep the card full. A CUDA input
+  never falls back to the plain version: a failed build or launch raises.
+* ``trace_frames.launches`` counts the forward kernels' launches (the two
+  phases of compaction included) and ``trace_frames_bwd.launches`` the
+  backward's, each a ``Counter`` by instantiation (``variant_name``,
+  ``phase_name``, "bwd" and "bwd+bf16"), "+frames" when B > 1.
 * The forward kernel (and phase 1) runs one thread per pixel, a warp per
   ``WARP_TILE`` (4x8) tile of pixels, on persistent warps: the grid is what
   fits on the card at once, and each warp takes its next tile from a counter
@@ -60,27 +58,24 @@ channel pulls back through the bf16 field, as JAX's does. The pieces:
   the order of every sum are stated in csrc/trace_bwd.cu's header). A
   second launch sums the groups and folds the frequency columns into the
   lacunarity's. The order of every sum is fixed by the frame's shape, so
-  the gradient is the same bit for bit from run to run. Its scratch (the partial sums and the second stage's
-  counter, left at 0) is kept per device and stream, as the forward's, and
-  ``g`` may be the (h, W, 3) colour cotangent's view, read in place.
-* ``trace_frame_reference``, ``trace_phase1_reference``,
-  ``trace_phase2_reference`` and ``trace_bwd_reference`` are the plain
-  PyTorch versions of exactly what the kernels compute, written against the
-  same packed scalar vector; ``trace_frames_reference``,
-  ``trace_phase1s_reference`` and ``trace_phase2s_reference`` run them frame
-  by frame over a batch.
+  the gradient is the same bit for bit from run to run. Its scratch (the
+  partial sums and the second stage's counter, left at 0) is kept per
+  device and stream, as the forward's, and ``g`` may be the (B, h, W, 3)
+  colour cotangent's view, read in place.
+* ``trace_frames_reference``, ``trace_phase1s_reference``,
+  ``trace_phase2s_reference`` and ``trace_frames_bwd_reference`` are the
+  plain PyTorch versions of exactly what the kernels compute, written
+  against the same packed scalar rows, frame by frame.
 * ``render_kernel_raw`` renders a frame, a band, or a rank's stripes of
   one camera (a sequence of first rows, ``parallel/mesh.py:stripes``) as
   one batch through ``trace_frames`` (the scene packed once by
   ``kernels/pack.py:pack_frames``, whose one launch writes the coarse
   pass's rows and the full pass's, a row per stripe; coarse depth-prime
-  pass, prime map, full pass; or compaction's two phases; one block runs
-  the one-frame kernels) and returns its (t, hit) too, and the per-lane
-  step counts with
-  ``debug_steps``; it builds no autograd graph. ``tile_steps`` and
-  ``warp_steps`` reduce those counts to what a (tile_h, 128) TPU tile and a
-  warp of the CUDA kernel execute; ``warp_tile_pixels`` is the kernel's
-  map from a warp's tile to its pixels.
+  pass, prime map, full pass; or compaction's two phases) and returns its
+  (t, hit) too, and the per-lane step counts with ``debug_steps``; it
+  builds no autograd graph. ``tile_steps`` and ``warp_steps`` reduce those
+  counts to what a (tile_h, 128) TPU tile and a warp of the CUDA kernel
+  execute.
 * ``render_frames_raw`` renders a batch of frames of one scene, one per
   camera, through ``trace_frames``: the packing of every frame, then both
   passes of the batch (or compaction's two phases), one launch each.
@@ -188,29 +183,27 @@ def _check_supported(cfg: RenderConfig) -> None:
         )
 
 
-def _frames(packed: torch.Tensor) -> tuple[int]:
-    """A batch's leading shape (B,): ``packed``'s rows, 1 to ``MAX_FRAMES``."""
+def _frames(packed: torch.Tensor) -> int:
+    """A batch's frames B: ``packed``'s rows, 1 to ``MAX_FRAMES``."""
     if packed.dim() != 2:
         raise ValueError(f"packed must be (frames, n_params), got {tuple(packed.shape)}")
     if not 1 <= packed.shape[0] <= MAX_FRAMES:
         raise ValueError(f"a batch of {packed.shape[0]} frames: one launch takes 1 to "
                          f"{MAX_FRAMES} (MAX_FRAMES, the CUDA grid's y)")
-    return (packed.shape[0],)
+    return packed.shape[0]
 
 
-def _check_tensors(packed, seed, cfg, local_height, named, permuted=(), lead=()) -> None:
+def _check_tensors(packed, seed, cfg, local_height, named, permuted=()) -> None:
     """Raise on anything the kernels do not take. ``named`` maps a name to
     (tensor, required shape) for the per-pixel inputs; those named in
-    ``permuted`` may also be the ``permute(2, 0, 1)`` view of a contiguous
-    (h, W, 3) tensor (of a batch: the ``permute(0, 3, 1, 2)`` view of a
-    contiguous (B, h, W, 3)). ``lead`` is () for one frame, (B,) for a batch
-    of B, whose ``packed`` has a row per frame."""
+    ``permuted`` may also be the ``permute(0, 3, 1, 2)`` view of a
+    contiguous (B, h, W, 3) tensor."""
+    _frames(packed)
     _check_supported(cfg)
     n_params = pk.AMPS + cfg.num_octaves
-    rows = lead[0] if lead else 1
-    if packed.dtype != torch.float32 or packed.shape != (rows, n_params):
+    if packed.dtype != torch.float32 or packed.shape[1] != n_params:
         raise ValueError(
-            f"packed must be float32 ({rows}, {n_params}), got {packed.dtype} "
+            f"packed must be float32 (frames, {n_params}), got {packed.dtype} "
             f"{tuple(packed.shape)}"
         )
     if seed.dtype != torch.int32 or seed.shape != (1, 1):
@@ -231,14 +224,14 @@ def _check_tensors(packed, seed, cfg, local_height, named, permuted=(), lead=())
         if not x.is_contiguous():
             if name not in permuted:
                 raise ValueError("trace kernel inputs must be contiguous")
-            if not x.permute(*range(len(lead)), -2, -1, -3).is_contiguous():
+            if not x.permute(0, 2, 3, 1).is_contiguous():
                 raise ValueError(f"trace kernel inputs must be contiguous ({name}: or the "
-                                 f"permute(2, 0, 1) view of a contiguous (h, W, 3) tensor)")
+                                 f"permute(0, 3, 1, 2) view of a contiguous (B, h, W, 3) "
+                                 f"tensor)")
 
 
-def _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps, lead=()) -> None:
-    """Raise on anything the forward kernel does not take (``lead`` as for
-    ``_check_tensors``)."""
+def _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps) -> None:
+    """Raise on anything the forward kernel does not take."""
     if debug_steps and cfg.march_mode == "compact":
         raise ValueError(
             "debug_steps is not supported for march_mode='compact' (two "
@@ -249,71 +242,49 @@ def _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps, lead=(
             f"t0_prime must be given exactly when cfg primes "
             f"(prime_ds={cfg.prime_ds})"
         )
-    shape = (*lead, local_height, cfg.width)
+    shape = (_frames(packed), local_height, cfg.width)
     named = {} if t0_prime is None else {"t0_prime": (t0_prime, shape)}
-    _check_tensors(packed, seed, cfg, local_height, named, lead=lead)
+    _check_tensors(packed, seed, cfg, local_height, named)
     for x in [packed] + ([] if t0_prime is None else [t0_prime]):
         if x.requires_grad and torch.is_grad_enabled():
             raise RuntimeError(
-                "trace_frame is forward only: for gradients render through "
-                "kernels.trace.render_kernel, whose backward is trace_frame_bwd"
+                "trace_frames is forward only: for gradients render through "
+                "kernels.trace.render_kernel, whose backward is trace_frames_bwd"
             )
-
-
-def trace_frame(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
-                local_height: int, t0_prime: torch.Tensor | None = None,
-                debug_steps: bool = False):
-    """Trace ``local_height`` rows of the frame ``cfg`` describes.
-
-    ``packed`` (1, AMPS + octaves) float32 and ``seed`` (1, 1) int32 come from
-    ``kernels/pack.py:pack_scene`` (its ``row0`` places the band);
-    ``t0_prime`` is the (local_height, width) march-start map when
-    ``cfg.prime_ds`` is set. Returns (color (3, h, w), t (h, w),
-    hit (h, w) float 0/1), and with ``debug_steps`` a fourth result: the
-    int32 (h, w) count of march iterations each lane executed while active,
-    the one that detects a hit or an escape included (fixed mode: every lane
-    ``max_steps``; lod: the fine phase only). ``march_mode="compact"`` runs
-    ``trace_phase1`` and ``trace_phase2``. CUDA inputs
-    launch the CUDA kernels; CPU inputs run ``trace_frame_reference``.
-    """
-    _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps)
-    if packed.device.type == "cpu":
-        return trace_frame_reference(packed, seed, cfg, local_height, t0_prime,
-                                     debug_steps)
-    if packed.device.type != "cuda":
-        raise RuntimeError(f"trace_frame: unsupported device {packed.device}")
-    if cfg.march_mode == "compact":
-        return _compact(trace_phase1, trace_phase2, packed, seed, cfg, local_height)
-    return _launch(packed, seed, cfg, local_height, t0_prime, debug_steps, ())
-
-
-# Launches of the CUDA kernels by instantiation (``variant_name``, and
-# ``phase_name`` for compaction's two; the batched wrappers' too); the total
-# is ``trace_frame.launches.total()``.
-trace_frame.launches = collections.Counter()
 
 
 def trace_frames(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
                  local_height: int, t0_prime: torch.Tensor | None = None,
                  debug_steps: bool = False):
-    """``trace_frame`` over a batch of B frames of one scene, one launch for
-    them all: ``packed`` (B, AMPS + octaves) from ``kernels/pack.py:pack_scenes``
-    (a row per frame; ``seed`` (1, 1) theirs), ``t0_prime`` (B,
-    local_height, width); results with a leading B, (color (B, 3, h, w), t,
-    hit (B, h, w)[, steps]), frame b bit for bit ``trace_frame`` of row b.
+    """Trace ``local_height`` rows of each of B frames of the image ``cfg``
+    describes, one launch for them all.
+
+    ``packed`` (B, AMPS + octaves) float32, a row per frame, and ``seed``
+    (1, 1) int32 come from ``kernels/pack.py:pack_frames`` (its ``row0``
+    places each frame's rows); ``t0_prime`` is the (B, local_height, width)
+    march-start map when ``cfg.prime_ds`` is set. Returns (color (B, 3, h,
+    w), t (B, h, w), hit (B, h, w) float 0/1), and with ``debug_steps`` a
+    fourth result: the int32 (B, h, w) count of march iterations each lane
+    executed while active, the one that detects a hit or an escape included
+    (fixed mode: every lane ``max_steps``; lod: the fine phase only).
     ``march_mode="compact"`` runs ``trace_phase1s`` and ``trace_phase2s``
     once each. B is 1 to ``MAX_FRAMES``; a larger batch raises ValueError.
-    CUDA inputs launch the kernel's frame axis (blockIdx.y); CPU inputs run
+    CUDA inputs launch the CUDA kernel; CPU inputs run
     ``trace_frames_reference``."""
-    lead = _frames(packed)
-    _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps, lead)
+    _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps)
     if packed.device.type == "cpu":
         return trace_frames_reference(packed, seed, cfg, local_height, t0_prime, debug_steps)
     if packed.device.type != "cuda":
         raise RuntimeError(f"trace_frames: unsupported device {packed.device}")
     if cfg.march_mode == "compact":
         return _compact(trace_phase1s, trace_phase2s, packed, seed, cfg, local_height)
-    return _launch(packed, seed, cfg, local_height, t0_prime, debug_steps, lead)
+    return _launch(packed, seed, cfg, local_height, t0_prime, debug_steps)
+
+
+# Launches of the forward CUDA kernels by instantiation (``variant_name``,
+# and ``phase_name`` for compaction's two); the total is
+# ``trace_frames.launches.total()``.
+trace_frames.launches = collections.Counter()
 
 
 def variant_name(cfg: RenderConfig, debug_steps: bool = False, frames: int = 1) -> str:
@@ -331,7 +302,7 @@ def phase_name(cfg: RenderConfig, phase: int, frames: int = 1) -> str:
 
 
 def _compact(phase1, phase2, packed, seed, cfg, local_height):
-    """Compaction's frame: phase 1, then phase 2 in place on its outputs."""
+    """Compaction's frames: phase 1, then phase 2 in place on its outputs."""
     color, t, hit, _, prev, ids, n_alive = phase1(packed, seed, cfg, local_height)
     phase2(packed, seed, cfg, local_height, n_alive, ids, prev, color, t, hit)
     return color, t, hit
@@ -425,13 +396,13 @@ def _tile_scratch(dev, stream: int, frames: int = 1) -> torch.Tensor:
     return _stream_scratch(_TILE_SCRATCH, dev, stream, 2 * frames, torch.int32, 2 * frames)
 
 
-def _launch(packed, seed, cfg, local_height, t0_prime, debug_steps, lead):
-    """The forward kernel over ``lead`` frames: () one, (B,) a batch."""
+def _launch(packed, seed, cfg, local_height, t0_prime, debug_steps):
+    """The forward kernel over ``packed``'s frames."""
     lib = _library()
     dev = packed.device
-    frames = lead[0] if lead else 1
-    hw = (*lead, local_height, cfg.width)
-    color = torch.empty((*lead, 3, local_height, cfg.width), dtype=torch.float32, device=dev)
+    frames = packed.shape[0]
+    hw = (frames, local_height, cfg.width)
+    color = torch.empty((frames, 3, local_height, cfg.width), dtype=torch.float32, device=dev)
     t = torch.empty(hw, dtype=torch.float32, device=dev)
     hit = torch.empty(hw, dtype=torch.float32, device=dev)
     steps = torch.empty(hw, dtype=torch.int32, device=dev) if debug_steps else None
@@ -444,62 +415,49 @@ def _launch(packed, seed, cfg, local_height, t0_prime, debug_steps, lead):
             _tile_scratch(dev, stream, frames).data_ptr(), kcfg, frames, stream,
         )
     _raise_on(lib, err, "trace_fwd")
-    trace_frame.launches[variant_name(cfg, debug_steps, frames)] += 1
+    trace_frames.launches[variant_name(cfg, debug_steps, frames)] += 1
     return (color, t, hit) if steps is None else (color, t, hit, steps)
 
 
-def _check_compact(packed, seed, cfg, local_height, named, lead=()) -> None:
+def _check_compact(packed, seed, cfg, local_height, named) -> None:
     if cfg.march_mode != "compact":
         raise ValueError(f"march_mode={cfg.march_mode!r}: the compaction phases "
                          f"run only under march_mode='compact'")
-    _check_tensors(packed, seed, cfg, local_height, named, lead=lead)
-
-
-def trace_phase1(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
-                 local_height: int):
-    """Compaction's phase 1 (``cfg.march_mode == "compact"``): the unprimed
-    chunked march of every ray for ``cfg.compact_budget`` steps, then polish
-    and shade. Returns (color (3, h, w), t, hit, alive, prev, ids, n_alive):
-    (h, w) float32 planes, ``alive`` 1 where the ray is still marching
-    (polished and shaded as a miss here; ``trace_phase2`` resumes it),
-    ``prev`` its last advancing sample (the polish's bracket); ``ids``
-    (h·w,) int32 lists the pixel ids of the rays still marching in its first
-    ``n_alive`` slots ((1,) int32, on the device), the rest unset. CUDA
-    inputs launch the kernel (``csrc/trace_fwd.cu``, mode compact), which
-    lists the survivors in the order its warps reach the list; CPU inputs run
-    ``trace_phase1_reference``, which lists them in pixel order."""
-    _check_compact(packed, seed, cfg, local_height, {})
-    if packed.device.type == "cpu":
-        return trace_phase1_reference(packed, seed, cfg, local_height)
-    if packed.device.type != "cuda":
-        raise RuntimeError(f"trace_phase1: unsupported device {packed.device}")
-    return _launch_phase1(packed, seed, cfg, local_height, ())
+    _check_tensors(packed, seed, cfg, local_height, named)
 
 
 def trace_phase1s(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
                   local_height: int):
-    """``trace_phase1`` over a batch of B frames, one launch: ``packed`` (B,
-    AMPS + octaves); results with a leading B, ``ids`` (B, h·w) frame b's
-    survivors in its first ``n_alive[b]`` slots, ``n_alive`` (B,) int32 on
-    the device. CPU inputs run ``trace_phase1s_reference``."""
-    lead = _frames(packed)
-    _check_compact(packed, seed, cfg, local_height, {}, lead)
+    """Compaction's phase 1 (``cfg.march_mode == "compact"``) over a batch of
+    B frames, one launch: the unprimed chunked march of every ray for
+    ``cfg.compact_budget`` steps, then polish and shade. ``packed`` and
+    ``seed`` as for ``trace_frames``. Returns (color (B, 3, h, w), t, hit,
+    alive, prev, ids, n_alive): (B, h, w) float32 planes, ``alive`` 1 where
+    the ray is still marching (polished and shaded as a miss here;
+    ``trace_phase2s`` resumes it), ``prev`` its last advancing sample (the
+    polish's bracket); ``ids`` (B, h·w) int32 lists frame b's pixel ids of
+    the rays still marching in its first ``n_alive[b]`` slots (``n_alive``
+    (B,) int32, on the device), the rest unset. CUDA inputs launch the
+    kernel (``csrc/trace_fwd.cu``, mode compact), which lists the survivors
+    in the order its warps reach the list; CPU inputs run
+    ``trace_phase1s_reference``, which lists them in pixel order."""
+    _check_compact(packed, seed, cfg, local_height, {})
     if packed.device.type == "cpu":
         return trace_phase1s_reference(packed, seed, cfg, local_height)
     if packed.device.type != "cuda":
         raise RuntimeError(f"trace_phase1s: unsupported device {packed.device}")
-    return _launch_phase1(packed, seed, cfg, local_height, lead)
+    return _launch_phase1(packed, seed, cfg, local_height)
 
 
-def _launch_phase1(packed, seed, cfg, local_height, lead):
+def _launch_phase1(packed, seed, cfg, local_height):
     lib = _library()
     dev = packed.device
-    frames = lead[0] if lead else 1
-    hw = (*lead, local_height, cfg.width)
-    color = torch.empty((*lead, 3, local_height, cfg.width), dtype=torch.float32, device=dev)
+    frames = packed.shape[0]
+    hw = (frames, local_height, cfg.width)
+    color = torch.empty((frames, 3, local_height, cfg.width), dtype=torch.float32, device=dev)
     t, hit, alive, prev = (torch.empty(hw, dtype=torch.float32, device=dev)
                            for _ in range(4))
-    ids = torch.empty((*lead, local_height * cfg.width), dtype=torch.int32, device=dev)
+    ids = torch.empty((frames, local_height * cfg.width), dtype=torch.int32, device=dev)
     n_alive = torch.empty(frames, dtype=torch.int32, device=dev)  # zeroed by the launch
     kcfg = _kernel_config(cfg, local_height, budget=cfg.compact_budget, phase=1)
     with torch.cuda.device(dev):
@@ -511,19 +469,19 @@ def _launch_phase1(packed, seed, cfg, local_height, lead):
             stream,
         )
     _raise_on(lib, err, "trace_fwd (compact phase 1)")
-    trace_frame.launches[phase_name(cfg, 1, frames)] += 1
+    trace_frames.launches[phase_name(cfg, 1, frames)] += 1
     return color, t, hit, alive, prev, ids, n_alive
 
 
 def _check_phase2(packed, seed, cfg, local_height, n_alive, ids, prev, color, t,
-                  hit, lead=()) -> None:
-    hw = (*lead, local_height, cfg.width)
-    color_shape = (*lead, 3, local_height, cfg.width)
+                  hit) -> None:
+    frames = _frames(packed)
+    hw = (frames, local_height, cfg.width)
     _check_compact(packed, seed, cfg, local_height, {
-        "prev": (prev, hw), "color": (color, color_shape), "t": (t, hw), "hit": (hit, hw)},
-        lead)
-    for name, x, shape in (("n_alive", n_alive, (lead[0] if lead else 1,)),
-                           ("ids", ids, (*lead, local_height * cfg.width))):
+        "prev": (prev, hw), "color": (color, (frames, 3, local_height, cfg.width)),
+        "t": (t, hw), "hit": (hit, hw)})
+    for name, x, shape in (("n_alive", n_alive, (frames,)),
+                           ("ids", ids, (frames, local_height * cfg.width))):
         if x.dtype != torch.int32 or x.shape != shape:
             raise ValueError(f"{name} must be int32 {shape}, got {x.dtype} "
                              f"{tuple(x.shape)}")
@@ -531,56 +489,34 @@ def _check_phase2(packed, seed, cfg, local_height, n_alive, ids, prev, color, t,
             raise ValueError(f"{name} must be contiguous on {packed.device}")
 
 
-def trace_phase2(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
-                 local_height: int, n_alive: torch.Tensor, ids: torch.Tensor,
-                 prev: torch.Tensor, color: torch.Tensor, t: torch.Tensor,
-                 hit: torch.Tensor) -> None:
-    """Compaction's phase 2: resume, for ``cfg.max_steps -
-    cfg.compact_budget`` more steps, the march of the pixel in each of the
-    first ``n_alive`` slots of ``ids`` (``trace_phase1``'s list of the rays
-    still marching) from phase 1's ``t`` and ``prev``, polish and shade it,
-    and write its colour, t and hit in place into phase 1's ``color``, ``t``
-    and ``hit``. The slots' order changes no output. CUDA inputs launch the
-    kernel (``csrc/trace_compact.cu``): a group of 2 lanes marches each
-    listed ray, lane k evaluating its field's items k, k + 2, ... (the
-    heightfield's octaves, then the volumetric warp's), both lanes summing
-    them in item order; persistent groups take their first slot in turn
-    round the blocks, then the next from a counter in ``_tile_scratch``'s
-    per-stream buffer, left at 0, until the slots reach ``n_alive``, read on
-    the device (no host sync); each warp polishes and shades its groups'
-    finished rays together. CPU inputs run ``trace_phase2_reference``."""
-    args = (n_alive, ids, prev, color, t, hit)
-    _check_phase2(packed, seed, cfg, local_height, *args)
-    if packed.device.type == "cpu":
-        trace_phase2_reference(packed, seed, cfg, local_height, *args)
-        return
-    if packed.device.type != "cuda":
-        raise RuntimeError(f"trace_phase2: unsupported device {packed.device}")
-    _launch_phase2(packed, seed, cfg, local_height, args, 1)
-
-
 def trace_phase2s(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
                   local_height: int, n_alive: torch.Tensor, ids: torch.Tensor,
                   prev: torch.Tensor, color: torch.Tensor, t: torch.Tensor,
                   hit: torch.Tensor) -> None:
-    """``trace_phase2`` over a batch of B frames, one launch, on
-    ``trace_phase1s``' outputs (a leading B on each; ``n_alive`` (B,)): each
-    frame's listed rays resume from its own list, in place. CPU inputs run
-    ``trace_phase2s_reference``."""
-    lead = _frames(packed)
+    """Compaction's phase 2 over a batch of B frames, one launch, on
+    ``trace_phase1s``' outputs: resume, for ``cfg.max_steps -
+    cfg.compact_budget`` more steps, the march of the pixel in each of the
+    first ``n_alive[b]`` slots of ``ids[b]`` (frame b's list of the rays
+    still marching) from phase 1's ``t`` and ``prev``, polish and shade it,
+    and write its colour, t and hit in place into phase 1's ``color``, ``t``
+    and ``hit``. The slots' order changes no output. CUDA inputs launch the
+    kernel (``csrc/trace_compact.cu``, its schedule in the module's
+    docstring), which reads ``n_alive`` on the device (no host sync); CPU
+    inputs run ``trace_phase2s_reference``."""
     args = (n_alive, ids, prev, color, t, hit)
-    _check_phase2(packed, seed, cfg, local_height, *args, lead)
+    _check_phase2(packed, seed, cfg, local_height, *args)
     if packed.device.type == "cpu":
         trace_phase2s_reference(packed, seed, cfg, local_height, *args)
         return
     if packed.device.type != "cuda":
         raise RuntimeError(f"trace_phase2s: unsupported device {packed.device}")
-    _launch_phase2(packed, seed, cfg, local_height, args, lead[0])
+    _launch_phase2(packed, seed, cfg, local_height, args)
 
 
-def _launch_phase2(packed, seed, cfg, local_height, args, frames):
+def _launch_phase2(packed, seed, cfg, local_height, args):
     lib = _library()
     dev = packed.device
+    frames = packed.shape[0]
     kcfg = _kernel_config(cfg, local_height, budget=cfg.max_steps - cfg.compact_budget,
                           phase=2)
     with torch.cuda.device(dev):
@@ -590,68 +526,50 @@ def _launch_phase2(packed, seed, cfg, local_height, args, frames):
             _tile_scratch(dev, stream, frames).data_ptr(), kcfg, frames, stream,
         )
     _raise_on(lib, err, "trace_compact (compact phase 2)")
-    trace_frame.launches[phase_name(cfg, 2, frames)] += 1
+    trace_frames.launches[phase_name(cfg, 2, frames)] += 1
 
 
-def _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g, lead=()) -> None:
-    hw = (local_height, cfg.width)
+def _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g) -> None:
+    hw = (_frames(packed), local_height, cfg.width)
     _check_tensors(packed, seed, cfg, local_height,
-                   {"t": (t, (*lead, *hw)), "hit": (hit, (*lead, *hw)),
-                    "g": (g, (*lead, 3, *hw))}, permuted=("g",), lead=lead)
-
-
-def trace_frame_bwd(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
-                    local_height: int, t: torch.Tensor, hit: torch.Tensor,
-                    g: torch.Tensor) -> torch.Tensor:
-    """Backward of ``trace_frame``'s colour at its saved (t, hit).
-
-    ``packed``, ``seed``, ``cfg`` and ``local_height`` as for
-    ``trace_frame``; ``t`` and ``hit`` (local_height, width) float32 are its
-    outputs, ``g`` (3, local_height, width) float32 the cotangent of its
-    colour planes: contiguous, or the ``permute(2, 0, 1)`` view of a
-    contiguous (local_height, width, 3) tensor (the kernel reads either
-    layout, so the caller need not copy). Returns the packed-vector cotangent (1, AMPS + octaves):
-    the shade channel at the saved t plus the implicit-function march
-    channel, summed over the pixels. CUDA inputs launch the CUDA kernel;
-    CPU inputs run ``trace_bwd_reference``."""
-    _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g)
-    if packed.device.type == "cpu":
-        return trace_bwd_reference(packed, seed, cfg, local_height, t, hit, g)
-    if packed.device.type != "cuda":
-        raise RuntimeError(f"trace_frame_bwd: unsupported device {packed.device}")
-    return _launch_bwd(packed.detach(), seed, cfg, local_height, t, hit, g, 1)
-
-
-# Launches of the CUDA backward kernel by instantiation: "bwd", and
-# "bwd+bf16" (the march channel through the bf16 field) under march_bf16;
-# "+frames" for a batch of more than one frame (``trace_frames_bwd``).
-trace_frame_bwd.launches = collections.Counter()
+                   {"t": (t, hw), "hit": (hit, hw), "g": (g, (hw[0], 3, *hw[1:]))},
+                   permuted=("g",))
 
 
 def trace_frames_bwd(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
                      local_height: int, t: torch.Tensor, hit: torch.Tensor,
                      g: torch.Tensor) -> torch.Tensor:
-    """``trace_frame_bwd`` over a batch of B frames of one scene, one launch
-    of each of its two stages for them all: ``packed`` (B, AMPS + octaves)
-    and ``seed`` as for ``trace_frames``, ``t`` and ``hit`` (B, h, W) its
-    outputs, ``g`` (B, 3, h, W) contiguous or the ``permute(0, 3, 1, 2)``
-    view of a contiguous (B, h, W, 3). Returns the packed-vector cotangent of
-    each frame, (B, AMPS + octaves), row b bit for bit ``trace_frame_bwd`` of
-    frame b (the kernels' frame axis, blockIdx.y; a batch of one runs the
-    one-frame kernels). CUDA inputs launch the CUDA kernels; CPU inputs run
+    """Backward of ``trace_frames``' colour at its saved (t, hit), one
+    launch of each of its two stages for the batch.
+
+    ``packed``, ``seed``, ``cfg`` and ``local_height`` as for
+    ``trace_frames``; ``t`` and ``hit`` (B, local_height, width) float32 are
+    its outputs, ``g`` (B, 3, local_height, width) float32 the cotangent of
+    its colour planes: contiguous, or the ``permute(0, 3, 1, 2)`` view of a
+    contiguous (B, local_height, width, 3) tensor (the kernel reads either
+    layout, so the caller need not copy). Returns the packed-vector
+    cotangent of each frame, (B, AMPS + octaves): the shade channel at the
+    saved t plus the implicit-function march channel, summed over the
+    frame's pixels. CUDA inputs launch the CUDA kernels; CPU inputs run
     ``trace_frames_bwd_reference``."""
-    lead = _frames(packed)
-    _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g, lead)
+    _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g)
     if packed.device.type == "cpu":
         return trace_frames_bwd_reference(packed, seed, cfg, local_height, t, hit, g)
     if packed.device.type != "cuda":
         raise RuntimeError(f"trace_frames_bwd: unsupported device {packed.device}")
-    return _launch_bwd(packed.detach(), seed, cfg, local_height, t, hit, g, lead[0])
+    return _launch_bwd(packed.detach(), seed, cfg, local_height, t, hit, g)
 
 
-def _launch_bwd(packed, seed, cfg, local_height, t, hit, g, frames):
+# Launches of the CUDA backward kernel by instantiation: "bwd", and
+# "bwd+bf16" (the march channel through the bf16 field) under march_bf16;
+# "+frames" for a batch of more than one frame.
+trace_frames_bwd.launches = collections.Counter()
+
+
+def _launch_bwd(packed, seed, cfg, local_height, t, hit, g):
     lib = _library()
     dev = packed.device
+    frames = packed.shape[0]
     n_pix = local_height * cfg.width
     # (channel, pixel) strides within a frame: contiguous (3, h, W), else the
     # view of (h, W, 3); frames lie 3·n_pix apart either way.
@@ -672,8 +590,8 @@ def _launch_bwd(packed, seed, cfg, local_height, t, hit, g, frames):
             g.data_ptr(), scratch.data_ptr(), pbar.data_ptr(), kcfg, frames, stream,
         )
     _raise_on(lib, err, "trace_bwd")
-    trace_frame_bwd.launches[("bwd+bf16" if cfg.march_bf16 else "bwd")
-                             + ("+frames" if frames > 1 else "")] += 1
+    trace_frames_bwd.launches[("bwd+bf16" if cfg.march_bf16 else "bwd")
+                              + ("+frames" if frames > 1 else "")] += 1
     return pbar
 
 
@@ -936,21 +854,30 @@ def _frame_rays(packed, seed, cfg: RenderConfig, local_height: int):
 
 
 @torch.no_grad()
-def trace_frame_reference(packed: torch.Tensor, seed: torch.Tensor,
-                          cfg: RenderConfig, local_height: int,
-                          t0_prime: torch.Tensor | None = None,
-                          debug_steps: bool = False):
+def trace_frames_reference(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
+                           local_height: int, t0_prime: torch.Tensor | None = None,
+                           debug_steps: bool = False):
     """Plain PyTorch version of the trace kernel, on any device; same
-    arguments and results as ``trace_frame``.
+    arguments and results as ``trace_frames``, frame by frame (a row of
+    ``packed``, a plane of ``t0_prime``), stacked.
 
-    Vectorized over pixels, with the TPU kernel's whole-frame chunked exit
-    (every ``march_chunk`` steps) where the CUDA kernel exits per thread:
-    finished lanes never change state, so both give the same result.
-    ``march_mode="compact"`` runs the two phases' plain versions."""
+    Vectorized over a frame's pixels, with the TPU kernel's whole-frame
+    chunked exit (every ``march_chunk`` steps) where the CUDA kernel exits
+    per thread: finished lanes never change state, so both give the same
+    result. ``march_mode="compact"`` runs the two phases' plain versions."""
     _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps)
+    outs = [_frame_reference(packed[b:b + 1], seed, cfg, local_height,
+                             None if t0_prime is None else t0_prime[b], debug_steps)
+            for b in range(packed.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def _frame_reference(packed, seed, cfg: RenderConfig, local_height: int, t0_prime,
+                     debug_steps: bool):
+    """``trace_frames_reference`` of one frame: ``packed`` (1, AMPS +
+    octaves), ``t0_prime`` (h, W) or None; results without the frame axis."""
     if cfg.march_mode == "compact":
-        return _compact(trace_phase1_reference, trace_phase2_reference, packed, seed,
-                        cfg, local_height)
+        return _compact(_phase1_reference, _phase2_reference, packed, seed, cfg, local_height)
     sc, o, d, env, t, active, field_grad_at, field_at = _frame_rays(
         packed, seed, cfg, local_height)
     oy = o[1]
@@ -969,14 +896,23 @@ def trace_frame_reference(packed: torch.Tensor, seed: torch.Tensor,
 
 
 @torch.no_grad()
-def trace_phase1_reference(packed: torch.Tensor, seed: torch.Tensor,
-                           cfg: RenderConfig, local_height: int):
+def trace_phase1s_reference(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
+                            local_height: int):
     """Plain PyTorch version of compaction's phase 1, on any device; same
-    arguments and results as ``trace_phase1``: the one-pass march for
-    ``compact_budget`` steps, polished and shaded (rays still marching have
-    no hit yet, so they shade as sky), and the rays still marching listed in
-    pixel order (the slots past them hold 0)."""
+    arguments and results as ``trace_phase1s``, frame by frame, stacked:
+    the one-pass march for ``compact_budget`` steps, polished and shaded
+    (rays still marching have no hit yet, so they shade as sky), and the
+    rays still marching listed in pixel order (the slots past them hold
+    0)."""
     _check_compact(packed, seed, cfg, local_height, {})
+    outs = [_phase1_reference(packed[b:b + 1], seed, cfg, local_height)
+            for b in range(packed.shape[0])]
+    *planes, n_alive = (torch.stack(x) for x in zip(*outs))
+    return (*planes, n_alive.reshape(-1))
+
+
+def _phase1_reference(packed, seed, cfg: RenderConfig, local_height: int):
+    """``trace_phase1s_reference`` of one frame; ``n_alive`` (1,)."""
     sc, o, d, env, t, active, field_grad_at, field_at = _frame_rays(
         packed, seed, cfg, local_height)
     t, prev_t, hit, alive, _ = _march(field_at, cfg, t, t, active, o[1], d[1], env,
@@ -990,19 +926,28 @@ def trace_phase1_reference(packed: torch.Tensor, seed: torch.Tensor,
 
 
 @torch.no_grad()
-def trace_phase2_reference(packed: torch.Tensor, seed: torch.Tensor,
-                           cfg: RenderConfig, local_height: int, n_alive: torch.Tensor,
-                           ids: torch.Tensor, prev: torch.Tensor, color: torch.Tensor,
-                           t: torch.Tensor, hit: torch.Tensor) -> None:
+def trace_phase2s_reference(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
+                            local_height: int, n_alive: torch.Tensor, ids: torch.Tensor,
+                            prev: torch.Tensor, color: torch.Tensor, t: torch.Tensor,
+                            hit: torch.Tensor) -> None:
     """Plain PyTorch version of compaction's phase 2, on any device; same
-    arguments and in-place results as ``trace_phase2``.
+    arguments and in-place results as ``trace_phase2s``, frame by frame.
 
     It resumes the march over the whole frame with the listed pixels as the
     resume mask (the others never move) and then writes the listed pixels
     only. So each pixel is computed at its own place in frame-shaped tensors,
-    as ``trace_frame_reference`` computes it, and a resumed ray gets exactly
+    as ``trace_frames_reference`` computes it, and a resumed ray gets exactly
     the one-pass march's result whatever its slot."""
     _check_phase2(packed, seed, cfg, local_height, n_alive, ids, prev, color, t, hit)
+    for b in range(packed.shape[0]):
+        _phase2_reference(packed[b:b + 1], seed, cfg, local_height, n_alive[b:b + 1],
+                          ids[b], prev[b], color[b], t[b], hit[b])
+
+
+def _phase2_reference(packed, seed, cfg: RenderConfig, local_height: int, n_alive, ids,
+                      prev, color, t, hit) -> None:
+    """``trace_phase2s_reference`` of one frame: ``n_alive`` (1,), ``ids``
+    (h·w,), the planes without the frame axis."""
     sc, o, d, env, _, _, field_grad_at, field_at = _frame_rays(
         packed, seed, cfg, local_height)
     sel = ids[:int(n_alive.item())].long()
@@ -1014,47 +959,6 @@ def trace_phase2_reference(packed: torch.Tensor, seed: torch.Tensor,
     color.view(3, -1)[:, sel] = color2.reshape(3, -1)[:, sel]
     for out, new in ((t, t2), (hit, hit2)):
         out.view(-1)[sel] = new.reshape(-1)[sel]
-
-
-@torch.no_grad()
-def trace_frames_reference(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
-                           local_height: int, t0_prime: torch.Tensor | None = None,
-                           debug_steps: bool = False):
-    """Plain version of ``trace_frames``: ``trace_frame_reference`` of each
-    frame (row of ``packed``, plane of ``t0_prime``), stacked."""
-    lead = _frames(packed)
-    _check_inputs(packed, seed, cfg, local_height, t0_prime, debug_steps, lead)
-    outs = [trace_frame_reference(packed[b:b + 1], seed, cfg, local_height,
-                                  None if t0_prime is None else t0_prime[b], debug_steps)
-            for b in range(lead[0])]
-    return tuple(torch.stack(x) for x in zip(*outs))
-
-
-@torch.no_grad()
-def trace_phase1s_reference(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
-                            local_height: int):
-    """Plain version of ``trace_phase1s``: ``trace_phase1_reference`` of
-    each frame, stacked (``n_alive`` (B,))."""
-    lead = _frames(packed)
-    _check_compact(packed, seed, cfg, local_height, {}, lead)
-    outs = [trace_phase1_reference(packed[b:b + 1], seed, cfg, local_height)
-            for b in range(lead[0])]
-    *planes, n_alive = (torch.stack(x) for x in zip(*outs))
-    return (*planes, n_alive.reshape(-1))
-
-
-@torch.no_grad()
-def trace_phase2s_reference(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
-                            local_height: int, n_alive: torch.Tensor, ids: torch.Tensor,
-                            prev: torch.Tensor, color: torch.Tensor, t: torch.Tensor,
-                            hit: torch.Tensor) -> None:
-    """Plain version of ``trace_phase2s``: ``trace_phase2_reference`` of
-    each frame, in place on its planes."""
-    lead = _frames(packed)
-    _check_phase2(packed, seed, cfg, local_height, n_alive, ids, prev, color, t, hit, lead)
-    for b in range(lead[0]):
-        trace_phase2_reference(packed[b:b + 1], seed, cfg, local_height, n_alive[b:b + 1],
-                               ids[b], prev[b], color[b], t[b], hit[b])
 
 
 def tile_steps(steps: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
@@ -1101,11 +1005,12 @@ def warp_steps(steps: torch.Tensor) -> torch.Tensor:
     return flat[ids].amax(dim=1)
 
 
-def trace_bwd_reference(packed: torch.Tensor, seed: torch.Tensor,
-                        cfg: RenderConfig, local_height: int, t: torch.Tensor,
-                        hit: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def trace_frames_bwd_reference(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
+                               local_height: int, t: torch.Tensor, hit: torch.Tensor,
+                               g: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the backward kernel, on any device; same
-    arguments and result as ``trace_frame_bwd``.
+    arguments and result as ``trace_frames_bwd``, frame by frame, stacked
+    into (B, AMPS + octaves).
 
     Two channels, as the TPU kernel's ``_trace_bwd_kernel`` computes them:
     the VJP of raygen + shade at the saved t with respect to the packed
@@ -1113,6 +1018,13 @@ def trace_bwd_reference(packed: torch.Tensor, seed: torch.Tensor,
     implicit-function march channel: scale = -t̄ / min(∇f·d, -1e-2) at hits,
     pulled back through one value-only field evaluation at the saved t."""
     _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g)
+    return torch.cat([_bwd_reference(packed[b:b + 1], seed, cfg, local_height, t[b], hit[b],
+                                     g[b]) for b in range(packed.shape[0])])
+
+
+def _bwd_reference(packed, seed, cfg: RenderConfig, local_height: int, t, hit, g):
+    """``trace_frames_bwd_reference`` of one frame: ``packed`` (1, AMPS +
+    octaves), the rest without the frame axis; (1, AMPS + octaves)."""
     g = g.contiguous()  # either layout gives the same sums
     hitb = hit > 0.5
     grid = _pixel_grid(local_height, cfg.width, packed.device)
@@ -1139,17 +1051,6 @@ def trace_bwd_reference(packed: torch.Tensor, seed: torch.Tensor,
         scale = torch.where(hitb, -t_bar / denom, torch.zeros_like(t_bar))
         (th_bar2,) = torch.autograd.grad(field_at(t.detach()), th, grad_outputs=scale)
     return th_bar + th_bar2
-
-
-def trace_frames_bwd_reference(packed: torch.Tensor, seed: torch.Tensor, cfg: RenderConfig,
-                               local_height: int, t: torch.Tensor, hit: torch.Tensor,
-                               g: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``trace_frames_bwd``: ``trace_bwd_reference`` of
-    each frame, stacked into (B, AMPS + octaves)."""
-    lead = _frames(packed)
-    _check_bwd_inputs(packed, seed, cfg, local_height, t, hit, g, lead)
-    return torch.cat([trace_bwd_reference(packed[b:b + 1], seed, cfg, local_height, t[b],
-                                          hit[b], g[b]) for b in range(lead[0])])
 
 
 def _packs(scene: Scene, cameras, cfg: RenderConfig, row0=0.0):
@@ -1184,15 +1085,6 @@ def _prime(coarse, seed, cfg: RenderConfig, row0s: tuple[float, ...], rows: int)
 
 
 @torch.no_grad()
-def _prime_map(scene: Scene, cfg: RenderConfig, row0, local_height: int):
-    """The (local_height, W) prime map of the band at ``row0``, packed
-    here (None when ``cfg`` does not prime)."""
-    _, coarse, seed = _packs(scene, scene.camera, cfg, row0)
-    t0p = _prime(coarse, seed, cfg, pk.row0s(row0), local_height)
-    return None if t0p is None else t0p[0]
-
-
-@torch.no_grad()
 def render_kernel_raw(scene: Scene, cfg: RenderConfig, row0=0.0,
                       local_height: int | None = None, debug_steps: bool = False):
     """Render a full frame, a row band or a rank's stripes (``row0`` a
@@ -1204,7 +1096,7 @@ def render_kernel_raw(scene: Scene, cfg: RenderConfig, row0=0.0,
     The scene packs once (``_packs``: the coarse and the fine rows, a row
     per block); with ``cfg.prime_ds`` it first traces the coarse depth-prime
     pass (``_prime``) and then the blocks from it: two launches of the trace
-    kernel (the one-frame kernel for one block)."""
+    kernel."""
     row0s, rows = pk.row_blocks(row0, local_height, cfg.height)
     packed, coarse, seed = _packs(scene, scene.camera, cfg, row0s)
     t0p = _prime(coarse, seed, cfg, row0s, rows)
@@ -1220,10 +1112,14 @@ def _stacked(x: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _prime_maps(scene: Scene, cameras: Cameras, cfg: RenderConfig):
-    """``_prime`` of the batch of whole frames packed here, (B, H, W)."""
-    _, coarse, seed = _packs(scene, cameras, cfg)
-    return _prime(coarse, seed, cfg, (0.0,), cfg.height)
+def _prime_maps(scene: Scene, cameras, cfg: RenderConfig, row0=0.0,
+                local_height: int | None = None):
+    """``_prime`` of the blocks at ``row0`` (as ``render_kernel_raw`` takes
+    them) of each frame of ``cameras`` (a ``Camera`` or ``Cameras``), packed
+    here: (B, rows, W), or None when ``cfg`` does not prime."""
+    row0s, rows = pk.row_blocks(row0, local_height, cfg.height)
+    _, coarse, seed = _packs(scene, cameras, cfg, row0s)
+    return _prime(coarse, seed, cfg, row0s, rows)
 
 
 @torch.no_grad()
@@ -1268,8 +1164,7 @@ class _KernelRender(torch.autograd.Function):
     onto ``packed`` by ``trace_frames_bwd`` (cfg.kernel_bwd), else onto
     ``leaves`` by autograd through ``render_from_checkpoint`` of each block.
     Either way autograd carries it on to the scene's parameters (through
-    ``kernels/pack.py``'s VJP, which sums the blocks' rows, or directly).
-    One block launches the one-frame kernels."""
+    ``kernels/pack.py``'s VJP, which sums the blocks' rows, or directly)."""
 
     @staticmethod
     def forward(ctx, scene, cfg, row0s, rows, t0p, seed, packed, *leaves):

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from gpgpuraytrace_tpu_torch.kernels.quantize import tonemap_quantize
-from gpgpuraytrace_tpu_torch.kernels.trace import render_frames_raw, trace_frame
+from gpgpuraytrace_tpu_torch.kernels.trace import render_frames_raw, trace_frames
 from gpgpuraytrace_tpu_torch.models.scene import Camera, RenderConfig, Scene
 from gpgpuraytrace_tpu_torch.ops.camera import Cameras
 from gpgpuraytrace_tpu_torch.ops.render import render
@@ -98,8 +98,8 @@ def render_batch_uint8(scene: Scene, cfg: RenderConfig, times: torch.Tensor) -> 
 
 def launch_counts() -> collections.Counter:
     """Kernel launches so far on the fly path, by kernel: the trace kernels'
-    instantiations (``trace_frame.launches``) and ``tonemap_quantize``."""
-    counts = collections.Counter(trace_frame.launches)
+    instantiations (``trace_frames.launches``) and ``tonemap_quantize``."""
+    counts = collections.Counter(trace_frames.launches)
     counts["tonemap_quantize"] = tonemap_quantize.launches
     return counts
 

@@ -28,7 +28,7 @@ import functools
 import torch
 import torch.distributed as dist
 
-from gpgpuraytrace_tpu_torch.kernels.trace import trace_frame, trace_frame_bwd
+from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames, trace_frames_bwd
 from gpgpuraytrace_tpu_torch.models.scene import RenderConfig, Scene
 from gpgpuraytrace_tpu_torch.ops.render import render
 from gpgpuraytrace_tpu_torch.parallel.mesh import all_reduce, band, stripes, world
@@ -76,7 +76,7 @@ def step_launches() -> dict[str, dict]:
     """The launch counts a row-band step moves, by part and kind: the
     forward and backward kernels' and ``all_reduce``'s (the counters that
     ``utils/timing.py:measure_kernel`` reads)."""
-    return {"forward": dict(trace_frame.launches), "backward": dict(trace_frame_bwd.launches),
+    return {"forward": dict(trace_frames.launches), "backward": dict(trace_frames_bwd.launches),
             "all_reduce": dict(all_reduce.launches)}
 
 

@@ -90,7 +90,7 @@ def pack_scenes(scene: Scene, cameras: Camera | Cameras, height: int, width: int
                if not name.startswith("camera.")]
     if any(x.device.type != "cpu" for x in leaves):
         raise ValueError("utils/packing.py packs CPU tensors only; a CUDA scene packs with "
-                         "kernels/pack.py's pack_frames, pack_scene or pack_scenes")
+                         "kernels/pack.py's pack_frames")
     return _pack_scenes(scene, cameras, height, width, row0)
 
 

@@ -7,7 +7,7 @@ timer and profiler traces (counterpart of
   useful steps per ray, lanes that ran out of steps, a 16-bin histogram.
   The JAX package measures the same with its XLA march, never through the
   TPU kernel; the CUDA kernel's own executed-step count comes from
-  ``kernels/trace.py:trace_frame(..., debug_steps=True)``.
+  ``kernels/trace.py:trace_frames(..., debug_steps=True)``.
 * ``roughness_proxy`` and ``warn_if_rough``: the terrain's slope scale, and
   a warning where the march is known to skip ridges.
 * ``Timer``: min-of-N time of a call, by CUDA events on the card.

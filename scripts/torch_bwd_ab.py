@@ -30,7 +30,8 @@ arm pulls back comes from this tree's forward kernel (its outputs held to
    back to back between CUDA events; each stage's device time
    by torch.profiler over 20 launches; arms in turns (in order, then
    reversed), ``--rounds`` times;
-5. each distinct tree's own wrapper (``kernels/trace.py:trace_frame_bwd``) in
+5. each distinct tree's own wrapper (``kernels/trace.py:trace_frames_bwd``, a
+   batch of one frame; a tree needs it and ``kernels/pack.py:pack_frames``) in
    a fresh process in that tree: host microseconds per call (the least of 5
    runs of 200 calls enqueued after a synchronisation, host clock) and 50
    calls back to back between CUDA events; and the device kernels of one
@@ -81,11 +82,8 @@ CHILD = r"""
 import json, time
 import torch
 from gpgpuraytrace_tpu_torch import RenderConfig, default_scene
-from gpgpuraytrace_tpu_torch.kernels.trace import render_kernel_raw, trace_frame_bwd
-try:  # a tree with the pack kernel packs CUDA scenes there
-    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
-except ImportError:
-    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+from gpgpuraytrace_tpu_torch.kernels.pack import pack_frames
+from gpgpuraytrace_tpu_torch.kernels.trace import render_kernel_raw, trace_frames_bwd
 
 res = {}
 for terrain, vol in (("heightfield", False), ("volumetric", True)):
@@ -93,23 +91,23 @@ for terrain, vol in (("heightfield", False), ("volumetric", True)):
         scene = default_scene(6, volumetric=vol, device="cuda")
         cfg = RenderConfig(num_octaves=6, volumetric=vol, march_bf16=bf16)
         _, t, hit = render_kernel_raw(scene, cfg)
-        packed, seed = pack_scene(scene, 512, 512, 0.0)
-        g = torch.randn(3, 512, 512, generator=torch.Generator().manual_seed(0)).to("cuda")
-        args = (packed.detach(), seed, cfg, 512, t, hit.float(), g)
+        packed, _, seed = pack_frames(scene, scene.camera, 512, 512, 0.0)
+        g = torch.randn(1, 3, 512, 512, generator=torch.Generator().manual_seed(0)).to("cuda")
+        args = (packed.detach(), seed, cfg, 512, t[None], hit.float()[None], g)
         for _ in range(10):
-            trace_frame_bwd(*args)
+            trace_frames_bwd(*args)
         best = float("inf")
         for _ in range(5):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(200):
-                trace_frame_bwd(*args)
+                trace_frames_bwd(*args)
             best = min(best, time.perf_counter() - t0)
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(50):
-            trace_frame_bwd(*args)
+            trace_frames_bwd(*args)
         end.record()
         end.synchronize()
         res[f"{terrain}/{'bf16' if bf16 else 'f32'}"] = {
@@ -229,21 +227,23 @@ class Arm:
 
 def inputs(dev) -> dict:
     """The four backward inputs of output_digests: {tag: (packed, seed, cfg,
-    h, t, hit, g)}, tag as its digest key without "bwd"."""
+    h, t, hit, g)}, a batch of one frame, tag as its digest key without
+    "bwd"."""
     work = {}
     with torch.no_grad():
         for terrain, vol in TERRAINS.items():
             scene = default_scene(6, volumetric=vol, device=dev)
-            packed, seed = (x.detach() for x in kpack.pack_scene(scene, 512, 512, 0.0))
             for bf16 in (False, True):
                 cfg = RenderConfig(num_octaves=6, volumetric=vol, march_bf16=bf16)
                 ccfg = coarse_prime_cfg(cfg)
-                cp, cs = (x.detach() for x in kpack.pack_scene(scene, ccfg.height, ccfg.width,
-                                                             -1.0))
-                coarse = ktrace.trace_frame(cp, cs, ccfg, cfg.height // cfg.prime_ds + 2)
+                packed, cp, seed = kpack.pack_frames(scene, scene.camera, 512, 512, 0.0,
+                                                     (ccfg.height, ccfg.width, -1.0))
+                packed = packed.detach()
+                coarse = ktrace.trace_frames(cp, seed, ccfg, cfg.height // cfg.prime_ds + 2)
                 prime = prime_from_coarse(coarse[1], cfg)
-                _, t, hit = ktrace.trace_frame(packed, seed, cfg, 512, prime)
-                g = torch.randn(3, 512, 512, generator=torch.Generator().manual_seed(0)).to(dev)
+                _, t, hit = ktrace.trace_frames(packed, seed, cfg, 512, prime)
+                g = torch.randn(1, 3, 512, 512,
+                                generator=torch.Generator().manual_seed(0)).to(dev)
                 work[f"{terrain}/{'bf16/' if bf16 else ''}"] = (packed, seed, cfg, 512, t, hit,
                                                                 g)
     return work

@@ -202,7 +202,7 @@ class Arm:
 
 def coarse_inputs(scene, cfg):
     ccfg = coarse_prime_cfg(cfg)
-    packed, seed = kpack.pack_scene(scene, ccfg.height, ccfg.width, -1.0)
+    packed, _, seed = kpack.pack_frames(scene, scene.camera, ccfg.height, ccfg.width, -1.0)
     return packed.detach(), seed, ccfg, cfg.height // cfg.prime_ds + 2
 
 
@@ -317,7 +317,8 @@ def issue_bound(arm: Arm, census: dict, dev) -> dict:
             cfg = RenderConfig(num_octaves=6, volumetric=vol)
             cp, cs, ccfg, ch = coarse_inputs(scene, cfg)
             prime = prime_from_coarse(arm.fwd(cp, cs, ccfg, ch)[1], cfg)
-            packed, seed = (x.detach() for x in kpack.pack_scene(scene, 512, 512, 0.0))
+            packed, _, seed = kpack.pack_frames(scene, scene.camera, 512, 512, 0.0)
+            packed = packed.detach()
             steps = arm.fwd(packed, seed, cfg, 512, prime, debug=True)[3]
             warp_steps = tile_max(steps, *tile).sum().item()
             per_step = census["step"][terrain]["all"]
@@ -355,7 +356,8 @@ def time_arms(arms: dict[str, Arm], dev, rounds: int) -> dict:
             scene = default_scene(6, volumetric=vol, device=dev)
             cfg = RenderConfig(num_octaves=6, volumetric=vol)
             cp, cs, ccfg, ch = coarse_inputs(scene, cfg)
-            packed, seed = (x.detach() for x in kpack.pack_scene(scene, 512, 512, 0.0))
+            packed, _, seed = kpack.pack_frames(scene, scene.camera, 512, 512, 0.0)
+            packed = packed.detach()
             first = next(iter(arms.values()))
             prime = prime_from_coarse(first.fwd(cp, cs, ccfg, ch)[1], cfg)
             work[terrain, "coarse"] = (cp, cs, ccfg, ch, None)
@@ -394,7 +396,8 @@ def compact_work(arms: dict[str, Arm], dev) -> dict:
     with torch.no_grad():
         for terrain, vol in TERRAINS.items():
             scene = default_scene(6, volumetric=vol, device=dev)
-            packed, seed = (x.detach() for x in kpack.pack_scene(scene, 512, 512, 0.0))
+            packed, _, seed = kpack.pack_frames(scene, scene.camera, 512, 512, 0.0)
+            packed = packed.detach()
             for bf16 in (False, True):
                 cfg = RenderConfig(num_octaves=6, volumetric=vol, march_bf16=bf16,
                                    march_mode="compact")

@@ -14,8 +14,10 @@ step (``ops.fit.fit_step``, Adam, from a perturbed scene), each the median of
 10 calls by CUDA events after a warm-up; and the flythrough's frames per
 second without writing (``fly_frames``, 8 frames in batches of 4, host
 clock, the median of 5 after a warm-up; heightfield); and the host time per
-``trace_frame`` call of the coarse and the fine pass (the least of 5 runs of
-200 calls enqueued after a synchronisation, host clock). One process per tree runs first
+``trace_frames`` call (a batch of one frame) of the coarse and the fine pass
+(the least of 5 runs of 200 calls enqueued after a synchronisation, host
+clock). A tree needs ``kernels/pack.py:pack_frames`` and
+``kernels/trace.py:trace_frames``. One process per tree runs first
 to build its kernels. Prints one JSON line per turn and writes
 them all to ``--out``.
 """
@@ -76,32 +78,30 @@ res["fly_fps"] = statistics.median(fly_fps(scene, cfg) for _ in range(5))
 
 def launch_host_us(*args, n=200, reps=5):
     for _ in range(10):
-        trace_frame(*args)
+        trace_frames(*args)
     best = float("inf")
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            trace_frame(*args)
+            trace_frames(*args)
         best = min(best, time.perf_counter() - t0)
     torch.cuda.synchronize()
     return 1e6 * best / n
 
 
-from gpgpuraytrace_tpu_torch.kernels.trace import _prime_map, trace_frame
-from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg
-try:  # a tree with the pack kernel packs CUDA scenes there
-    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
-except ImportError:
-    from gpgpuraytrace_tpu_torch.utils.packing import pack_scene
+from gpgpuraytrace_tpu_torch.kernels.pack import pack_frames
+from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames
+from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
 
 with torch.no_grad():
-    packed, seed = pack_scene(scene, 512, 512, 0.0)
     ccfg = coarse_prime_cfg(cfg)
-    cpacked, cseed = pack_scene(scene, ccfg.height, ccfg.width, -1.0)
+    packed, cpacked, seed = pack_frames(scene, scene.camera, 512, 512, 0.0,
+                                        (ccfg.height, ccfg.width, -1.0))
+    prime = prime_from_coarse(trace_frames(cpacked, seed, ccfg, 66)[1], cfg)
     res["launch_host_us"] = {
-        "coarse": launch_host_us(cpacked, cseed, ccfg, 66),
-        "fine": launch_host_us(packed, seed, cfg, 512, _prime_map(scene, cfg, 0.0, 512))}
+        "coarse": launch_host_us(cpacked, seed, ccfg, 66),
+        "fine": launch_host_us(packed, seed, cfg, 512, prime)}
 print(json.dumps(res))
 """
 

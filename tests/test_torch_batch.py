@@ -11,7 +11,7 @@ Contracts:
   times and at 64 (past the width of the CPU's vectorized trig);
 * ``prime_from_coarse`` of a (B, h_c + 2, w_c) batch equals each frame's map;
 * ``trace_frames``, ``trace_phase1s`` and ``trace_phase2s`` with B = 3 equal
-  three one-frame calls bit for bit (32x64, 3 octaves): chunked primed and
+  three batches of one bit for bit (32x64, 3 octaves): chunked primed and
   unprimed, fixed, lod, the bf16 march field, the step counter and
   compaction's phases, both terrains;
 * ``render_frames_raw`` against the JAX package's ``vmap`` of its Pallas
@@ -20,8 +20,8 @@ Contracts:
   (99.9% of colour values within 2e-3, 99% within 1e-5); ``fly_frames``
   against JAX's ``fly_frames`` on its Pallas kernels: uint8 within 1 level
   on 99.9% of values;
-* ``trace_frames_bwd`` of B = 3 frames equals three ``trace_frame_bwd``
-  calls bit for bit, the cotangent contiguous or the (B, h, W, 3) view,
+* ``trace_frames_bwd`` of B = 3 frames equals three batches of one bit for
+  bit, the cotangent contiguous or the (B, h, W, 3) view,
   float32 and bf16, both terrains;
 * a batch of stripes of one camera (a row-band rank's, ``render`` with
   ``row0`` a sequence; 128x64, stripes of 32 rows, primed): its colour
@@ -118,8 +118,9 @@ VARIANTS = {
 
 
 def batch_inputs(terrain, cfg):
-    """(packed (B, n), seed, t0_prime (B, H, W) or None, the one-frame
-    (packed, t0_prime) of each frame): the fly path's first B frames."""
+    """(packed (B, n), seed, t0_prime (B, H, W) or None, the batch of one
+    (packed (1, n), t0_prime (1, H, W) or None) of each frame): the fly
+    path's first B frames."""
     scene = scene_of(terrain)
     times = times_of(B)
     cams = flythrough_cameras(scene, times)
@@ -130,7 +131,7 @@ def batch_inputs(terrain, cfg):
     for b, t in enumerate(times):
         s = frame_scene(scene, t)
         p1 = pack_scene(s, cfg.height, cfg.width)[0].detach()
-        frames.append((p1, ktrace._prime_map(s, cfg, 0.0, cfg.height)))
+        frames.append((p1, ktrace._prime_maps(s, s.camera, cfg)))
     return packed, seed, prime, frames
 
 
@@ -147,10 +148,10 @@ def test_trace_frames_equals_one_frame_calls(terrain, variant):
     assert got[0].shape == (B, 3, H, W) and got[1].shape == (B, H, W)
     for b, (p1, prime1) in enumerate(frames):
         if prime is not None:
-            assert torch.equal(prime[b], prime1)
-        one = ktrace.trace_frame(p1, seed, cfg, H, prime1, debug_steps)
+            assert torch.equal(prime[b:b + 1], prime1)
+        one = ktrace.trace_frames(p1, seed, cfg, H, prime1, debug_steps)
         for x, y in zip(got, one):
-            assert torch.equal(x[b], y), (variant, b)
+            assert torch.equal(x[b:b + 1], y), (variant, b)
 
 
 @pytest.mark.parametrize("layout", ["contiguous", "view"])
@@ -168,7 +169,8 @@ def test_trace_frames_bwd_equals_one_frame_calls(terrain, bf16, layout):
     got = ktrace.trace_frames_bwd(packed, seed, cfg, H, t, hit, gp)
     assert got.shape == packed.shape
     for b in range(B):
-        one = ktrace.trace_frame_bwd(packed[b:b + 1], seed, cfg, H, t[b], hit[b], gp[b])
+        one = ktrace.trace_frames_bwd(packed[b:b + 1], seed, cfg, H, t[b:b + 1], hit[b:b + 1],
+                                      gp[b:b + 1])
         assert torch.equal(got[b:b + 1], one), b
 
 
@@ -206,16 +208,16 @@ def test_compact_phases_of_a_batch_equal_one_frame_calls(terrain, bf16):
     p1 = ktrace.trace_phase1s(packed, seed, cfg, H)
     color, t, hit, alive, prev, ids, n_alive = p1
     assert ids.shape == (B, H * W) and n_alive.shape == (B,) and n_alive.dtype == torch.int32
-    ones = [ktrace.trace_phase1(f, seed, cfg, H) for f, _ in frames]
+    ones = [ktrace.trace_phase1s(f, seed, cfg, H) for f, _ in frames]
     for b, one in enumerate(ones):
         for x, y in zip(p1[:6], one[:6]):  # the lists in pixel order here
-            assert torch.equal(x[b], y)
+            assert torch.equal(x[b:b + 1], y)
         assert n_alive[b] == one[6][0] > 0
     ktrace.trace_phase2s(packed, seed, cfg, H, n_alive, ids, prev, color, t, hit)
     for b, ((f, _), one) in enumerate(zip(frames, ones)):
-        ktrace.trace_phase2(f, seed, cfg, H, one[6], one[5], one[4], *one[:3])
+        ktrace.trace_phase2s(f, seed, cfg, H, one[6], one[5], one[4], *one[:3])
         for x, y in zip((color, t, hit), one[:3]):
-            assert torch.equal(x[b], y)
+            assert torch.equal(x[b:b + 1], y)
     # Compaction through trace_frames: the two phases, the same frames.
     for x, y in zip(ktrace.trace_frames(packed, seed, cfg, H), (color, t, hit)):
         assert torch.equal(x, y)

@@ -1,7 +1,7 @@
 """The backward trace kernel module of the PyTorch port against the JAX
-package, on the CPU, where ``trace_frame_bwd`` runs its plain version.
+package, on the CPU, where ``trace_frames_bwd`` runs its plain version.
 
-* ``trace_frame_bwd`` against the JAX package's ``_backward_pallas`` in
+* ``trace_frames_bwd`` against the JAX package's ``_backward_pallas`` in
   interpret mode, on the same seeded (t, hit, g), every scene leaf after the
   pull through ``pack_scene``: rtol 2e-4, atol 1e-6 (the JAX suite's own
   kernel-vs-XLA backward tolerance, tests/test_pallas.py).
@@ -79,14 +79,14 @@ def test_trace_frame_bwd_matches_backward_pallas(saved):
     ))
     scene = port_scene()
     packed, seed = pack_scene(scene, H, W)
-    launches = ktrace.trace_frame_bwd.launches.total()
-    pbar = ktrace.trace_frame_bwd(
-        packed.detach(), seed, CFG, H, torch.from_numpy(t),
-        torch.from_numpy(hit.astype(np.float32)),
-        torch.from_numpy(np.ascontiguousarray(np.moveaxis(g, -1, 0))),
+    launches = ktrace.trace_frames_bwd.launches.total()
+    pbar = ktrace.trace_frames_bwd(
+        packed.detach(), seed, CFG, H, torch.from_numpy(t)[None],
+        torch.from_numpy(hit.astype(np.float32))[None],
+        torch.from_numpy(np.ascontiguousarray(np.moveaxis(g, -1, 0)))[None],
     )
     # The plain version ran: a CPU tensor never launches the CUDA kernel.
-    assert ktrace.trace_frame_bwd.launches.total() == launches == 0
+    assert ktrace.trace_frames_bwd.launches.total() == launches == 0
     assert tuple(pbar.shape) == (1, packed.shape[1]) and not pbar.requires_grad
     packed.backward(pbar)
     got = leaf_grads(scene)

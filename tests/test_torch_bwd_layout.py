@@ -24,21 +24,21 @@ def saved(cfg):
     scene = default_scene(cfg.num_octaves, volumetric=cfg.volumetric, device="cpu")
     _, t, hit = ktrace.render_kernel_raw(scene, cfg)
     packed, seed = pack_scene(scene, cfg.height, cfg.width)
-    return packed.detach(), seed, t, hit.float()
+    return packed.detach(), seed, t[None], hit.float()[None]
 
 
 @pytest.mark.parametrize("kw", [{}, VOL], ids=["heightfield", "volumetric"])
 def test_bwd_takes_the_permuted_cotangent(kw):
-    """g as the permute(2, 0, 1) view of a contiguous (h, W, 3) tensor (the
-    layout of a colour cotangent) gives the contiguous input's result bit for
-    bit."""
+    """g as the permute(0, 3, 1, 2) view of a contiguous (B, h, W, 3) tensor
+    (the layout of a colour cotangent) gives the contiguous input's result
+    bit for bit."""
     cfg = dataclasses.replace(CFG, **kw)
     packed, seed, t, hit = saved(cfg)
-    g_hw3 = torch.randn(H, W, 3, generator=torch.Generator().manual_seed(0))
-    view = g_hw3.permute(2, 0, 1)
+    g_hw3 = torch.randn(1, H, W, 3, generator=torch.Generator().manual_seed(0))
+    view = g_hw3.permute(0, 3, 1, 2)
     assert not view.is_contiguous()
-    got = ktrace.trace_frame_bwd(packed, seed, cfg, H, t, hit, view)
-    want = ktrace.trace_frame_bwd(packed, seed, cfg, H, t, hit, view.contiguous())
+    got = ktrace.trace_frames_bwd(packed, seed, cfg, H, t, hit, view)
+    want = ktrace.trace_frames_bwd(packed, seed, cfg, H, t, hit, view.contiguous())
     assert torch.equal(got, want) and got.abs().max() > 0
 
 
@@ -47,16 +47,16 @@ def test_bwd_rejects_other_layouts(layout):
     """Every other non-contiguous g raises the ValueError of the kernels'
     input checks."""
     g = {
-        "transposed": lambda: torch.zeros(3, W, H).transpose(1, 2),
-        "strided": lambda: torch.zeros(3, H, 2 * W)[..., ::2],
-        "strided_hw3": lambda: torch.zeros(H, W, 6)[..., ::2].permute(2, 0, 1),
-        "broadcast": lambda: torch.zeros(1, H, W).expand(3, H, W),
+        "transposed": lambda: torch.zeros(1, 3, W, H).transpose(2, 3),
+        "strided": lambda: torch.zeros(1, 3, H, 2 * W)[..., ::2],
+        "strided_hw3": lambda: torch.zeros(1, H, W, 6)[..., ::2].permute(0, 3, 1, 2),
+        "broadcast": lambda: torch.zeros(1, 1, H, W).expand(1, 3, H, W),
     }[layout]()
-    assert g.shape == (3, H, W) and not g.is_contiguous()
+    assert g.shape == (1, 3, H, W) and not g.is_contiguous()
     packed, seed = pack_scene(default_scene(3, device="cpu"), H, W)
-    t, hit = torch.ones(H, W), torch.zeros(H, W)
+    t, hit = torch.ones(1, H, W), torch.zeros(1, H, W)
     with pytest.raises(ValueError, match="contiguous"):
-        ktrace.trace_frame_bwd(packed.detach(), seed, CFG, H, t, hit, g)
+        ktrace.trace_frames_bwd(packed.detach(), seed, CFG, H, t, hit, g)
 
 
 @pytest.mark.parametrize("octaves, kw", [(2, {}), (3, VOL)], ids=["heightfield", "volumetric"])

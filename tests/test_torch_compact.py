@@ -86,9 +86,9 @@ def test_compact_equals_unprimed_chunked_bitwise(unprimed, terrain, budget):
     cfg = compact_cfg(terrain, budget)[0]
     assert cfg.prime_ds == 0  # compaction owns its march start
     scene = default_scene(OCT, volumetric=cfg.volumetric, device="cpu")
-    launches = ktrace.trace_frame.launches.total()
+    launches = ktrace.trace_frames.launches.total()
     got = ktrace.render_kernel_raw(scene, cfg)
-    assert ktrace.trace_frame.launches.total() == launches  # plain versions ran
+    assert ktrace.trace_frames.launches.total() == launches  # plain versions ran
     for a, b, what in zip(got, unprimed(terrain)[:3], ("colour", "t", "hit")):
         assert torch.equal(a, b), what
 
@@ -102,14 +102,14 @@ def test_survivors_are_the_lanes_still_active_after_the_budget(unprimed, terrain
     cfg = compact_cfg(terrain, budget)[0]
     scene = default_scene(OCT, volumetric=cfg.volumetric, device="cpu")
     packed, seed = pack_scene(scene, H, W)
-    *_, alive, prev, ids, n_alive = ktrace.trace_phase1(packed.detach(), seed, cfg, H)
+    *_, alive, prev, ids, n_alive = ktrace.trace_phase1s(packed.detach(), seed, cfg, H)
     steps = unprimed(terrain)[3]
-    assert torch.equal(alive > 0.5, steps > budget)
+    assert torch.equal(alive[0] > 0.5, steps > budget)
     n = int(n_alive.item())
     assert n_alive.dtype == torch.int32 and n_alive.shape == (1,)
     assert n == int((steps > budget).sum()) > 0
-    assert ids.dtype == torch.int32 and ids.shape == (H * W,)
-    assert torch.equal(ids[:n], (steps > budget).reshape(-1).nonzero()[:, 0].to(torch.int32))
+    assert ids.dtype == torch.int32 and ids.shape == (1, H * W)
+    assert torch.equal(ids[0, :n], (steps > budget).reshape(-1).nonzero()[:, 0].to(torch.int32))
     assert (prev[alive > 0.5] < cfg.t_max).all()
 
 
@@ -122,24 +122,24 @@ def test_phase2_writes_the_listed_pixels_in_any_order(unprimed, order):
     cfg = compact_cfg("heightfield", 8)[0]
     scene = default_scene(OCT, device="cpu")
     packed, seed = pack_scene(scene, H, W)
-    color, t, hit, _, prev, ids, n_alive = ktrace.trace_phase1(packed.detach(), seed, cfg, H)
-    before = [x.clone() for x in (color, t, hit)]
-    listed = ids[:int(n_alive)]
+    color, t, hit, _, prev, ids, n_alive = ktrace.trace_phase1s(packed.detach(), seed, cfg, H)
+    before = [x[0].clone() for x in (color, t, hit)]
+    listed = ids[0, :int(n_alive)]
     gen = torch.Generator().manual_seed(2)
     listed = {"reversed": listed.flip(0),
               "shuffled": listed[torch.randperm(listed.numel(), generator=gen)],
               "random_subset": listed[torch.randperm(listed.numel(), generator=gen)
                                       [:listed.numel() // 3]]}[order]
     slots = torch.full_like(ids, -1)
-    slots[:listed.numel()] = listed  # past n_alive: never read
-    ktrace.trace_phase2(packed.detach(), seed, cfg, H,
-                        torch.tensor([listed.numel()], dtype=torch.int32), slots, prev,
-                        color, t, hit)
+    slots[0, :listed.numel()] = listed  # past n_alive: never read
+    ktrace.trace_phase2s(packed.detach(), seed, cfg, H,
+                         torch.tensor([listed.numel()], dtype=torch.int32), slots, prev,
+                         color, t, hit)
     mask = torch.zeros(H * W, dtype=torch.bool)
     mask[listed.long()] = True
     mask = mask.view(H, W)
     one_pass = unprimed("heightfield")[:3]
-    for got, old, ref in zip((color.permute(1, 2, 0), t, hit > 0.5),
+    for got, old, ref in zip((color[0].permute(1, 2, 0), t[0], hit[0] > 0.5),
                              (before[0].permute(1, 2, 0), before[1], before[2] > 0.5),
                              one_pass):
         assert torch.equal(got[mask], ref[mask])
@@ -150,10 +150,10 @@ def test_phase2_with_no_survivors_changes_nothing():
     cfg = compact_cfg("heightfield")[0]
     scene = default_scene(OCT, device="cpu")
     packed, seed = pack_scene(scene, H, W)
-    color, t, hit, _, prev, ids, _ = ktrace.trace_phase1(packed.detach(), seed, cfg, H)
+    color, t, hit, _, prev, ids, _ = ktrace.trace_phase1s(packed.detach(), seed, cfg, H)
     before = [x.clone() for x in (color, t, hit)]
-    ktrace.trace_phase2(packed.detach(), seed, cfg, H, torch.zeros(1, dtype=torch.int32),
-                        ids, prev, color, t, hit)
+    ktrace.trace_phase2s(packed.detach(), seed, cfg, H, torch.zeros(1, dtype=torch.int32),
+                         ids, prev, color, t, hit)
     for a, b in zip((color, t, hit), before):
         assert torch.equal(a, b)
 
@@ -166,17 +166,18 @@ def test_phase_wrappers_reject_bad_inputs(case):
     packed = packed.detach()
     if case == "not_compact":
         with pytest.raises(ValueError, match="compact"):
-            ktrace.trace_phase1(packed, seed, dataclasses.replace(cfg, march_mode="chunked"), H)
+            ktrace.trace_phase1s(packed, seed, dataclasses.replace(cfg, march_mode="chunked"),
+                                 H)
         return
-    color, t, hit, _, prev, ids, n_alive = ktrace.trace_phase1(packed, seed, cfg, H)
+    color, t, hit, _, prev, ids, n_alive = ktrace.trace_phase1s(packed, seed, cfg, H)
     if case == "ids_dtype":
         ids = ids.long()
     elif case == "n_alive_shape":
         n_alive = n_alive.reshape(1, 1)
     else:
-        prev = prev[:-1]
+        prev = prev[:, :-1]
     with pytest.raises(ValueError):
-        ktrace.trace_phase2(packed, seed, cfg, H, n_alive, ids, prev, color, t, hit)
+        ktrace.trace_phase2s(packed, seed, cfg, H, n_alive, ids, prev, color, t, hit)
 
 
 @pytest.mark.parametrize("terrain", TERRAINS)
@@ -273,9 +274,9 @@ def test_compact_edges_match_pallas_interpret(terrain, edge):
     js = jax_default_scene(octaves, volumetric=cfg.volumetric)
     scene = scene_from_numpy(jax_scene_dict(js), device="cpu")
     packed, seed = pack_scene(scene, cfg.height, W, float(row0))
-    *_, alive, _, ids, n_alive = ktrace.trace_phase1(packed.detach(), seed, cfg, h)
+    *_, alive, _, ids, n_alive = ktrace.trace_phase1s(packed.detach(), seed, cfg, h)
     n = int(n_alive)
-    rows = (ids[:n] // W).unique()
+    rows = (ids[0, :n] // W).unique()
     if edge == "one_survivor":
         assert n == 1
     elif edge == "last_row_only":

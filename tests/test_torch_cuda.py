@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from gpgpuraytrace_tpu_torch.kernels import trace as ktrace
-from gpgpuraytrace_tpu_torch.kernels.pack import pack_scene
+from gpgpuraytrace_tpu_torch.kernels.pack import pack_frames
 from gpgpuraytrace_tpu_torch.models.scene import RenderConfig, default_scene
 from gpgpuraytrace_tpu_torch.ops import noise as tn
 from gpgpuraytrace_tpu_torch.ops.march import coarse_prime_cfg, prime_from_coarse
@@ -50,19 +50,20 @@ VOL = {"volumetric": True, "step_relax": None}
 def test_cuda_kernel_matches_plain_version(cuda, kw):
     cfg = dataclasses.replace(CFG, **kw)
     scene = default_scene(3, volumetric=cfg.volumetric, device=cuda)
-    before = ktrace.trace_frame.launches.total()
+    before = ktrace.trace_frames.launches.total()
     color, t, hit = ktrace.render_kernel_raw(scene, cfg)
     torch.cuda.synchronize()
-    assert ktrace.trace_frame.launches.total() == before + (2 if cfg.prime_ds else 1)
+    assert ktrace.trace_frames.launches.total() == before + (2 if cfg.prime_ds else 1)
     with torch.no_grad():
         prime = None
         if cfg.prime_ds:
             ccfg = coarse_prime_cfg(cfg)
-            pc, seed = pack_scene(scene, ccfg.height, ccfg.width, -1.0)
-            _, t_c, _ = ktrace.trace_frame(pc, seed, ccfg, cfg.height // cfg.prime_ds + 2)
+            pc, _, seed = pack_frames(scene, scene.camera, ccfg.height, ccfg.width, -1.0)
+            _, t_c, _ = ktrace.trace_frames(pc, seed, ccfg, cfg.height // cfg.prime_ds + 2)
             prime = prime_from_coarse(t_c, cfg)
-        packed, seed = pack_scene(scene, cfg.height, cfg.width)
-        ref_c, ref_t, ref_hit = ktrace.trace_frame_reference(packed, seed, cfg, cfg.height, prime)
+        packed, _, seed = pack_frames(scene, scene.camera, cfg.height, cfg.width)
+        ref_c, ref_t, ref_hit = (x[0] for x in ktrace.trace_frames_reference(
+            packed, seed, cfg, cfg.height, prime))
     assert_matches_plain((color.permute(2, 0, 1), t, hit.float()), (ref_c, ref_t, ref_hit))
 
 
@@ -99,17 +100,17 @@ def test_cuda_variant_matches_plain_version(cuda, mode, bf16, volumetric):
     cfg = dataclasses.replace(CFG, march_mode=mode, march_bf16=bf16, volumetric=volumetric,
                               step_relax=None, prime_ds=0)
     scene = default_scene(3, volumetric=volumetric, device=cuda)
-    packed, seed = pack_scene(scene, cfg.height, cfg.width)
+    packed, _, seed = pack_frames(scene, scene.camera, cfg.height, cfg.width)
     packed = packed.detach()
     name = ktrace.variant_name(cfg, debug_steps=True)
-    before = ktrace.trace_frame.launches[name]
+    before = ktrace.trace_frames.launches[name]
     with torch.no_grad():
-        *out, steps = ktrace.trace_frame(packed, seed, cfg, cfg.height, debug_steps=True)
-        uncounted = ktrace.trace_frame(packed, seed, cfg, cfg.height)
-        *ref, ref_steps = ktrace.trace_frame_reference(packed, seed, cfg, cfg.height,
-                                                       debug_steps=True)
+        *out, steps = ktrace.trace_frames(packed, seed, cfg, cfg.height, debug_steps=True)
+        uncounted = ktrace.trace_frames(packed, seed, cfg, cfg.height)
+        *ref, ref_steps = ktrace.trace_frames_reference(packed, seed, cfg, cfg.height,
+                                                        debug_steps=True)
     torch.cuda.synchronize()
-    assert ktrace.trace_frame.launches[name] == before + 1
+    assert ktrace.trace_frames.launches[name] == before + 1
     for a, b in zip(out, uncounted):
         assert torch.equal(a, b)
     assert_matches_plain(out, ref)
@@ -117,9 +118,9 @@ def test_cuda_variant_matches_plain_version(cuda, mode, bf16, volumetric):
     if mode == "fixed":
         assert (steps == cfg.max_steps).all()
         with torch.no_grad():
-            chunked = ktrace.trace_frame(packed, seed,
-                                         dataclasses.replace(cfg, march_mode="chunked"),
-                                         cfg.height)
+            chunked = ktrace.trace_frames(packed, seed,
+                                          dataclasses.replace(cfg, march_mode="chunked"),
+                                          cfg.height)
         for a, b in zip(out, chunked):
             assert torch.equal(a, b)
 
@@ -135,12 +136,13 @@ def test_cuda_ragged_frames(cuda, h, w, row0, volumetric):
     cfg = dataclasses.replace(CFG, height=128, width=w, volumetric=volumetric,
                               step_relax=None, prime_ds=0)
     scene = default_scene(3, volumetric=volumetric, device=cuda)
-    packed, seed = (x.detach() for x in pack_scene(scene, cfg.height, w, float(row0)))
-    full_packed = pack_scene(scene, cfg.height, w)[0].detach()
+    packed, _, seed = pack_frames(scene, scene.camera, cfg.height, w, float(row0))
+    packed = packed.detach()
+    full_packed = pack_frames(scene, scene.camera, cfg.height, w)[0].detach()
     with torch.no_grad():
-        *band, steps = ktrace.trace_frame(packed, seed, cfg, h, debug_steps=True)
-        full = ktrace.trace_frame(full_packed, seed, cfg, cfg.height)
-        ref = ktrace.trace_frame_reference(packed, seed, cfg, h)
+        *band, (steps,) = ktrace.trace_frames(packed, seed, cfg, h, debug_steps=True)
+        full = ktrace.trace_frames(full_packed, seed, cfg, cfg.height)
+        ref = ktrace.trace_frames_reference(packed, seed, cfg, h)
     torch.cuda.synchronize()
     for a, b in zip(band, full):
         assert torch.equal(a, b[..., row0:row0 + h, :])
@@ -161,10 +163,11 @@ def test_cuda_tile_scratch_across_streams_and_graphs(cuda, octaves):
     bit, and every kept scratch reads 0 afterwards."""
     cfg = dataclasses.replace(CFG, num_octaves=octaves, prime_ds=0)
     scene = default_scene(octaves, device=cuda)
-    packed, seed = (x.detach() for x in pack_scene(scene, cfg.height, cfg.width))
+    packed, _, seed = pack_frames(scene, scene.camera, cfg.height, cfg.width)
+    packed = packed.detach()
 
     def trace():
-        return ktrace.trace_frame(packed, seed, cfg, cfg.height)
+        return ktrace.trace_frames(packed, seed, cfg, cfg.height)
 
     with torch.no_grad():
         first = trace()
@@ -194,23 +197,25 @@ def test_cuda_tile_scratch_across_streams_and_graphs(cuda, octaves):
 def test_cuda_bwd_scratch_across_streams_and_graphs(cuda, octaves, bf16):
     """The backward's scratch (its second stage's counter, left at 0 by
     every launch, and the partial sums): launches back to back on the
-    default stream, the cotangent as the (h, W, 3) view, launches on a
+    default stream, the cotangent as the (1, h, W, 3) view, launches on a
     second stream, and replays of a CUDA graph give the first launch's
     gradient bit for bit, at 2, 3 and the main path's 6 octaves, float32
     and bf16 march channel."""
     cfg = dataclasses.replace(CFG, num_octaves=octaves, march_bf16=bf16)
     scene = default_scene(octaves, device=cuda)
     _, t, hit = ktrace.render_kernel_raw(scene, cfg)
-    packed, seed = (x.detach() for x in pack_scene(scene, cfg.height, cfg.width))
-    g = torch.randn(3, cfg.height, cfg.width, generator=torch.Generator().manual_seed(0))
+    packed, _, seed = pack_frames(scene, scene.camera, cfg.height, cfg.width)
+    packed = packed.detach()
+    g = torch.randn(1, 3, cfg.height, cfg.width, generator=torch.Generator().manual_seed(0))
     g = g.to(cuda)
 
     def bwd(cotangent=g):
-        return ktrace.trace_frame_bwd(packed, seed, cfg, cfg.height, t, hit.float(), cotangent)
+        return ktrace.trace_frames_bwd(packed, seed, cfg, cfg.height, t[None], hit.float()[None],
+                                       cotangent)
 
     first = bwd()
     runs = [bwd() for _ in range(2)]
-    runs.append(bwd(g.permute(1, 2, 0).contiguous().permute(2, 0, 1)))
+    runs.append(bwd(g.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -233,10 +238,10 @@ def test_cuda_bwd_scratch_across_streams_and_graphs(cuda, octaves, bf16):
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_cpu_mix(cuda):
     scene = default_scene(3, device=cuda)
-    packed, seed = pack_scene(scene, CFG.height, CFG.width)
+    packed, _, seed = pack_frames(scene, scene.camera, CFG.height, CFG.width)
     cfg = dataclasses.replace(CFG, prime_ds=0)
     with pytest.raises(ValueError, match="inputs on"):
-        ktrace.trace_frame(packed.detach(), seed.cpu(), cfg, CFG.height)
+        ktrace.trace_frames(packed.detach(), seed.cpu(), cfg, CFG.height)
 
 
 def within_bwd_tolerance(got, ref):
@@ -253,16 +258,16 @@ def test_cuda_bwd_kernel_matches_plain_version(cuda, kw):
     cfg = dataclasses.replace(CFG, **kw)
     scene = default_scene(3, volumetric=cfg.volumetric, device=cuda)
     _, t, hit = ktrace.render_kernel_raw(scene, cfg)
-    packed, seed = pack_scene(scene, cfg.height, cfg.width)
-    packed, hit = packed.detach(), hit.float()
-    g = torch.randn(3, cfg.height, cfg.width, generator=torch.Generator().manual_seed(0))
+    packed, _, seed = pack_frames(scene, scene.camera, cfg.height, cfg.width)
+    packed, t, hit = packed.detach(), t[None], hit.float()[None]
+    g = torch.randn(1, 3, cfg.height, cfg.width, generator=torch.Generator().manual_seed(0))
     g = g.to(cuda)
-    before = ktrace.trace_frame_bwd.launches["bwd"]
-    a = ktrace.trace_frame_bwd(packed, seed, cfg, cfg.height, t, hit, g)
-    b = ktrace.trace_frame_bwd(packed, seed, cfg, cfg.height, t, hit, g)
-    ref = ktrace.trace_bwd_reference(packed, seed, cfg, cfg.height, t, hit, g)
+    before = ktrace.trace_frames_bwd.launches["bwd"]
+    a = ktrace.trace_frames_bwd(packed, seed, cfg, cfg.height, t, hit, g)
+    b = ktrace.trace_frames_bwd(packed, seed, cfg, cfg.height, t, hit, g)
+    ref = ktrace.trace_frames_bwd_reference(packed, seed, cfg, cfg.height, t, hit, g)
     torch.cuda.synchronize()
-    assert ktrace.trace_frame_bwd.launches["bwd"] == before + 2
+    assert ktrace.trace_frames_bwd.launches["bwd"] == before + 2
     assert torch.equal(a, b)  # no atomics: bitwise repeatable
     assert torch.isfinite(a).all() and within_bwd_tolerance(a, ref)
     if cfg.volumetric:  # the warp amplitude and frequency get gradients
@@ -331,34 +336,34 @@ def test_cuda_compact_phases_match_plain_versions(cuda, bf16, volumetric):
     cfg = dataclasses.replace(CFG, march_mode="compact", compact_budget=16, march_bf16=bf16,
                               volumetric=volumetric, step_relax=None)
     scene = default_scene(3, volumetric=volumetric, device=cuda)
-    packed, seed = pack_scene(scene, cfg.height, cfg.width)
+    packed, _, seed = pack_frames(scene, scene.camera, cfg.height, cfg.width)
     packed, h = packed.detach(), cfg.height
     with torch.no_grad():
-        p1 = ktrace.trace_phase1(packed, seed, cfg, h)
-        r1 = ktrace.trace_phase1_reference(packed, seed, cfg, h)
+        p1 = ktrace.trace_phase1s(packed, seed, cfg, h)
+        r1 = ktrace.trace_phase1s_reference(packed, seed, cfg, h)
         assert_matches_plain(p1[:3], r1[:3])
         assert torch.equal(p1[3], r1[3])
         prev, ids, n_alive = p1[4:]
         n = int(n_alive)
-        assert n == int(r1[6]) and torch.equal(ids[:n].sort().values, r1[5][:n])
+        assert n == int(r1[6]) and torch.equal(ids[0, :n].sort().values, r1[5][0, :n])
         k2 = [x.clone() for x in p1[:3]]
-        ktrace.trace_phase2(packed, seed, cfg, h, n_alive, ids, prev, *k2)
+        ktrace.trace_phase2s(packed, seed, cfg, h, n_alive, ids, prev, *k2)
         r2 = [x.clone() for x in p1[:3]]
-        ktrace.trace_phase2_reference(packed, seed, cfg, h, n_alive, ids, prev, *r2)
-        sel = ids[:n].long()
+        ktrace.trace_phase2s_reference(packed, seed, cfg, h, n_alive, ids, prev, *r2)
+        sel = ids[0, :n].long()
         assert_matches_plain(*([c.view(3, -1)[:, sel], t.view(-1)[sel], hit.view(-1)[sel]]
                                for c, t, hit in (k2, r2)))
-        ktrace.trace_frame.launches.clear()
+        ktrace.trace_frames.launches.clear()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            frame = ktrace.trace_frame(packed, seed, cfg, h)
+            frame = ktrace.trace_frames(packed, seed, cfg, h)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        chunked = ktrace.trace_frame(packed, seed, dataclasses.replace(
+        chunked = ktrace.trace_frames(packed, seed, dataclasses.replace(
             cfg, march_mode="chunked", prime_ds=0), h)
     torch.cuda.synchronize()
-    assert ktrace.trace_frame.launches[ktrace.phase_name(cfg, 1)] == 1
-    assert ktrace.trace_frame.launches[ktrace.phase_name(cfg, 2)] == 1
+    assert ktrace.trace_frames.launches[ktrace.phase_name(cfg, 1)] == 1
+    assert ktrace.trace_frames.launches[ktrace.phase_name(cfg, 2)] == 1
     assert n > 0
     assert torch.equal(frame[2], chunked[2])
     assert (frame[0] - chunked[0]).abs().max().item() <= 1e-4
@@ -374,14 +379,14 @@ def test_cuda_bf16_bwd_kernel_matches_plain_version(cuda, volumetric):
     cfg = dataclasses.replace(CFG, march_bf16=True, volumetric=volumetric, step_relax=None)
     scene = default_scene(3, volumetric=volumetric, device=cuda)
     _, t, hit = ktrace.render_kernel_raw(scene, cfg)
-    packed, seed = pack_scene(scene, cfg.height, cfg.width)
-    packed, hit = packed.detach(), hit.float()
-    g = torch.randn(3, cfg.height, cfg.width, generator=torch.Generator().manual_seed(0))
+    packed, _, seed = pack_frames(scene, scene.camera, cfg.height, cfg.width)
+    packed, t, hit = packed.detach(), t[None], hit.float()[None]
+    g = torch.randn(1, 3, cfg.height, cfg.width, generator=torch.Generator().manual_seed(0))
     args = (packed, seed, cfg, cfg.height, t, hit, g.to(cuda))
-    a, b = ktrace.trace_frame_bwd(*args), ktrace.trace_frame_bwd(*args)
-    ref = ktrace.trace_bwd_reference(*args)
+    a, b = ktrace.trace_frames_bwd(*args), ktrace.trace_frames_bwd(*args)
+    ref = ktrace.trace_frames_bwd_reference(*args)
     f32_args = (packed, seed, dataclasses.replace(cfg, march_bf16=False), *args[3:])
-    f32 = ktrace.trace_frame_bwd(*f32_args)
+    f32 = ktrace.trace_frames_bwd(*f32_args)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
     assert torch.isfinite(a).all() and within_bwd_tolerance(a, ref)
@@ -393,10 +398,11 @@ def compact_frames(cuda, cfg, h=None, row0=0):
     frame through the kernels."""
     h = cfg.height if h is None else h
     scene = default_scene(cfg.num_octaves, volumetric=cfg.volumetric, device=cuda)
-    packed, seed = (x.detach() for x in pack_scene(scene, cfg.height, cfg.width, float(row0)))
+    packed, _, seed = pack_frames(scene, scene.camera, cfg.height, cfg.width, float(row0))
+    packed = packed.detach()
     with torch.no_grad():
-        frame = ktrace.trace_frame(packed, seed, cfg, h)
-        chunked = ktrace.trace_frame(
+        frame = ktrace.trace_frames(packed, seed, cfg, h)
+        chunked = ktrace.trace_frames(
             packed, seed, dataclasses.replace(cfg, march_mode="chunked", prime_ds=0), h)
     return packed, seed, h, frame, chunked
 
@@ -424,13 +430,13 @@ def test_cuda_compact_groups_equal_unprimed_chunked(cuda, octaves, volumetric, w
                               warp_octaves=warp_octaves, step_relax=None)
     packed, seed, h, frame, chunked = compact_frames(cuda, cfg)
     with torch.no_grad():
-        p1 = ktrace.trace_phase1(packed, seed, cfg, h)
-        r1 = ktrace.trace_phase1_reference(packed, seed, cfg, h)
+        p1 = ktrace.trace_phase1s(packed, seed, cfg, h)
+        r1 = ktrace.trace_phase1s_reference(packed, seed, cfg, h)
         n = int(p1[6])
         k2 = [x.clone() for x in p1[:3]]
-        ktrace.trace_phase2(packed, seed, cfg, h, p1[6], p1[5], p1[4], *k2)
+        ktrace.trace_phase2s(packed, seed, cfg, h, p1[6], p1[5], p1[4], *k2)
         r2 = [x.clone() for x in p1[:3]]
-        ktrace.trace_phase2_reference(packed, seed, cfg, h, p1[6], p1[5], p1[4], *r2)
+        ktrace.trace_phase2s_reference(packed, seed, cfg, h, p1[6], p1[5], p1[4], *r2)
     torch.cuda.synchronize()
     assert n > 0
     for a, b in zip(frame, chunked):
@@ -466,23 +472,23 @@ def test_cuda_phase2_slot_lists(cuda, listing, volumetric):
                               volumetric=volumetric, step_relax=None)
     packed, seed, h, _, chunked = compact_frames(cuda, cfg)
     with torch.no_grad():
-        color, t, hit, _, prev, ids, n_alive = ktrace.trace_phase1(packed, seed, cfg, h)
-        listed = ids[:int(n_alive)]
+        color, t, hit, _, prev, ids, n_alive = ktrace.trace_phase1s(packed, seed, cfg, h)
+        listed = ids[0, :int(n_alive)]
         gen = torch.Generator().manual_seed(3)
         listed = {"none": listed[:0], "one": listed[:1], "thirteen": listed[:13],
                   "shuffled": listed[torch.randperm(listed.numel(), generator=gen).to(cuda)]
                   }[listing]
         slots = torch.full_like(ids, -1)
-        slots[:listed.numel()] = listed  # past n_alive: never read
+        slots[0, :listed.numel()] = listed  # past n_alive: never read
         before = [x.clone() for x in (color, t, hit)]
-        ktrace.trace_phase2(packed, seed, cfg, h,
-                            torch.tensor([listed.numel()], dtype=torch.int32, device=cuda),
-                            slots, prev, color, t, hit)
+        ktrace.trace_phase2s(packed, seed, cfg, h,
+                             torch.tensor([listed.numel()], dtype=torch.int32, device=cuda),
+                             slots, prev, color, t, hit)
     torch.cuda.synchronize()
     mask = torch.zeros(h * cfg.width, dtype=torch.bool, device=cuda)
     mask[listed.long()] = True
     for got, old, ref in zip((color.view(3, -1), t.view(-1), hit.view(-1)),
-                             (x.view(3, -1) if x.dim() == 3 else x.view(-1) for x in before),
+                             (x.view(3, -1) if x.dim() == 4 else x.view(-1) for x in before),
                              (chunked[0].view(3, -1), chunked[1].view(-1),
                               chunked[2].view(-1))):
         assert torch.equal(got[..., mask], ref[..., mask])
@@ -501,7 +507,7 @@ def test_cuda_compact_scratch_across_streams_and_graphs(cuda, volumetric):
     packed, seed, h, first, _ = compact_frames(cuda, cfg)
 
     def trace():
-        return ktrace.trace_frame(packed, seed, cfg, h)
+        return ktrace.trace_frames(packed, seed, cfg, h)
 
     with torch.no_grad():
         runs = [trace() for _ in range(2)]
@@ -525,19 +531,17 @@ def test_cuda_compact_scratch_across_streams_and_graphs(cuda, volumetric):
 
 
 def fly_batch(cuda, cfg, frames, row0=-1.0, height=None, width=None):
-    """The scene, (packed (frames, n), seed) of the fly path's first
-    ``frames`` cameras at (height, width) from ``row0``, and each frame's
-    one-frame packed row."""
-    from gpgpuraytrace_tpu_torch.kernels.pack import pack_scenes
-    from gpgpuraytrace_tpu_torch.models.scene import Scene
+    """(packed (frames, n), seed) of the fly path's first ``frames``
+    cameras at (height, width) from ``row0``, and each frame's packed row
+    alone, (1, n)."""
     from gpgpuraytrace_tpu_torch.ops.flythrough import flythrough_camera, flythrough_cameras
 
     height, width = height or cfg.height, width or cfg.width
     scene = default_scene(cfg.num_octaves, volumetric=cfg.volumetric, device=cuda)
     times = torch.arange(frames, dtype=torch.float32) / 30.0
-    packed, seed = pack_scenes(scene, flythrough_cameras(scene, times), height, width, row0)
-    ones = [pack_scene(Scene(scene.noise, flythrough_camera(scene, t), scene.materials),
-                       height, width, row0)[0].detach() for t in times]
+    packed, _, seed = pack_frames(scene, flythrough_cameras(scene, times), height, width, row0)
+    ones = [pack_frames(scene, flythrough_camera(scene, t), height, width, row0)[0].detach()
+            for t in times]
     return packed.detach(), seed, ones
 
 
@@ -549,7 +553,7 @@ def fly_batch(cuda, cfg, frames, row0=-1.0, height=None, width=None):
 def test_cuda_frame_axis_equals_one_frame_launches(cuda, kind, octaves, bf16, volumetric):
     """Every forward instantiation's frame axis (6 octaves: the unrolled
     twins too): batches of 1, 2 and 4 frames along the fly path, each frame
-    bit for bit its one-frame launch, one launch per batch (a batch of one
+    bit for bit its own batch of one, one launch per batch (a batch of one
     runs the one-frame kernel): the coarse prime pass (66x64 of 512 rows:
     fewer tiles than warps), the primed fine pass, unprimed, counted, fixed
     and lod."""
@@ -569,19 +573,19 @@ def test_cuda_frame_axis_equals_one_frame_launches(cuda, kind, octaves, bf16, vo
         if kind == "primed":
             gen = torch.Generator().manual_seed(1)
             prime = (torch.rand(4, h, cfg.width, generator=gen) * 40.0).to(cuda)
-        singles = [ktrace.trace_frame(p, seed, cfg, h,
-                                      None if prime is None else prime[k].contiguous(), debug)
+        singles = [ktrace.trace_frames(p, seed, cfg, h,
+                                       None if prime is None else prime[k:k + 1], debug)
                    for k, p in enumerate(ones)]
         for frames in (1, 2, 4):
             name = ktrace.variant_name(cfg, debug, frames)
-            before = ktrace.trace_frame.launches[name]
+            before = ktrace.trace_frames.launches[name]
             got = ktrace.trace_frames(packed[:frames], seed, cfg, h,
                                       None if prime is None else prime[:frames], debug)
             torch.cuda.synchronize()
-            assert ktrace.trace_frame.launches[name] == before + 1
+            assert ktrace.trace_frames.launches[name] == before + 1
             for k in range(frames):
                 for a, b in zip(got, singles[k]):
-                    assert torch.equal(a[k], b), (frames, k)
+                    assert torch.equal(a[k:k + 1], b), (frames, k)
     assert all(int(s.abs().sum()) == 0 for s in ktrace._TILE_SCRATCH.values())
 
 
@@ -591,7 +595,7 @@ def test_cuda_frame_axis_equals_one_frame_launches(cuda, kind, octaves, bf16, vo
 @pytest.mark.parametrize("octaves", [3, 6])
 def test_cuda_compact_frame_axis_equals_one_frame_launches(cuda, octaves, bf16, volumetric):
     """Compaction's two phases over batches of 1, 2 and 4 frames: each
-    frame's phase 1 outputs bit for bit its one-frame launch's (its
+    frame's phase 1 outputs bit for bit its own batch of one's (its
     survivors' list as a set, in its own row, its count in its own slot of
     n_alive), then each frame's phase 2 outputs, one launch per phase."""
     cfg = dataclasses.replace(CFG, march_mode="compact", compact_budget=16, march_bf16=bf16,
@@ -601,23 +605,24 @@ def test_cuda_compact_frame_axis_equals_one_frame_launches(cuda, octaves, bf16, 
     with torch.no_grad():
         singles = []
         for p in ones:
-            p1 = ktrace.trace_phase1(p, seed, cfg, h)
+            p1 = ktrace.trace_phase1s(p, seed, cfg, h)
             n = int(p1[6])
-            first = (*(x.clone() for x in p1[:5]), p1[5][:n].sort().values, p1[6].clone())
-            ktrace.trace_phase2(p, seed, cfg, h, p1[6], p1[5], p1[4], *p1[:3])
+            first = (*(x.clone() for x in p1[:5]), p1[5][0, :n].sort().values, p1[6].clone())
+            ktrace.trace_phase2s(p, seed, cfg, h, p1[6], p1[5], p1[4], *p1[:3])
             singles.append((first, p1[:3]))
         for frames in (1, 2, 4):
             p1 = ktrace.trace_phase1s(packed[:frames], seed, cfg, h)
             assert p1[5].shape == (frames, h * cfg.width) and p1[6].shape == (frames,)
             for k in range(frames):
                 n = int(p1[6][k])
-                got = (*(x[k] for x in p1[:5]), p1[5][k][:n].sort().values, p1[6][k:k + 1])
+                got = (*(x[k:k + 1] for x in p1[:5]), p1[5][k][:n].sort().values,
+                       p1[6][k:k + 1])
                 for a, b in zip(got, singles[k][0]):
                     assert torch.equal(a, b), (frames, k)
             ktrace.trace_phase2s(packed[:frames], seed, cfg, h, p1[6], p1[5], p1[4], *p1[:3])
             for k in range(frames):
                 for a, b in zip(p1[:3], singles[k][1]):
-                    assert torch.equal(a[k], b), (frames, k)
+                    assert torch.equal(a[k:k + 1], b), (frames, k)
     torch.cuda.synchronize()
     assert all(int(s.abs().sum()) == 0 for s in ktrace._TILE_SCRATCH.values())
 
@@ -1140,24 +1145,24 @@ def stripe_inputs(cuda, cfg):
 @pytest.mark.parametrize("kw", [{}, {"march_bf16": True}, VOL],
                          ids=["heightfield", "bf16", "volumetric"])
 def test_cuda_frames_bwd_equals_one_frame_launches(cuda, kw):
-    """A batch of 4 stripes' backward, one launch pair, bit for bit the 4
-    one-frame launches on the same (t, hit, g), the cotangent in either
-    layout; against its plain version with the one-frame backward's
-    tolerance; bitwise repeatable; counted as "+frames"."""
+    """A batch of 4 stripes' backward, one launch pair, bit for bit 4
+    batches of one on the same (t, hit, g), the cotangent in either layout;
+    against its plain version with the backward's tolerance; bitwise
+    repeatable; counted as "+frames"."""
     cfg = dataclasses.replace(STRIPE_CFG, **kw)
     assert cfg.prime_ds == 8
     _, packed, seed, t, hit = stripe_inputs(cuda, cfg)
     g = torch.randn((4, 32, cfg.width, 3), generator=torch.Generator().manual_seed(1)).to(cuda)
     view = g.permute(0, 3, 1, 2)
     key = "bwd+bf16+frames" if cfg.march_bf16 else "bwd+frames"
-    before = ktrace.trace_frame_bwd.launches[key]
+    before = ktrace.trace_frames_bwd.launches[key]
     a = ktrace.trace_frames_bwd(packed, seed, cfg, 32, t, hit, view)
     b = ktrace.trace_frames_bwd(packed, seed, cfg, 32, t, hit, view.contiguous())
-    ones = torch.cat([ktrace.trace_frame_bwd(packed[i:i + 1], seed, cfg, 32, t[i], hit[i],
-                                             view[i]) for i in range(4)])
+    ones = torch.cat([ktrace.trace_frames_bwd(packed[i:i + 1], seed, cfg, 32, t[i:i + 1],
+                                              hit[i:i + 1], view[i:i + 1]) for i in range(4)])
     ref = ktrace.trace_frames_bwd_reference(packed, seed, cfg, 32, t, hit, view)
     torch.cuda.synchronize()
-    assert ktrace.trace_frame_bwd.launches[key] == before + 2
+    assert ktrace.trace_frames_bwd.launches[key] == before + 2
     assert torch.equal(a, b) and torch.equal(a, ones)
     assert torch.isfinite(a).all()
     if not cfg.march_bf16:  # the bf16 march channel: phase 22's gates, in chip_smoke.py

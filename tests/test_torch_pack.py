@@ -9,8 +9,7 @@ Contracts:
   row0 / ds - 1 and the coarse config's aspect) from the same call; one
   camera over a batch of stripes (a ROW0 per frame, the coarse rows' too),
   each row the one-stripe call's; the kernel's evenly spaced ROW0s exact
-  or refused;
-  ``pack_scene`` and ``pack_scenes`` are the plain functions' shapes;
+  or refused; one ``Camera`` gives a batch of one row;
 * its gradients (autograd through the plain ops on CPU leaves) equal
   ``torch.autograd.grad`` through the plain packing for every float leaf,
   a camera leaf per frame or shared by a batch, a leaf replaced by a plain
@@ -83,9 +82,9 @@ def test_pack_frames_batch_rows_equal_plain_and_one_camera(shared_pitch):
     assert packed.shape == coarse.shape == (4, pk.AMPS + 6)
     assert torch.equal(packed, pk.pack_scenes(scene, cams, 96, 160)[0])
     assert torch.equal(coarse, pk.pack_scenes(scene, cams, 12, 20, -1.0)[0])
-    one, _ = kpack.pack_scenes(scene, scene.camera, 96, 160)
-    assert one.shape == (pk.AMPS + 6,)
-    assert torch.equal(one, pk.pack_scenes(scene, scene.camera, 96, 160)[0])
+    one, no_coarse, _ = kpack.pack_frames(scene, scene.camera, 96, 160)
+    assert one.shape == (1, pk.AMPS + 6) and no_coarse is None
+    assert torch.equal(one, pk.pack_scene(scene, 96, 160)[0])
 
 
 STRIPES = (36.0, 180.0, 324.0, 468.0)  # rank 1's first rows at S = 36 over 4 ranks

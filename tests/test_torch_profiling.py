@@ -79,7 +79,8 @@ def test_tile_steps_match_pallas_interpret(setup):
     t0p = torch.from_numpy(np.array(jmarch.prime_from_coarse(t_c, jcfg)))
     *_, j_steps = _render_pallas_raw(js, jcfg, debug_steps=True)
     packed, seed = pack_scene(scene, H, W)
-    *_, steps = ktrace.trace_frame(packed.detach(), seed, cfg, H, t0p, debug_steps=True)
+    *_, (steps,) = ktrace.trace_frames(packed.detach(), seed, cfg, H, t0p[None],
+                                       debug_steps=True)
     assert steps.dtype == torch.int32 and tuple(steps.shape) == (H, W)
     tiles = ktrace.tile_steps(steps, cfg)
     assert tuple(tiles.shape) == (H // cfg.tile_h, W // ktrace.TILE_W)
@@ -103,7 +104,7 @@ def test_counter_bounds_against_march_with_stats(setup):
     tiles = ktrace.tile_steps(steps, cfg).numpy()
     assert (tiles % CHUNK == 0).all() and (tiles <= STEPS).all()
     o, d = generate_rays(scene.camera, H, W)
-    t0p = ktrace._prime_map(scene, cfg, 0.0, H)
+    (t0p,) = ktrace._prime_maps(scene, scene.camera, cfg)
     _, _, lanes = tmarch.march_with_stats(cfg, o, d, scene.noise, t0p)
     tile_max = lanes.numpy().reshape(H // cfg.tile_h, cfg.tile_h, W // 128, 128).max(axis=(1, 3))
     assert (tiles >= tile_max).all()

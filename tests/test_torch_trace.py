@@ -58,13 +58,13 @@ def port_full(scene):
     "kw", [{}, {"march_eps_scale": 4.0}], ids=["default", "residual_verdict"]
 )
 def test_render_kernel_raw_matches_pallas_interpret(scene, kw):
-    launches = ktrace.trace_frame.launches.total()
+    launches = ktrace.trace_frames.launches.total()
     color, t, hit = ktrace.render_kernel_raw(scene, dataclasses.replace(CFG, **kw))
     j_color, j_t, j_hit = _render_pallas_raw(
         jax_default_scene(num_octaves=3), dataclasses.replace(JCFG, **kw)
     )
     # The plain version ran: a CPU tensor never launches the CUDA kernel.
-    assert ktrace.trace_frame.launches.total() == launches == 0
+    assert ktrace.trace_frames.launches.total() == launches == 0
     assert tuple(color.shape) == (64, 128, 3) and hit.dtype == torch.bool
     assert_mostly_close(color, j_color, 2e-3, 0.999, "image")
     assert_mostly_close(color, j_color, 1e-5, 0.99, "image-exact")
@@ -87,7 +87,7 @@ def test_row_band_equals_frame_slice(scene, port_full):
 
 def _inputs(scene, cfg=CFG):
     packed, seed = pack_scene(scene, cfg.height, cfg.width)
-    prime = torch.full((cfg.height, cfg.width), cfg.t_min)
+    prime = torch.full((1, cfg.height, cfg.width), cfg.t_min)
     return packed.detach(), seed, prime
 
 
@@ -106,40 +106,40 @@ def test_trace_frame_rejects_bad_inputs(scene, case):
     elif case == "seed_dtype":
         seed = seed.long()
     elif case == "noncontig":
-        prime = torch.full((CFG.width, CFG.height), CFG.t_min).t()
+        prime = torch.full((1, CFG.width, CFG.height), CFG.t_min).transpose(1, 2)
     elif case == "prime_shape":
-        prime = prime[:-1]
+        prime = prime[:, :-1]
     elif case == "prime_missing":
         prime = None
     else:
         cfg = dataclasses.replace(CFG, prime_ds=0)
     with pytest.raises(ValueError):
-        ktrace.trace_frame(packed, seed, cfg, CFG.height, prime)
+        ktrace.trace_frames(packed, seed, cfg, CFG.height, prime)
 
 
 def test_trace_frame_is_forward_only(scene):
     packed, seed, prime = _inputs(scene)
     with pytest.raises(RuntimeError, match="forward only.*render_kernel"):
-        ktrace.trace_frame(packed.requires_grad_(), seed, CFG, CFG.height, prime)
+        ktrace.trace_frames(packed.requires_grad_(), seed, CFG, CFG.height, prime)
 
 
 @pytest.mark.parametrize("case", ["t_shape", "hit_dtype", "g_shape", "g_noncontig"])
 def test_trace_frame_bwd_rejects_bad_inputs(scene, case):
     packed, seed, _ = _inputs(scene)
-    t = torch.ones(CFG.height, CFG.width)
-    hit = torch.zeros(CFG.height, CFG.width)
-    g = torch.zeros(3, CFG.height, CFG.width)
+    t = torch.ones(1, CFG.height, CFG.width)
+    hit = torch.zeros(1, CFG.height, CFG.width)
+    g = torch.zeros(1, 3, CFG.height, CFG.width)
     if case == "t_shape":
-        t = t[:-1]
+        t = t[:, :-1]
     elif case == "hit_dtype":
         hit = hit.bool()
     elif case == "g_shape":
-        g = g[:2]
+        g = g[:, :2]
     else:
-        # Neither contiguous nor the (h, W, 3) view the kernel also reads.
-        g = torch.zeros(3, CFG.width, CFG.height).transpose(1, 2)
+        # Neither contiguous nor the (B, h, W, 3) view the kernel also reads.
+        g = torch.zeros(1, 3, CFG.width, CFG.height).transpose(2, 3)
     with pytest.raises(ValueError):
-        ktrace.trace_frame_bwd(packed, seed, CFG, CFG.height, t, hit, g)
+        ktrace.trace_frames_bwd(packed, seed, CFG, CFG.height, t, hit, g)
 
 
 @pytest.mark.parametrize("debug_steps", [False, True], ids=["compact", "compact_debug_steps"])
@@ -151,13 +151,13 @@ def test_unported_variants_raise(scene, debug_steps):
     packed, seed, _ = _inputs(scene)
     if debug_steps:
         with pytest.raises(ValueError, match="debug_steps"):
-            ktrace.trace_frame(packed, seed, cfg, CFG.height, debug_steps=True)
+            ktrace.trace_frames(packed, seed, cfg, CFG.height, debug_steps=True)
         with pytest.raises(ValueError, match="debug_steps"):
-            ktrace.trace_frame_reference(packed, seed, cfg, CFG.height, debug_steps=True)
+            ktrace.trace_frames_reference(packed, seed, cfg, CFG.height, debug_steps=True)
         return
-    color, t, hit = ktrace.trace_frame(packed, seed, cfg, CFG.height)
-    ref = ktrace.trace_frame_reference(packed, seed, cfg, CFG.height)
-    assert color.shape == (3, CFG.height, CFG.width) and torch.isfinite(color).all()
+    color, t, hit = ktrace.trace_frames(packed, seed, cfg, CFG.height)
+    ref = ktrace.trace_frames_reference(packed, seed, cfg, CFG.height)
+    assert color.shape == (1, 3, CFG.height, CFG.width) and torch.isfinite(color).all()
     for a, b in zip((color, t, hit), ref):
         assert torch.equal(a, b)
     assert 0.3 < hit.mean().item() < 1.0
@@ -168,12 +168,12 @@ def test_volumetric_warp_octaves_out_of_range_raise(scene, warp_octaves):
     cfg = dataclasses.replace(CFG, prime_ds=0, volumetric=True, warp_octaves=warp_octaves)
     packed, seed, _ = _inputs(scene)
     with pytest.raises(ValueError, match="warp_octaves"):
-        ktrace.trace_frame(packed, seed, cfg, CFG.height)
-    t = torch.ones(CFG.height, CFG.width)
-    hit = torch.zeros(CFG.height, CFG.width)
-    g = torch.zeros(3, CFG.height, CFG.width)
+        ktrace.trace_frames(packed, seed, cfg, CFG.height)
+    t = torch.ones(1, CFG.height, CFG.width)
+    hit = torch.zeros(1, CFG.height, CFG.width)
+    g = torch.zeros(1, 3, CFG.height, CFG.width)
     with pytest.raises(ValueError, match="warp_octaves"):
-        ktrace.trace_frame_bwd(packed, seed, cfg, CFG.height, t, hit, g)
+        ktrace.trace_frames_bwd(packed, seed, cfg, CFG.height, t, hit, g)
 
 
 def test_no_fallback_without_cuda(monkeypatch, tmp_path):
@@ -245,7 +245,7 @@ def test_warp_tiles_cover_every_pixel_once(local_height, width):
 
 
 def test_warp_tiles_of_row_bands_make_the_frame(scene):
-    """Row bands (row0, local_height), as trace_frame takes them for sharding:
+    """Row bands (row0, local_height), as trace_frames takes them for sharding:
     each band's tiles cover its own rows once, the bands together the frame,
     and the counter's warp reduction runs per band."""
     cfg = dataclasses.replace(CFG, prime_ds=0)
@@ -254,7 +254,7 @@ def test_warp_tiles_of_row_bands_make_the_frame(scene):
         ids = ktrace.warp_tile_pixels(h, cfg.width)
         covered[ids[ids >= 0] + row0 * cfg.width] += 1
         packed, seed = pack_scene(scene, cfg.height, cfg.width, float(row0))
-        *_, steps = ktrace.trace_frame(packed.detach(), seed, cfg, h, debug_steps=True)
+        *_, (steps,) = ktrace.trace_frames(packed.detach(), seed, cfg, h, debug_steps=True)
         warps = ktrace.warp_steps(steps)
         assert warps.shape == (ids.shape[0],)
         assert (warps == torch.where(ids >= 0, steps.reshape(-1)[ids.clamp(min=0)], 0)

@@ -2,7 +2,7 @@
 ``march_mode`` "fixed" (no early exit) and "lod" (a certified coarse-field
 phase before the fine march), and ``march_bf16`` (bf16 blend math in the
 march field), on the heightfield and on the volumetric terrain, against the
-JAX package's Pallas kernel in interpret mode. On the CPU ``trace_frame``
+JAX package's Pallas kernel in interpret mode. On the CPU ``trace_frames``
 runs its plain version; the CUDA kernel is held to that plain version by
 tests/test_torch_cuda.py (on a GPU) and chip_smoke.py.
 
@@ -222,8 +222,10 @@ def _f32_field_kernel_grads(cfg):
     img = img.requires_grad_()
     (g,) = torch.autograd.grad(torch.mean(img * torch.cos(img)), img)
     packed, seed = pack_scene(scene, cfg.height, cfg.width)
-    pbar = ktrace.trace_frame_bwd(packed.detach(), seed, dataclasses.replace(cfg, march_bf16=False),
-                                  cfg.height, t, hit.float(), g.permute(2, 0, 1).contiguous())
+    pbar = ktrace.trace_frames_bwd(packed.detach(), seed,
+                                   dataclasses.replace(cfg, march_bf16=False), cfg.height,
+                                   t[None], hit.float()[None],
+                                   g.permute(2, 0, 1)[None].contiguous())
     packed.backward(pbar)
     return {n: p.grad for n, p in scene.named_parameters() if p.grad is not None}
 
@@ -299,10 +301,10 @@ def _port_bwd_grads(js, cfg, t, hit, g):
     pulled back to the scene's leaves."""
     scene = scene_from_numpy(jax_scene_dict(js), device="cpu")
     packed, seed = pack_scene(scene, H, W)
-    pbar = ktrace.trace_frame_bwd(
-        packed.detach(), seed, cfg, H, torch.from_numpy(t),
-        torch.from_numpy(hit.astype(np.float32)),
-        torch.from_numpy(np.ascontiguousarray(np.moveaxis(g, -1, 0))))
+    pbar = ktrace.trace_frames_bwd(
+        packed.detach(), seed, cfg, H, torch.from_numpy(t)[None],
+        torch.from_numpy(hit.astype(np.float32))[None],
+        torch.from_numpy(np.ascontiguousarray(np.moveaxis(g, -1, 0)))[None])
     packed.backward(pbar)
     return {n: p.grad.numpy() for n, p in scene.named_parameters() if p.grad is not None}
 

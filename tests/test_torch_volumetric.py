@@ -9,7 +9,7 @@ the default RenderConfig otherwise (step relax 0.9).
 * Field, envelope, normal and shading against the JAX package to 1e-5.
 * Images: 99.9% of values within 2e-3 and 99% within 1e-5, primed and
   unprimed, for both routes (tests/test_pallas.py's contract).
-* ``trace_frame_bwd`` against ``_backward_pallas`` (interpret) on every leaf
+* ``trace_frames_bwd`` against ``_backward_pallas`` (interpret) on every leaf
   at rtol 2e-4, atol 1e-6 (tests/test_volumetric.py); render gradients
   against ``jax.grad`` of ``render_jax`` as tests/test_torch_bwd.py holds
   them. The warp leaves' gradients are non-zero.
@@ -210,11 +210,11 @@ def test_render_torch_matches_render_jax(prime):
 def test_render_kernel_raw_matches_pallas_interpret(prime):
     cfg = dataclasses.replace(CFG, prime_ds=PRIME[prime])
     jcfg = dataclasses.replace(JCFG, prime_ds=PRIME[prime], use_pallas=True, interpret=True)
-    launches = ktrace.trace_frame.launches.total()
+    launches = ktrace.trace_frames.launches.total()
     color, t, hit = ktrace.render_kernel_raw(port_scene(), cfg)
     j_color, j_t, j_hit = _render_pallas_raw(jax_default_scene(OCT, volumetric=True), jcfg)
     # The plain version ran: a CPU tensor never launches the CUDA kernel.
-    assert ktrace.trace_frame.launches.total() == launches == 0
+    assert ktrace.trace_frames.launches.total() == launches == 0
     assert_image_close(color, j_color, f"render_kernel_raw {prime}")
     hit, j_hit = hit.numpy(), np.asarray(j_hit)
     assert (hit == j_hit).mean() > 0.995
@@ -249,12 +249,12 @@ def test_trace_frame_bwd_matches_backward_pallas():
     ))
     scene = port_scene()
     packed, seed = pack_scene(scene, H, W)
-    pbar = ktrace.trace_frame_bwd(
-        packed.detach(), seed, CFG, H, torch.from_numpy(t),
-        torch.from_numpy(hit.astype(np.float32)),
-        torch.from_numpy(np.ascontiguousarray(np.moveaxis(g, -1, 0))),
+    pbar = ktrace.trace_frames_bwd(
+        packed.detach(), seed, CFG, H, torch.from_numpy(t)[None],
+        torch.from_numpy(hit.astype(np.float32))[None],
+        torch.from_numpy(np.ascontiguousarray(np.moveaxis(g, -1, 0)))[None],
     )
-    assert ktrace.trace_frame_bwd.launches.total() == 0
+    assert ktrace.trace_frames_bwd.launches.total() == 0
     packed.backward(pbar)
     got = leaf_grads(scene)
     for name, value in got.items():
