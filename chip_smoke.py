@@ -146,6 +146,13 @@ each prints one line and any failure exits non-zero:
     windows; ``fly_frames`` of 10 frames in batches of 4 and 8 with a tweak
     before the last batch, every frame bit for bit ``render_frame_uint8``;
     the host copy pageable vs pinned; fps and busy share, graph vs eager;
+    the batch's load (``fly_load_kernel``, ``kernels/load.py:FlyLoad``) at
+    1920x1080 x 4 on both terrains: a deep-copied, jittered scene (another
+    seed too) and the times loaded into a ``FlyBatch``'s private copy bit for
+    bit, as the plain copy it replaced (``_foreach_copy_`` and the times
+    through pinned memory) loads them, the caller's scene unwritten, one
+    launch counted; its times and the plain copy's as CUDA graphs beside a
+    one-value fill's (the launch's least time), and per call on the host;
 31. BASELINE.json config 5 (a 3840x2160 frame, 6 octaves, ``max_steps``
     128, ``prime_ds`` 8): the 4K frame through ``render``, 2 forward
     launches, finite, a sky-blue top; phase 27 at 4K (on an NCCL group of
@@ -469,8 +476,10 @@ FLY_FRAMES, FLY_ROUNDS = 24, 3
 # FLY_GRAPH_FRAMES frames in batches of FLY_GRAPH_BATCHES (each with a short
 # last batch); the tonemap-and-quantize kernel and its plain version as CUDA
 # graphs of QUANT_REPS calls; COPY_REPS copies to the host of each size and
-# kind; FLY_GRAPH_FPS_FRAMES frames per fps reading.
+# kind; FLY_GRAPH_FPS_FRAMES frames per fps reading; LOAD_SEED jitters the
+# scene that the load part loads.
 FLY_GRAPH_FRAMES, FLY_GRAPH_BATCHES = 10, (4, 8)
+LOAD_SEED = 2147480021
 QUANT_REPS, COPY_REPS, FLY_GRAPH_FPS_FRAMES = 20, 10, 24
 # Phase 30's exhaustive check: every float32 bit pattern through the kernel
 # and its plain version, in chunks of one frame of EXHAUSTIVE_SIDE^2 pixels
@@ -583,8 +592,9 @@ def bwd_error(got: torch.Tensor, ref: torch.Tensor, rtol: float = BWD_RTOL,
 
 
 def reset_counts() -> None:
-    """Set the forward, backward, tonemap-and-quantize and scene-packing
-    kernels' launch counts to 0."""
+    """Set the forward, backward, tonemap-and-quantize, scene-packing and
+    fly-load kernels' launch counts to 0."""
+    from gpgpuraytrace_tpu_torch.kernels.load import FlyLoad
     from gpgpuraytrace_tpu_torch.kernels.pack import pack_frames, pack_vjp
     from gpgpuraytrace_tpu_torch.kernels.quantize import tonemap_quantize
     from gpgpuraytrace_tpu_torch.kernels.trace import trace_frames, trace_frames_bwd
@@ -594,6 +604,7 @@ def reset_counts() -> None:
     tonemap_quantize.launches = 0
     pack_frames.launches = 0
     pack_vjp.launches = 0
+    FlyLoad.launches = 0
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -2487,10 +2498,12 @@ def batch_fly(scene, cfg, tag: str) -> tuple[str, dict]:
         reset_counts()
         frames = list(fly_frames(scene, c, 8, batch=4, program=program))
         torch.cuda.synchronize()
-        got = {k: v for k, v in program.launches.items() if k != "tonemap_quantize"}
-        if got != per_batch:
+        got = {k: v for k, v in program.launches.items()
+               if k not in ("tonemap_quantize", "fly_load")}
+        if (got != per_batch or program.launches["tonemap_quantize"] != 1
+                or program.launches["fly_load"] != 1):
             fail(f"{tag}fly_frames {c.march_mode}: {program.launches} launches a batch, "
-                 f"expected {per_batch} and one tonemap_quantize")
+                 f"expected {per_batch}, one tonemap_quantize and one fly_load")
         expect_counts(f"{tag}fly_frames {c.march_mode}, 8 frames in batches of 4",
                       {k: v * program.counted for k, v in per_batch.items()})
         counts.update(launch_counts())
@@ -2876,8 +2889,10 @@ def fly_graph_frames(scene, cfg, tag: str, batch: int) -> tuple[str, collections
     read just after: every frame bit for bit ``render_frame_uint8`` of its
     time on the scene it was rendered from, the tweaked batch apart from the
     untweaked frames, every batch after the first a replay, the counters
-    risen by the launches of a batch for each counted call. Returns (report,
-    trace launches, tonemap_quantize launches)."""
+    risen by the launches of a batch for each counted call, the load's by one
+    for each call. Returns (report, trace launches, tonemap_quantize
+    launches, fly_load launches)."""
+    from gpgpuraytrace_tpu_torch.kernels.load import FlyLoad
     from gpgpuraytrace_tpu_torch.kernels.quantize import tonemap_quantize
     from gpgpuraytrace_tpu_torch.ops.flythrough import FlyBatch, fly_frames, render_frame_uint8
     from gpgpuraytrace_tpu_torch.utils.tweak import apply_tweaks
@@ -2899,14 +2914,17 @@ def fly_graph_frames(scene, cfg, tag: str, batch: int) -> tuple[str, collections
     trace = collections.Counter(launch_counts())
     quant = tonemap_quantize.launches
     what = f"{tag}fly graph {cfg.march_mode} {cfg.height}x{cfg.width}, {n} frames in {batch}s"
-    per_batch = {k: v for k, v in program.launches.items() if k != "tonemap_quantize"}
+    loads = FlyLoad.launches
+    per_batch = {k: v for k, v in program.launches.items()
+                 if k not in ("tonemap_quantize", "fly_load")}
     if (program.replays != batches - 1 or program.counted != 2
             or program.launches["tonemap_quantize"] != 1 or quant != program.counted
+            or program.launches["fly_load"] != 1 or loads != program.calls
             or trace != collections.Counter({k: v * program.counted
                                              for k, v in per_batch.items()})):
         fail(f"{what}: {program.replays} replays, {program.counted} counted calls, "
-             f"{dict(program.launches)} launches a batch, counters {dict(trace)} and "
-             f"tonemap_quantize {quant}")
+             f"{dict(program.launches)} launches a batch, counters {dict(trace)}, "
+             f"tonemap_quantize {quant} and fly_load {loads} over {program.calls} calls")
     times = torch.arange(n, dtype=torch.float32) / 30.0
     for i, f in frames:
         want = render_frame_uint8(used[i // batch], cfg, times[i]).cpu().numpy()
@@ -2920,7 +2938,103 @@ def fly_graph_frames(scene, cfg, tag: str, batch: int) -> tuple[str, collections
     line = (f"{what}: {batches} batches, {program.replays} replays, launches a batch "
             f"{dict(program.launches)}, every frame bit for bit render_frame_uint8, the "
             f"tweak shown in batch {batches}")
-    return line, trace, quant
+    return line, trace, quant, loads
+
+
+def fly_load_vs_plain(dev, loads: int) -> tuple[str, dict]:
+    """Phase 30, part 5: the batch's load (``kernels/load.py:FlyLoad``) of a
+    ``FlyBatch`` at 1920x1080 x 4 (the ``fly1080`` cell's shape) on both
+    terrains, against the plain copy it replaced (``_foreach_copy_`` over
+    the leaves, the times from pinned memory) into a second copy of the
+    scene: from a deep copy of the scene with every float leaf jittered and
+    another seed, the private copy's leaves and times bit for bit the
+    caller's and the plain copy's, the caller's scene unwritten, the launch
+    counted once (the counts set to 0 just before). On the heightfield, the
+    load's and the plain copy's device times as CUDA graphs of PACK_REPS
+    calls beside a one-value fill's (the least a launch takes; the bound)
+    and the bytes' bound, and their host times per call. ``loads``: the
+    load's launches in the fly runs before. Returns (report, the kernels'
+    record entry)."""
+    from gpgpuraytrace_tpu_torch import RenderConfig, default_scene
+    from gpgpuraytrace_tpu_torch.kernels.load import FlyLoad, _leaves
+    from gpgpuraytrace_tpu_torch.ops.flythrough import FlyBatch
+
+    def bits(x):
+        return x.detach().view(torch.int32)  # every leaf and time is 4 bytes
+
+    gen = torch.Generator().manual_seed(LOAD_SEED)
+    times = (torch.arange(4, dtype=torch.float32) + 17.0) / 30.0
+    parts, arms = [], {}
+    for vol in (False, True):
+        tag = "volumetric " if vol else ""
+        scene = default_scene(6, volumetric=vol, device=dev)
+        program = FlyBatch(scene, RenderConfig(num_octaves=6, volumetric=vol, height=HD[0],
+                                               width=HD[1]), 4)
+        caller = copy.deepcopy(scene)
+        with torch.no_grad():
+            for x in _leaves(caller):
+                if x.dtype == torch.float32:
+                    noise = torch.randn(x.shape, generator=gen).to(dev)
+                    x.mul_(1.0 + 0.05 * noise).add_(0.01 * noise)
+                else:
+                    x.add_(1)
+        before = [bits(x).clone() for x in _leaves(caller)]
+        plain_copy = copy.deepcopy(scene)
+        dst, src = _leaves(plain_copy), [x.detach() for x in _leaves(caller)]
+        plain_times = torch.zeros(4, device=dev)
+        pinned = times.pin_memory()
+
+        def plain(dst=dst, src=src, plain_times=plain_times, pinned=pinned):
+            with torch.no_grad():
+                torch._foreach_copy_(dst, src)
+                plain_times.copy_(pinned, non_blocking=True)
+
+        reset_counts()
+        program.load(caller, times)
+        plain()
+        torch.cuda.synchronize()
+        if FlyLoad.launches != 1:
+            fail(f"{tag}fly load: {FlyLoad.launches} launches counted for one call")
+        kern, want, ref = _leaves(program.scene), _leaves(caller), _leaves(plain_copy)
+        differ = sum(int((bits(a) != bits(b)).sum()) + int((bits(a) != bits(c)).sum())
+                     for a, b, c in zip(kern, want, ref))
+        differ += int((bits(program.times) != bits(times.to(dev))).sum())
+        differ += int((bits(program.times) != bits(plain_times)).sum())
+        if differ:
+            fail(f"{tag}fly load: {differ} values differ from the caller's scene and times "
+                 f"or from the plain copy's")
+        if any(not torch.equal(bits(x), b) for x, b in zip(want, before)):
+            fail(f"{tag}fly load wrote the caller's scene")
+        jittered = sum(not torch.equal(bits(a), bits(b)) for a, b in zip(want, _leaves(scene)))
+        parts.append(f"{tag}{len(kern)} leaves ({sum(x.numel() for x in kern)} values, "
+                     f"{jittered} of them jittered) and 4 times bit for bit the caller's and "
+                     f"the plain copy's")
+        if not vol:
+            n_values = sum(x.numel() for x in kern) + 4
+            arms = {"load": lambda load=program.load, caller=caller: load(caller, times),
+                    "plain": plain}
+    fill = torch.zeros(1, device=dev)
+    ms = {k: graph_ms(fn, PACK_REPS) for k, fn in arms.items()}
+    launch_ms = graph_ms(lambda: fill.fill_(1.0), PACK_REPS)
+    host = {k: host_us(fn) for k, fn in arms.items()}
+    bytes_ms = 1e3 * 2 * 4 * n_values / HBM_BYTES_PER_S
+    bound_ms, bound_by = max((launch_ms, "launch"), (bytes_ms, "bytes"))
+    line = (f"fly load 1920x1080 x 4: " + "; ".join(parts) + f"; one launch counted; "
+            f"{loads} launches in the fly runs above (one a call); as CUDA graphs of "
+            f"{PACK_REPS}: load {ms['load']:.5f} ms, plain copy {ms['plain']:.5f} ms, a "
+            f"one-value fill {launch_ms:.5f} ms, bytes {bytes_ms:.2e} ms; host per call: "
+            f"load {host['load']:.2f} us, plain copy {host['plain']:.2f} us")
+    entry = {"name": "fly_load", "route": "cuda",
+             "source": "gpgpuraytrace_tpu_torch/kernels/csrc/load.cu",
+             "replaces": "gpgpuraytrace_tpu/ops/flythrough.py:39 (XLA's transfer of the "
+                         "batch call's arguments)",
+             "variants": ["heightfield", "volumetric"], "frames": 4, "size": "1920x1080",
+             "launches": loads + 1, "launches_by_path": {"flythrough": loads, "check": 1},
+             "max_abs_err": 0.0, "ms": ms["load"], "plain_ms": ms["plain"],
+             "bound_ms": bound_ms, "bound_by": bound_by, "launch_ms": launch_ms,
+             "bytes_bound_ms": bytes_ms, "host_us": host["load"],
+             "plain_host_us": host["plain"], "library_ms": None}
+    return line, entry
 
 
 def copy_times(dev) -> str:
@@ -3038,10 +3152,11 @@ def fly_graph_fps(scene, cfg) -> str:
             + "; ".join(parts))
 
 
-def fly_graph_phase(dev, card: str) -> tuple[str, dict, collections.Counter]:
+def fly_graph_phase(dev, card: str) -> tuple[str, list[dict], collections.Counter]:
     """Phase 30: the flythrough batch as one CUDA graph, both terrains,
-    default and compact. Returns (report, the tonemap_quantize entry of the
-    kernels' record, the trace kernels' launches of its fly runs)."""
+    default and compact. Returns (report, the tonemap_quantize and fly_load
+    entries of the kernels' record, the trace kernels' launches of its fly
+    runs)."""
     from gpgpuraytrace_tpu_torch import RenderConfig, default_scene
     from gpgpuraytrace_tpu_torch.kernels.build import build_library
 
@@ -3049,7 +3164,7 @@ def fly_graph_phase(dev, card: str) -> tuple[str, dict, collections.Counter]:
     lines = []
     quant = []
     trace_counts = collections.Counter()
-    quant_launches = 0
+    quant_launches = load_launches = 0
     sass = quantize_sass(build_library()[0])
     for vol in (False, True):
         tag = "volumetric " if vol else ""
@@ -3064,10 +3179,11 @@ def fly_graph_phase(dev, card: str) -> tuple[str, dict, collections.Counter]:
                 r["config"] = f"{tag}{c.march_mode}"
                 quant.append(r)
             for b in FLY_GRAPH_BATCHES:
-                line, counts, q = fly_graph_frames(scene, c, tag, b)
+                line, counts, q, loads = fly_graph_frames(scene, c, tag, b)
                 lines.append(line)
                 trace_counts.update(counts)
                 quant_launches += q
+                load_launches += loads
     hd8 = quantize_vs_plain(default_scene(6, device=dev), RenderConfig(
         num_octaves=6, height=HD[0], width=HD[1]), "", 8, sass["per_pixel"])
     hd8["config"] = "chunked"
@@ -3079,6 +3195,7 @@ def fly_graph_phase(dev, card: str) -> tuple[str, dict, collections.Counter]:
         f"{r['plain_ms']:.5f} ms" for r in quant)
     every = quantize_exhaustive(dev)
     fps_line = fly_graph_fps(default_scene(6, device=dev), RenderConfig(num_octaves=6))
+    load_line, load_entry = fly_load_vs_plain(dev, load_launches)
     line = (f"tonemap_quantize vs plain (CUDA graphs of {QUANT_REPS} calls; fast path "
             f"{sass['per_pixel']:g} SASS instructions a pixel, static: {sass['counted']} in its "
             f"loop less {sass['rare']} only the exact chain's inputs reach): {qline} | all "
@@ -3087,7 +3204,7 @@ def fly_graph_phase(dev, card: str) -> tuple[str, dict, collections.Counter]:
             f"{every['changes']} changes, {every['windows']} windows, "
             f"{every['exact_patterns']} finite patterns to the exact chain, scan "
             f"{every['scan_s']:.3f} s | " + " | ".join(lines) + f" | {copy_times(dev)} | "
-            f"{fps_line} | phase 30 took {time.perf_counter() - t0:.1f} s {card}")
+            f"{fps_line} | {load_line} | phase 30 took {time.perf_counter() - t0:.1f} s {card}")
     head = next(r for r in quant if r["config"] == "chunked" and r["size"] == "1920x1080"
                 and r["frames"] == 4)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bytes_bound_ms", "issue_bound_ms",
@@ -3103,7 +3220,7 @@ def fly_graph_phase(dev, card: str) -> tuple[str, dict, collections.Counter]:
              **{k: head[k] for k in keys},
              "by_shape": [{k: r[k] for k in ("config", "frames", "size", "differ", *keys)}
                           for r in quant]}
-    return line, entry, trace_counts
+    return line, [entry, load_entry], trace_counts
 
 
 def uhd_band_vs_plain(scene, cfg, whole, row0: int, h: int) -> str:
@@ -4171,7 +4288,7 @@ def main() -> None:
     phase(29, "bench", bench_line)
 
     # --- 30. the flythrough batch as one CUDA graph ----------------------------
-    fly_graph_line, quant_entry, fly_graph_counts = fly_graph_phase(dev, card)
+    fly_graph_line, fly_entries, fly_graph_counts = fly_graph_phase(dev, card)
     fly_counts.update(fly_graph_counts)
     phase(30, "fly graph", fly_graph_line)
 
@@ -4304,7 +4421,7 @@ def main() -> None:
         batch_entry("compact+frames:phase2", "phase2",
                     source="gpgpuraytrace_tpu_torch/kernels/csrc/trace_compact.cu",
                     kernel="trace_compact"),
-        quant_entry,
+        *fly_entries,
         *pack_entries,
     ]}
     print(json.dumps(record))

@@ -51,6 +51,19 @@ def _parse_size(s: str) -> tuple[int, int]:
     return int(s), int(s)
 
 
+def _fly_batch(s: str) -> int:
+    """``fly --batch``: 1 to ``kernels/load.py:MAX_TIMES`` frames, the times
+    that a batch's load carries in its launch."""
+    from gpgpuraytrace_tpu_torch.kernels.load import check_batch
+
+    batch = int(s)
+    try:
+        check_batch(batch)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e)) from None
+    return batch
+
+
 def _cfg_from_args(args):
     from gpgpuraytrace_tpu_torch.models.scene import RenderConfig
 
@@ -317,7 +330,8 @@ def main(argv=None):
     sp = sub.add_parser("fly", help="animated flythrough frames")
     _common(sp, march_mode=True)
     sp.add_argument("--frames", type=int, default=60)
-    sp.add_argument("--batch", type=int, default=4, help="frames per batch")
+    sp.add_argument("--batch", type=_fly_batch, default=4,
+                    help="frames per batch, at most kernels/load.py:MAX_TIMES (906)")
     sp.add_argument(
         "--tweak", default="",
         help="watched JSON file of live scene overrides "

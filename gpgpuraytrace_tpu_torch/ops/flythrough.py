@@ -22,18 +22,17 @@ from __future__ import annotations
 import collections
 import copy
 import functools
-import operator
 from typing import Callable, Iterator
 
 import numpy as np
 import torch
 
+from gpgpuraytrace_tpu_torch.kernels.load import FlyLoad
 from gpgpuraytrace_tpu_torch.kernels.quantize import tonemap_quantize
 from gpgpuraytrace_tpu_torch.kernels.trace import render_frames_raw, trace_frames
 from gpgpuraytrace_tpu_torch.models.scene import Camera, RenderConfig, Scene
 from gpgpuraytrace_tpu_torch.ops.camera import Cameras
 from gpgpuraytrace_tpu_torch.ops.render import render
-from gpgpuraytrace_tpu_torch.utils.convert import LEAF_NAMES
 from gpgpuraytrace_tpu_torch.utils.graphs import CapturedProgram
 from gpgpuraytrace_tpu_torch.utils.profiling import span
 
@@ -98,9 +97,11 @@ def render_batch_uint8(scene: Scene, cfg: RenderConfig, times: torch.Tensor) -> 
 
 def launch_counts() -> collections.Counter:
     """Kernel launches so far on the fly path, by kernel: the trace kernels'
-    instantiations (``trace_frames.launches``) and ``tonemap_quantize``."""
+    instantiations (``trace_frames.launches``), ``tonemap_quantize`` and
+    ``fly_load`` (``FlyLoad.launches``)."""
     counts = collections.Counter(trace_frames.launches)
     counts["tonemap_quantize"] = tonemap_quantize.launches
+    counts["fly_load"] = FlyLoad.launches
     return counts
 
 
@@ -136,23 +137,28 @@ class FlyBatch:
     runs nothing) and replays it, as does every later call. Nothing falls
     back: a capture that fails raises. The
     graph reads a private copy of the scene and a (batch,) buffer of times
-    by address; before each call the caller's current leaves
-    (``utils/convert.py:LEAF_NAMES``) are copied into that copy, so a
-    replaced scene (a live tweak hands over a deep copy) and an edit in
-    place both show in the next batch, and the caller's scene is never
-    written. The times are computed on the host, as ``fly_frames`` does,
-    and copied into the buffer from pinned memory (dividing on the card
-    would multiply by the reciprocal and move the camera by an ulp). A call
-    takes exactly ``batch`` times; it returns the graph's output buffer,
-    which the next call overwrites.
+    by address; before each call ``load`` (``kernels/load.py:FlyLoad``, one
+    launch of ``fly_load_kernel`` on the replaying stream) copies the
+    caller's current leaves (``utils/convert.py:LEAF_NAMES``, read by
+    pointer at each call) and the times into them, so a replaced scene (a
+    live tweak hands over a deep copy) and an edit in place both show in the
+    next batch, and the caller's scene is never written. A caller's leaf of
+    another dtype, shape or device, or not contiguous, raises
+    ``ValueError``. The times are computed on the host, as ``fly_frames``
+    does, and travel in the launch's arguments (dividing on the card would
+    multiply by the reciprocal and move the camera by an ulp). A call takes
+    exactly ``batch`` times, at most ``kernels/load.py:MAX_TIMES``; it
+    returns the graph's output buffer, which the next call overwrites.
 
-    ``launches`` holds the kernel launches of one batch (``launch_counts``),
-    read at the eager call and at the capture: the launch counters count a
-    capture's launches once, not per replay, so over a run they rise by
-    ``launches`` times ``counted`` (the eager calls and the capture).
+    ``launches`` holds the kernel launches of one batch (``launch_counts``):
+    the graph's, read at the eager call and at the capture, and on the card
+    the load's, ``fly_load``: 1. The launch counters count a capture's
+    launches once, not per replay, so over a run the graph's rise by their
+    ``launches`` times ``counted`` (the eager calls and the capture); the
+    load runs outside the graph, so ``fly_load`` rises by one per call.
     ``replays`` counts replays. Under a profiler ``host_frames`` is the span
     ``fly.batch`` (``utils/profiling.py:span``), holding ``fly.load`` (the
-    copies in), the graph's own spans, ``fly.to_host`` (the host tensor and
+    load's launch), the graph's own spans, ``fly.to_host`` (the host tensor and
     the copy's enqueue) and ``fly.wait`` (the host waiting for the frames).
 
     On the CPU, or with ``use_kernel=False``, a call is the eager
@@ -168,39 +174,29 @@ class FlyBatch:
         self.tally = _Tally()
         if self.graphed:
             self.scene = copy.deepcopy(scene)
-            self.leaves = [operator.attrgetter(n)(self.scene) for n in LEAF_NAMES]
             self.times = torch.zeros(batch, dtype=torch.float32, device=self.device)
+            self.load = FlyLoad(self.scene, self.times)
             self.program = CapturedProgram(
                 functools.partial(_render_counted, self.tally, cfg, self.scene, self.times),
                 self.device)
 
     @property
     def launches(self) -> collections.Counter:
+        if self.graphed and self.counted:
+            return self.tally.launches + collections.Counter(fly_load=1)
         return self.tally.launches
 
     @property
     def counted(self) -> int:
         return self.tally.counted
 
-    def _load(self, scene: Scene, times: torch.Tensor) -> None:
-        """Copy the caller's leaves and the batch's times into the graph's."""
-        if tuple(times.shape) != (self.batch,):
-            raise ValueError(f"FlyBatch of {self.batch} frames: got times of shape "
-                             f"{tuple(times.shape)}")
-        with span("gpgpuraytrace_tpu_torch.fly.load"), torch.no_grad():
-            src = [operator.attrgetter(n)(scene).detach() for n in LEAF_NAMES]
-            torch._foreach_copy_(self.leaves, src)
-            host = times.to(torch.float32)
-            if host.device.type == "cpu":
-                host = host.pin_memory()
-            self.times.copy_(host, non_blocking=True)
-
     def frames(self, scene: Scene, times: torch.Tensor) -> torch.Tensor:
         """The batch's frames, (len(times), H, W, 3) uint8 on the device."""
         self.calls += 1
         if not self.graphed:
             return _render_counted(self.tally, self.cfg, scene, times)
-        self._load(scene, times)
+        with span("gpgpuraytrace_tpu_torch.fly.load"):
+            self.load(scene, times)
         if self.program.calls == 0:
             return self.program()  # the eager warm-up
         out = self.program()

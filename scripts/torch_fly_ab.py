@@ -62,28 +62,32 @@ print(json.dumps(res))
 """
 
 
-def run(tree: Path) -> dict:
-    proc = subprocess.run([sys.executable, "-c", CHILD], cwd=tree, capture_output=True,
+def run(tree: Path, child: str) -> dict:
+    """The last line of ``child``'s output as JSON, run in a fresh process in
+    ``tree``'s root."""
+    proc = subprocess.run([sys.executable, "-c", child], cwd=tree, capture_output=True,
                           text=True, timeout=900)
     if proc.returncode != 0:
         raise SystemExit(f"{tree}: exited {proc.returncode}\n{proc.stderr[-3000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def main(child: str = CHILD, out: str = "build/ab/fly_ab.json", doc: str = __doc__) -> None:
+    """Parse ``--tree``, ``--rounds`` and ``--out`` (default ``out``), run
+    ``child`` once in each tree (its kernels' build), then in turns."""
+    ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("--tree", action="append", required=True, help="name=checkout directory")
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--out", default="build/ab/fly_ab.json")
+    ap.add_argument("--out", default=out)
     args = ap.parse_args()
     trees = {k: Path(v).resolve() for k, v in (t.split("=", 1) for t in args.tree)}
     for tree in trees.values():  # build each tree's kernels
-        run(tree)
+        run(tree, child)
     order = list(trees)
     turns = []
     for r in range(args.rounds):
         for name in (order + order[::-1]) if r % 2 == 0 else (order[::-1] + order):
-            turns.append({"tree": name, "round": r, **run(trees[name])})
+            turns.append({"tree": name, "round": r, **run(trees[name], child)})
             print(json.dumps(turns[-1]), flush=True)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(turns, indent=1))

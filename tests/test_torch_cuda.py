@@ -779,7 +779,8 @@ def fly_program(cuda, volumetric, mode, batch, size=(64, 128)):
 def test_cuda_fly_graph_replays_equal_eager_batches(cuda, volumetric, mode):
     """FlyBatch: the warm-up, the capture and later replays, each batch bit
     for bit eager render_batch_uint8 of its times; the launches of a batch
-    read at the capture; replays under sync debug mode "error"."""
+    read at the capture, the load's too; replays under sync debug mode
+    "error", each counting only the load's launch."""
     from gpgpuraytrace_tpu_torch.ops.flythrough import launch_counts, render_batch_uint8
 
     scene, cfg, program = fly_program(cuda, volumetric, mode, 4)
@@ -794,12 +795,13 @@ def test_cuda_fly_graph_replays_equal_eager_batches(cuda, volumetric, mode):
                 got = program.frames(scene, times)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-            assert launch_counts() == before  # a replay counts nothing
+            # a replay counts only the load, which runs outside the graph
+            assert launch_counts() - before == collections.Counter(fly_load=1)
         else:
             got = program.frames(scene, times)
         assert torch.equal(got, want), call
     assert program.calls == 4 and program.replays == 3
-    passes = {"tonemap_quantize": 1}
+    passes = {"tonemap_quantize": 1, "fly_load": 1}
     assert program.launches == collections.Counter(
         passes | ({ktrace.phase_name(cfg, 1, 4): 1, ktrace.phase_name(cfg, 2, 4): 1}
                   if mode == "compact" else {ktrace.variant_name(cfg, frames=4): 2}))
@@ -888,6 +890,136 @@ def test_cuda_fly_spans_share_the_device_clock(cuda, tmp_path):
     for (a, b), (_, w1) in zip(sorted(spans["fly.to_host"]), sorted(spans["fly.wait"])):
         copies = [o for o in correlated(a, b, "Memcpy") if "DtoH" in o["name"]]
         assert len(copies) == 1 and copies[0]["ts"] + copies[0]["dur"] <= w1
+
+
+def jittered(scene, seed):
+    """A deep copy of ``scene`` (new leaf addresses), each float leaf scaled
+    by 1 + 0.05 N(0, 1) (numpy, seeded), the lattice seed moved by 1 + seed."""
+    out = copy.deepcopy(scene)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for _, x in out.named_parameters():
+            scale = np.asarray(1.0 + 0.05 * rng.standard_normal(x.shape), np.float32)
+            x.mul_(torch.from_numpy(scale).to(x.device))
+        out.noise.seed.add_(1 + seed)
+    return out
+
+
+def fly_times(k, batch=4):
+    return torch.arange(batch * k, batch * k + batch, dtype=torch.float32) / 30.0
+
+
+@pytest.mark.cuda
+def test_cuda_fly_load_copies_leaves_and_times_bit_for_bit(cuda):
+    """FlyBatch's load (kernels/load.py:FlyLoad, one launch): after it every
+    leaf of the private copy and its times hold the caller's bits (a NaN's
+    payload, -0.0 and the int32 seed too); the caller's scene is unchanged."""
+    import operator
+
+    from gpgpuraytrace_tpu_torch.utils.convert import LEAF_NAMES
+
+    def bits(x):
+        return x.detach().reshape(-1).view(torch.int32).cpu()
+
+    scene, _, program = fly_program(cuda, False, "default", 4)
+    other = jittered(scene, 1)
+    with torch.no_grad():
+        other.materials.fog_density.view(torch.int32).fill_(0x7FC00123)
+    before = {n: bits(operator.attrgetter(n)(other)) for n in LEAF_NAMES}
+    times = torch.tensor([0.1, -0.0, 3.7, 1e-30], dtype=torch.float32)
+    program.load(other, times)
+    torch.cuda.synchronize()
+    for name in LEAF_NAMES:
+        assert torch.equal(bits(operator.attrgetter(name)(program.scene)), before[name]), name
+        assert torch.equal(bits(operator.attrgetter(name)(other)), before[name]), name
+    assert torch.equal(bits(program.times), bits(times))
+
+
+@pytest.mark.cuda
+def test_cuda_fly_load_shows_a_new_scene_and_an_edit_in_place_in_the_next_batch(cuda):
+    """FlyBatch after its warm-up and capture: a deep copy with other values
+    (new leaf addresses) and then an in-place edit of its amplitudes (as the
+    fly1080 cell edits them) each show in the very next batch, bit for bit
+    render_batch_uint8 of that scene."""
+    from gpgpuraytrace_tpu_torch.ops.flythrough import render_batch_uint8
+
+    scene, cfg, program = fly_program(cuda, False, "default", 4)
+    for k in range(2):
+        program.frames(scene, fly_times(k))
+    new = jittered(scene, 2)
+    got = program.frames(new, fly_times(2))
+    assert torch.equal(got, render_batch_uint8(new, cfg, fly_times(2)))
+    unedited = render_batch_uint8(new, cfg, fly_times(3)).clone()
+    with torch.no_grad():
+        new.noise.amplitudes.mul_(1.05)
+    got = program.frames(new, fly_times(3))
+    assert torch.equal(got, render_batch_uint8(new, cfg, fly_times(3)))
+    assert not torch.equal(got, unedited)
+    assert program.replays == 3
+
+
+@pytest.mark.cuda
+def test_cuda_fly_two_batches_without_a_host_wait(cuda):
+    """Two FlyBatch calls with other times and scenes, the second enqueued
+    right after the first with no host wait (sync debug mode "error"): each
+    batch bit for bit render_batch_uint8 of its own scene and times."""
+    from gpgpuraytrace_tpu_torch.ops.flythrough import render_batch_uint8
+
+    scene, cfg, program = fly_program(cuda, False, "default", 4)
+    for k in range(2):
+        program.frames(scene, fly_times(k))
+    s1, s2 = jittered(scene, 3), jittered(scene, 4)
+    want = [render_batch_uint8(s, cfg, fly_times(k)).clone() for s, k in ((s1, 5), (s2, 9))]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [program.frames(s1, fly_times(5)).clone(), program.frames(s2, fly_times(9))]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["float64", "shape", "strided", "on_cpu"])
+def test_cuda_fly_load_refuses_a_leaf_unlike_the_copy(cuda, case):
+    """A caller's leaf of float64, of another shape, not contiguous or on the
+    CPU raises ValueError naming it, and nothing is launched."""
+    from gpgpuraytrace_tpu_torch.kernels.load import FlyLoad
+
+    scene, _, program = fly_program(cuda, False, "default", 4)
+    other = copy.deepcopy(scene)
+    amps = other.noise.amplitudes.detach()
+    if case == "float64":
+        other.noise.amplitudes = torch.nn.Parameter(amps.double())
+    elif case == "shape":
+        other.noise.amplitudes = torch.nn.Parameter(amps[:5].clone())
+    elif case == "strided":
+        other.noise.amplitudes = torch.nn.Parameter(amps.repeat_interleave(2)[::2])
+    else:
+        other.noise.amplitudes = torch.nn.Parameter(amps.cpu())
+    before = FlyLoad.launches
+    with pytest.raises(ValueError, match=r"noise\.amplitudes"):
+        program.frames(other, fly_times(0))
+    assert FlyLoad.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_fly_load_counts_one_launch_a_call(cuda):
+    """FlyLoad.launches rises by one for every FlyBatch call on the card:
+    the eager warm-up, the capture's call and each replay, through frames
+    and through host_frames; launch_counts and FlyBatch.launches count it."""
+    from gpgpuraytrace_tpu_torch.kernels.load import FlyLoad
+    from gpgpuraytrace_tpu_torch.ops.flythrough import launch_counts
+
+    scene, _, program = fly_program(cuda, False, "default", 4)
+    before = FlyLoad.launches
+    for k in range(4):
+        program.frames(scene, fly_times(k))
+        assert FlyLoad.launches == before + k + 1
+        assert launch_counts()["fly_load"] == FlyLoad.launches
+    program.host_frames(scene, fly_times(4), 4)
+    assert FlyLoad.launches == before + 5 and program.calls == 5
+    assert program.launches["fly_load"] == 1
 
 
 @pytest.mark.cuda

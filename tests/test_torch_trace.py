@@ -213,7 +213,7 @@ def test_editing_a_header_changes_the_build_directory(monkeypatch, tmp_path):
         (csrc / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC", csrc)
     assert [p.name for p in build._sources()] == [
-        "pack.cu", "quantize.cu", "trace_bwd.cu", "trace_compact.cu", "trace_fwd.cu"]
+        "load.cu", "pack.cu", "quantize.cu", "trace_bwd.cu", "trace_compact.cu", "trace_fwd.cu"]
     before = build.build_dir()
     assert build.build_dir() == before  # stable for the same sources
     header = csrc / "field.cuh"
